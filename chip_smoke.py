@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port on one card and check it end to end.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
+``src/repro_torch``.  It prints one JSON object per phase:
+
+1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
+2. ``build``: both kernels compiled from ``src/repro_torch/csrc`` for
+   sm_90a, in parallel, with nvcc's register/spill report;
+3. ``kernel_checks``: each kernel against its plain PyTorch version on the
+   card at the main path's shapes, with times (CUDA events), the bound of
+   each call and one PyTorch library call as a yardstick;
+4. ``model_check``: full-width llama-3.1-8b (seeded random weights, in
+   f32 and in bf16), a 1000-token prefill and 8 decode steps through the
+   kernels and through the plain versions, with their largest logit
+   difference;
+5. ``engine``: the serving engine at full width and depth serving 16
+   requests (8 share a 1024-token prefix), with the kernels' launch counts
+   during that run;
+
+then the ``kernels`` summary line, the card's ``nvidia-smi`` line and, last,
+``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
+the last line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM data sheet: HBM bandwidth, dense bf16 tensor-core rate, f32 rate
+# on the CUDA cores (the f32 kernels do not use the tensor cores)
+BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the full-width model check: kernels vs plain versions in f32 weights,
+# and in bf16 the kernel path's error over the plain path's, each
+# against the f32 plain run (see model_check)
+MODEL_REL_TOL_F32 = 1e-3
+BF16_ERR_RATIO = 1.25
+
+ARCH = "llama-3.1-8b"
+SEED = 0
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, target_ms: float = 60.0) -> float:
+    """Mean time of ``fn`` on the card by CUDA events, after warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    iters = int(min(200, max(3, target_ms / max(once, 1e-3))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(ops: float, nbytes: float, dtype: str):
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_bytes = nbytes / BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_summary(text: str):
+    """Registers, static shared memory, stack and spill bytes of each kernel
+    entry in nvcc -Xptxas -v.  Both kernels take all their shared memory
+    dynamically, which ptxas does not see: its static figure is 0."""
+    entries = []
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entries.append({"entry": line.split("'")[1], "smem_bytes": 0,
+                            "stack_bytes": 0})
+        elif "spill stores" in line and entries:
+            entries[-1]["spill_store_bytes"] = int(line.split()[4])
+        elif "Used" in line and "registers" in line and entries:
+            used = line.split("Used")[1]
+            entries[-1]["registers"] = int(used.split("registers")[0])
+            for part in used.split(","):
+                words = part.split()
+                if part.strip().endswith(" smem"):
+                    entries[-1]["smem_bytes"] = int(words[0])
+                elif "stack size" in part:
+                    entries[-1]["stack_bytes"] = int(words[0])
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(dt)
+
+    q, k, v = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def kernel():
+        return ops_mod.flash_attention_op(q, k, v, window=window)
+
+    def plain():
+        return flash_attention_ref(qt, kt, vt, window=window)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain().transpose(1, 2)
+    err = (out.float() - ref.float()).abs()
+    tol = TOL[dtype]
+    ok = bool((err <= tol + tol * ref.float().abs()).all()) and \
+        bool(torch.isfinite(out).all())
+    pos = torch.arange(S, device=dev)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    pairs = int(mask.sum())
+
+    def library():
+        if window > 0:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    esize = q.element_size()
+    nbytes = esize * (2 * B * S * H * D + 2 * B * S * KV * D)
+    b_ms, b_by = bound(4.0 * B * H * D * pairs, nbytes, dtype)
+    return {"kernel": "flash_attention", "dtype": dtype,
+            "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
+            "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
+            "kernel_ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
+            "library_ms": cuda_ms(torch, library), "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
+                 cache_dtype=None):
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+
+    cache_dtype = cache_dtype or dtype
+    B = len(lens)
+
+    def rnd(*shape, dt):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(
+            getattr(torch, dt))
+
+    q = rnd(B, H, D, dt=dtype)
+    kc, vc = rnd(B, KV, Smax, D, dt=cache_dtype), rnd(B, KV, Smax, D, dt=cache_dtype)
+    lengths = torch.tensor(lens, device=dev, dtype=torch.int32)
+    G = H // KV
+    qg = q.reshape(B, KV, G, D)
+
+    def kernel():
+        return ops_mod.decode_attention_op(q, kc, vc, lengths)
+
+    def plain():
+        return decode_attention_ref(qg, kc, vc, lengths)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain().reshape(B, H, D)
+    err = (out.float() - ref.float()).abs()
+    tol = TOL[dtype]
+    ok = bool((err <= tol + tol * ref.float().abs()).all()) and \
+        bool(torch.isfinite(out).all())
+    valid = torch.arange(Smax, device=dev)[None, :] < lengths[:, None]
+    attn_mask = valid[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    kl, vl = kc.to(q.dtype), vc.to(q.dtype)  # SDPA takes one dtype
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kl, vl, attn_mask=attn_mask,
+                                              enable_gqa=True)
+
+    tokens = sum(min(max(n, 0), Smax) for n in lens)
+    nbytes = (q.element_size() * 2 * B * H * D
+              + kc.element_size() * 2 * tokens * KV * D + 4 * B)
+    b_ms, b_by = bound(4.0 * H * D * tokens, nbytes, dtype)
+    return {"kernel": "decode_attention", "dtype": dtype,
+            "cache_dtype": cache_dtype,
+            "shape": {"B": B, "H": H, "KV": KV, "D": D, "Smax": Smax, "lengths": lens},
+            "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
+            "kernel_ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
+            "library_ms": cuda_ms(torch, library), "bound_ms": b_ms, "bound_by": b_by}
+
+
+# the main path's shapes: llama-3.1-8b (H=32, KV=8, D=128) first, then one
+# size each of the other head dims and group sizes the registry serves
+FLASH_CASES = [
+    (1, 1, 32, 8, 128, 0, "bfloat16"),
+    (1, 77, 32, 8, 128, 0, "bfloat16"),
+    (1, 1000, 32, 8, 128, 0, "bfloat16"),
+    (1, 2048, 32, 8, 128, 0, "bfloat16"),
+    (1, 2048, 32, 8, 128, 1024, "bfloat16"),
+    (1, 1000, 32, 8, 64, 0, "bfloat16"),     # llama-3.2-1b: D=64, G=4
+    (1, 1000, 16, 2, 128, 0, "bfloat16"),    # qwen2.5-3b: G=8
+    (1, 1000, 16, 16, 256, 0, "bfloat16"),   # gemma-7b: D=256, G=1
+    (1, 77, 32, 8, 128, 0, "float32"),
+]
+DECODE_LENS = [0, 1, 77, 1000, 2048, 3000, 4095, 4096]
+DECODE_CASES = [
+    (32, 8, 128, 4096, DECODE_LENS, "bfloat16"),
+    (32, 8, 64, 4096, DECODE_LENS, "bfloat16"),   # llama-3.2-1b: D=64, G=4
+    (16, 2, 128, 4096, DECODE_LENS, "bfloat16"),  # qwen2.5-3b: G=8
+    (28, 4, 128, 4096, DECODE_LENS, "bfloat16"),  # qwen2-7b: G=7
+    (32, 2, 128, 4096, DECODE_LENS, "bfloat16"),  # glm4-9b: G=16
+    (16, 16, 256, 4096, DECODE_LENS, "bfloat16"),  # gemma-7b: D=256, G=1
+    (32, 8, 128, 1024, [0, 5, 1024, 300], "float32"),
+    # f32 weights over the bf16 cache, as in the f32 model check
+    (32, 8, 128, 1024, [0, 5, 1024, 300], "float32", "bfloat16"),
+]
+# the row of each kernel in the summary line
+SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# phase 4 and 5: the model and the engine at full width
+# ---------------------------------------------------------------------------
+
+
+def _logits_run(torch, model, prompt, steps):
+    """Logits (9, 1, vocab) of a 1000-token prefill and 8 decode steps."""
+    cache = model.init_cache(1, 1024)
+    logits, (k, v) = model.prefill(prompt)
+    cache[0][:, :, :, :1000] = k
+    cache[1][:, :, :, :1000] = v
+    out = [logits]
+    for i, tok in enumerate(steps):
+        logits, cache = model.decode_step(cache, tok, [1000 + i])
+        out.append(logits)
+    return torch.stack(out).float()
+
+
+def _rel(torch, a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def model_check(torch, np, cfg, dev, build_model):
+    """Full-width prefill + decode through the kernels and through the
+    plain versions, in f32 and in bf16 weights drawn from one seed.
+
+    In f32 the two differ only by the kernels' arithmetic, and that
+    difference is held to MODEL_REL_TOL_F32: the sound kernels read
+    2.2e-5 of the logit scale there, an attention that rounded P or V to
+    bf16 inside would read ~1e-2.  In bf16, two 32-layer pipelines whose
+    roundings part at one element end up as far apart as bf16 noise
+    (2.4e-2 of the scale, above a 2e-2 bound), so there each bf16 path is
+    held against the f32 plain run: the kernel path's error may exceed the
+    plain bf16 path's by at most BF16_ERR_RATIO.
+    Returns the result and the bf16 model, for the engine phase."""
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, 1000))
+    steps = rng.integers(0, cfg.vocab_size, size=(8, 1))
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, dtype=getattr(torch, dtype))
+        model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        weights_s = time.perf_counter() - t0
+        for plain in (False, True):
+            model.plain_attention = plain
+            runs[dtype, plain] = _logits_run(torch, model, prompt, steps)
+        model.plain_attention = False
+        if dtype == "float32":
+            del model
+            torch.cuda.empty_cache()
+    ref = runs["float32", True]
+    finite = all(bool(torch.isfinite(r).all()) for r in runs.values())
+    shape_ok = all(tuple(r.shape) == (9, 1, cfg.vocab_size)
+                   for r in runs.values())
+    f32_rel = _rel(torch, runs["float32", False], ref)
+    bf16_rel = _rel(torch, runs["bfloat16", False], runs["bfloat16", True])
+    kernel_err = _rel(torch, runs["bfloat16", False], ref)
+    plain_err = _rel(torch, runs["bfloat16", True], ref)
+    same_argmax = int((runs["bfloat16", False].argmax(-1)
+                       == runs["bfloat16", True].argmax(-1)).sum())
+    result = {"phase": "model_check", "arch": cfg.name, "prompt_tokens": 1000,
+              "decode_steps": 8, "max_rel_logit_diff_f32": f32_rel,
+              "tol_f32": MODEL_REL_TOL_F32, "max_rel_logit_diff_bf16": bf16_rel,
+              "bf16_kernel_vs_f32_plain": kernel_err,
+              "bf16_plain_vs_f32_plain": plain_err,
+              "bf16_err_ratio": kernel_err / plain_err,
+              "bf16_err_ratio_tol": BF16_ERR_RATIO,
+              "bf16_same_argmax_steps": same_argmax, "finite": finite,
+              "shape_ok": shape_ok, "bf16_weights_s": weights_s}
+    result["ok"] = (finite and shape_ok and f32_rel <= MODEL_REL_TOL_F32
+                    and kernel_err <= BF16_ERR_RATIO * plain_err)
+    return result, model
+
+
+def engine_run(torch, np, model, common):
+    from repro_torch.serving.engine import ServeRequest, ServingEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 1)
+    shared = rng.integers(0, cfg.vocab_size, size=1024)
+    reqs = []
+    for i in range(8):
+        suffix = rng.integers(0, cfg.vocab_size, size=int(rng.integers(32, 129)))
+        reqs.append(np.concatenate([shared, suffix]).astype(np.int32))
+        reqs.append(rng.integers(0, cfg.vocab_size,
+                                 size=int(rng.integers(256, 2049))).astype(np.int32))
+    max_new = 64
+    engine = ServingEngine(model, device=model.device, slots=8, max_len=4096)
+    decode_s = []
+    decode_step = engine._decode_step
+
+    def timed_decode_step():
+        t = time.perf_counter()
+        out = decode_step()  # ends in a host copy of the sampled tokens
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    engine._decode_step = timed_decode_step
+    for i, prompt in enumerate(reqs):
+        engine.submit(ServeRequest(i, prompt, max_new_tokens=max_new))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.launch_counts)
+    generated = sum(len(r.generated) for r in done)
+    tokens_ok = all(len(r.generated) == max_new and r.done and
+                    all(0 <= t < cfg.vocab_size for t in r.generated)
+                    for r in done)
+    result = {
+        "phase": "engine", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "slots": 8, "max_len": 4096,
+        "requests": len(reqs), "requests_done": len(done),
+        "prompt_tokens": int(sum(len(p) for p in reqs)),
+        "prefill_tokens": engine.stats["prefill_tokens"],
+        "cached_tokens": engine.stats["cached_tokens"],
+        "generated_tokens": generated, "wall_s": wall,
+        "tokens_per_s": generated / wall,
+        "decode_steps": engine.stats["decode_steps"],
+        "decode_step_ms": 1e3 * sum(decode_s) / max(len(decode_s), 1),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+    }
+    result["ok"] = (len(done) == len(reqs) and tokens_ok
+                    and engine.stats["cached_tokens"] > 0
+                    and all(n > 0 for n in launches.values()))
+    return result
+
+
+def run():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device is available")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        raise SmokeFailure("src/repro_torch is not beside this script")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    reports = common.build(common.KERNELS)
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+          "kernels": {name: {"seconds": r["seconds"],
+                             "ptxas": ptxas_summary(r["ptxas"])}
+                      for name, r in reports.items()},
+          "cached": sorted(set(common.KERNELS) - set(reports))})
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        checks = [check_flash(torch, F, flash_ops, dev, gen, *c) for c in FLASH_CASES]
+        checks += [check_decode(torch, F, decode_ops, dev, gen, *c)
+                   for c in DECODE_CASES]
+    emit({"phase": "kernel_checks", "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} kernel check(s) out of tolerance")
+
+    result, model = model_check(torch, np, get_config(ARCH), dev, build_model)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("full-width model check failed")
+    torch.cuda.empty_cache()
+
+    result = engine_run(torch, np, model, common)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("engine run failed")
+
+    summary = []
+    for name, source, replaces in (
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:90"),
+            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:74")):
+        mine = [c for c in checks if c["kernel"] == name]
+        row = mine[SUMMARY_SHAPE[name]]
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": result["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "dtype": row["dtype"]})
+    emit({"kernels": summary})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def main() -> int:
+    try:
+        run()
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,74 @@
+"""Load the reference's parameters into the port's models.
+
+The reference keeps its parameters as a pytree of arrays in which every
+per-layer leaf carries a leading ``L`` dim (the layer stack its
+``lax.scan`` consumes).  The bridge takes that tree with its leaves as
+**numpy arrays** (``jax.tree.map(np.asarray, params)``), so this module
+needs neither JAX nor ``ml_dtypes``: a bf16 leaf (numpy dtype name
+``"bfloat16"``) is reinterpreted bit for bit through ``uint16``.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import DenseLM
+
+
+def to_torch(arr) -> torch.Tensor:
+    """A CPU tensor with the same bits as the numpy array ``arr``."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _copy(dst: torch.Tensor, src, where: str) -> None:
+    t = to_torch(src)
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"{where}: shape {tuple(t.shape)}, model has "
+                         f"{tuple(dst.shape)}")
+    dst.data.copy_(t.to(dtype=dst.dtype))
+
+
+def _check_keys(have: Mapping, want, where: str) -> None:
+    if set(have) != set(want):
+        raise ValueError(f"{where}: reference keys {sorted(have)} != "
+                         f"model keys {sorted(want)}")
+
+
+@torch.no_grad()
+def load_reference_params(model: DenseLM, params: Mapping) -> DenseLM:
+    """Copy a dense LM's reference parameter tree into ``model``.
+
+    ``params`` is the tree of ``build_model(cfg).init(key)`` with numpy
+    leaves.  The stacked layer leaves are split along their leading ``L``.
+    Values are cast to the model's dtype; with equal dtypes the copy is
+    bit-exact.
+    """
+    top = {"embed", "layers", "final_norm"}
+    if model.lm_head is not None:
+        top.add("lm_head")
+    _check_keys(params, top, "params")
+    _copy(model.embed, params["embed"], "embed")
+    _copy(model.final_norm, params["final_norm"], "final_norm")
+    if model.lm_head is not None:
+        _copy(model.lm_head, params["lm_head"], "lm_head")
+    stack = params["layers"]
+    _check_keys(stack, ("ln1", "attn", "ln2", "mlp"), "layers")
+    n_layers = len(model.layers)
+    for name in ("ln1", "ln2"):
+        if np.shape(stack[name])[0] != n_layers:
+            raise ValueError(f"layers.{name}: {np.shape(stack[name])[0]} "
+                             f"layers, model has {n_layers}")
+    for i, layer in enumerate(model.layers):
+        _copy(layer.ln1, stack["ln1"][i], f"layers.ln1[{i}]")
+        _copy(layer.ln2, stack["ln2"][i], f"layers.ln2[{i}]")
+        for group in ("attn", "mlp"):
+            mine = getattr(layer, group)
+            _check_keys(stack[group], mine.keys(), f"layers.{group}")
+            for key, leaf in stack[group].items():
+                _copy(mine[key], leaf[i], f"layers.{group}.{key}[{i}]")
+    return model

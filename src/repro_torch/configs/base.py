@@ -1,0 +1,108 @@
+"""Architecture configuration (the port's own copy of ``repro.configs.base``).
+
+The port keeps its own ``ArchConfig`` so that it imports nothing of the JAX
+package.  Fields and derived quantities are the same as the reference's; the
+input-shape table of the reference (dry-run cells) is not needed here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """A single model architecture.
+
+    The field set is the union over families; family-specific fields are
+    zero/empty when unused.  ``family`` selects the model constructor.
+    """
+
+    name: str
+    family: str  # dense | moe | vlm | audio | hybrid | ssm | encoder
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: Optional[int] = None  # default: d_model // num_heads
+    activation: str = "swiglu"  # swiglu | geglu | gelu
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+
+    # --- VLM (cross-attention image layers; frontend stubbed) ---
+    cross_attn_every: int = 0
+    num_image_tokens: int = 0
+    vision_d_model: int = 0
+
+    # --- encoder-decoder (audio frontend stubbed) ---
+    encoder_layers: int = 0
+    num_audio_frames: int = 0
+
+    # --- hybrid / SSM ---
+    ssm_state: int = 0
+    attn_free: bool = False
+    sliding_window: int = 0  # 0 = full attention
+    full_attn_layers: Tuple[int, ...] = ()
+
+    # --- quality tiers (just-in-time model substitution) ---
+    substitute: Optional[str] = None
+
+    # --- provenance ---
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // max(self.num_heads, 1))
+        if not (self.num_kv_heads == 0 or self.attn_free
+                or self.num_heads % max(self.num_kv_heads, 1) == 0):
+            raise ValueError(f"{self.name}: num_heads={self.num_heads} not "
+                             f"divisible by kv={self.num_kv_heads}")
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256; padded logits are masked and
+        sliced off in prefill/decode outputs."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def layer_param_count(self) -> int:
+        """Parameters of one dense decoder layer (attention + FFN + norms)."""
+        d = self.d_model
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        n_mlp_mats = 3 if self.activation in ("swiglu", "geglu") else 2
+        return attn + n_mlp_mats * d * self.d_ff + 2 * d
+
+    def param_count(self) -> int:
+        """Total parameter count of a dense decoder (embeddings + layers)."""
+        total = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            total += self.vocab_size * self.d_model
+        return total + self.num_layers * self.layer_param_count() + self.d_model
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

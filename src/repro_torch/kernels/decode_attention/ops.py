@@ -1,0 +1,76 @@
+"""Wrapper of the decode attention kernel, in the model's (B, H, D) layout.
+
+A CPU tensor goes to the plain version in ``ref.py``.  A CUDA tensor goes
+to the kernel of ``csrc/decode_attention.cu``, or the wrapper raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+NAME = "decode_attention"
+HEAD_DIMS = (64, 128, 256)
+MAX_GROUP = 16
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 5 + [_I] * 7 + [_L] * 6 + [_P]
+
+
+def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, lengths) -> torch.Tensor:
+    """One query token per sequence over its cache.
+
+    q: (B, H, D); caches: (B, KV, Smax, D); lengths: an int or a scalar or
+    (B,) integer tensor, the number of valid cache positions of each row
+    (clamped to [0, Smax] by the kernel).  The caches may be of another
+    float type than q (the engine's cache is bf16 whatever the weights').
+    Returns (B, H, D) in q's dtype; a row of length 0 is zeros.
+    """
+    if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
+                         f"cache{tuple(k_cache.shape)}")
+    B, H, D = q.shape
+    KV, Smax = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != B or k_cache.shape[3] != D or H % KV:
+        raise ValueError(f"{NAME}: q{tuple(q.shape)} does not match "
+                         f"cache{tuple(k_cache.shape)}")
+    G = H // KV
+    if q.device.type == "cpu":
+        return decode_attention_ref(q.reshape(B, KV, G, D), k_cache, v_cache,
+                                    lengths).reshape(B, H, D)
+    if q.device.type != "cuda":
+        raise ValueError(f"{NAME}: unsupported device {q.device}")
+    for t in (q, k_cache):
+        if t.dtype not in common.DTYPE_CODES:
+            raise ValueError(f"{NAME}: unsupported dtype {t.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head_dim {D} not in {HEAD_DIMS}")
+    if G > MAX_GROUP:
+        raise ValueError(f"{NAME}: group size {G} > {MAX_GROUP}")
+    if not q.is_contiguous():
+        raise ValueError(f"{NAME}: q must be contiguous")
+    common.check_operand(NAME, q, q.device, q.dtype)
+    for t in (k_cache, v_cache):
+        common.check_operand(NAME, t, q.device, k_cache.dtype)
+    lens = torch.as_tensor(lengths)
+    if lens.dtype.is_floating_point or lens.ndim > 1 or lens.numel() not in (1, B):
+        raise ValueError(f"{NAME}: lengths must be an integer scalar or (B,)")
+    lens = lens.to(device=q.device, dtype=torch.int32).reshape(-1)
+    lens = lens.expand(B).contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = common.load_function(NAME, "decode_attention_fwd", _ARGTYPES)
+    strides = [t.stride(i) for t in (k_cache, v_cache) for i in (0, 1, 2)]
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), B, KV, G, Smax, D,
+            common.DTYPE_CODES[q.dtype], common.DTYPE_CODES[k_cache.dtype],
+            *strides,
+            common.current_stream(q.device))
+    common.check(NAME, rc)
+    common.count_launch(NAME)
+    return out

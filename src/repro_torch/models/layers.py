@@ -1,0 +1,230 @@
+"""Dense decoder building blocks (PyTorch), counterpart of ``repro.models.layers``.
+
+Conventions kept from the reference:
+
+* Weights are stored as ``(d_in, d_out)`` and applied as ``x @ w``; layer
+  parameters are dicts of tensors (``nn.ParameterDict`` in the model).
+* ``matmul`` accumulates in f32 and returns x's dtype; norms, rope and
+  softmax statistics run in f32.
+* ``rms_norm`` multiplies by ``(1 + scale)``; ``apply_rope`` rotates the two
+  halves of each head; ``geglu`` uses the tanh approximation of GELU.
+
+Unlike the reference, whose model path uses a jnp chunked attention, the
+attention here calls the port's kernels directly: ``causal_flash_attention``
+goes to the flash prefill kernel and ``decode_attention`` to the decode
+kernel.  ``plain=True`` takes their plain PyTorch versions instead; only
+``DenseLM.plain_attention``, which the chip smoke check sets to compare
+the two, passes it.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import (decode_attention_op,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention_op,
+                                                 flash_attention_ref)
+
+ACC_DTYPE = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations / embeddings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(ACC_DTYPE)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + scale.to(ACC_DTYPE))).to(x.dtype)
+
+
+def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind in ("swiglu", "silu"):
+        return F.silu(x)
+    if kind in ("geglu", "gelu"):
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with f32 accumulation, output in x.dtype."""
+    if x.dtype == w.dtype:
+        # bf16 products accumulate in f32 on the card and on the CPU
+        return torch.matmul(x, w)
+    return torch.matmul(x.to(ACC_DTYPE), w.to(ACC_DTYPE)).to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, table)
+
+
+def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
+                   valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """f32 logits of x against the (V_padded, d) table (possibly tied).
+
+    Padded vocab rows (table rows >= valid_vocab) are masked to -1e30.
+    """
+    if x.dtype == ACC_DTYPE and table.dtype == ACC_DTYPE:
+        logits = torch.matmul(x, table.t())
+    elif x.is_cuda and x.dtype == table.dtype:
+        # bf16 operands, f32 accumulation and f32 output, with no f32 copy
+        # of the table
+        x2 = x.reshape(-1, x.shape[-1])
+        logits = torch.mm(x2, table.t(), out_dtype=ACC_DTYPE)
+        logits = logits.reshape(*x.shape[:-1], table.shape[0])
+    else:
+        logits = torch.matmul(x.to(ACC_DTYPE), table.to(ACC_DTYPE).t())
+    if valid_vocab is not None and valid_vocab < table.shape[0]:
+        logits[..., valid_vocab:] = -1e30
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: (..., S) or (S,)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(half, dtype=ACC_DTYPE, device=x.device)
+                     / half)
+    angles = positions.to(ACC_DTYPE)[..., None] * freq  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].to(ACC_DTYPE), x[..., half:].to(ACC_DTYPE)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def causal_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, window: int = 0,
+                           plain: bool = False) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention.
+
+    q: (B, S, H, D); k, v: (B, S, KV, D).  Returns (B, S, H, D).
+    """
+    if plain:
+        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2),
+                                   window=window).transpose(1, 2)
+    return flash_attention_op(q, k, v, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     plain: bool = False) -> torch.Tensor:
+    """Single-token decode attention over a cache.
+
+    q: (B, H, D); k_cache/v_cache: (B, KV, Smax, D); cache_len: scalar or
+    (B,) number of valid entries.  A row with cache_len 0 returns zeros.
+    """
+    if plain:
+        B, H, D = q.shape
+        KV = k_cache.shape[1]
+        return decode_attention_ref(q.reshape(B, KV, H // KV, D), k_cache,
+                                    v_cache, cache_len).reshape(B, H, D)
+    return decode_attention_op(q, k_cache, v_cache, cache_len)
+
+
+def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,KV,D), rope applied."""
+    B, S, _ = x.shape
+    q = matmul(x, p["wq"])
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_block_prefill(p, x: torch.Tensor, cfg, *, window: int = 0,
+                            plain: bool = False):
+    """Returns (output (B,S,d), (k, v) for the cache, layout (B,KV,S,D)).
+
+    The block's own attention uses the unrounded k/v; the caller rounds
+    them when it stores them in the cache.
+    """
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = attention_qkv(p, x, positions, cfg)
+    out = causal_flash_attention(q, k, v, window=window, plain=plain)
+    out = matmul(out.reshape(B, S, cfg.q_dim), p["wo"])
+    return out, (k.transpose(1, 2), v.transpose(1, 2))
+
+
+def write_kv(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
+    """Write ``new`` (B, KV, 1, D) into ``cache`` (B, KV, Smax, D) at ``idx``,
+    in place, and return ``cache``.
+
+    ``idx`` is a scalar (one position for every row) or a (B,) vector (a
+    position per row).  A row whose index is negative is left unchanged:
+    the engine marks idle slots so, and their KV stays intact.  The write
+    needs no host synchronisation: a skipped row writes back its own old
+    value at position 0.
+    """
+    B = cache.shape[0]
+    idx = torch.as_tensor(idx, device=cache.device).reshape(-1).expand(B)
+    rows = torch.arange(B, device=cache.device)
+    keep = (idx >= 0)[:, None, None]
+    at = idx.clamp(min=0)
+    old = cache[rows, :, at]  # (B, KV, D)
+    cache[rows, :, at] = torch.where(keep, new[:, :, 0].to(cache.dtype), old)
+    return cache
+
+
+def attention_block_decode(p, x: torch.Tensor, kv_cache, pos, cfg, *,
+                           window: int = 0, plain: bool = False):
+    """x: (B, d), one token per row at position ``pos`` (scalar or (B,)).
+
+    Writes K/V at ``pos`` (mod Smax for sliding-window ring buffers) into
+    the cache in place and attends over the valid cache prefix,
+    ``min(pos + 1, Smax)`` entries.  A row with ``pos < 0`` is idle: it
+    writes no KV and attends over nothing (its output is discarded).
+    """
+    B = x.shape[0]
+    k_cache, v_cache = kv_cache
+    Smax = k_cache.shape[2]
+    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+    q, k, v = attention_qkv(p, x[:, None, :], pos[:, None], cfg)
+    active = pos >= 0
+    write_idx = torch.where(active, pos % Smax, -1) if window > 0 else pos
+    write_kv(k_cache, k.transpose(1, 2), write_idx)
+    write_kv(v_cache, v.transpose(1, 2), write_idx)
+    cache_len = torch.where(active, (pos + 1).clamp(max=Smax), 0)
+    out = decode_attention(q[:, 0], k_cache, v_cache, cache_len, plain=plain)
+    out = matmul(out.reshape(B, cfg.q_dim), p["wo"])
+    return out, (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP block
+# ---------------------------------------------------------------------------
+
+
+def mlp_block(p, x: torch.Tensor, activation: str) -> torch.Tensor:
+    if "w_gate" in p:
+        h = activate(matmul(x, p["w_gate"]), activation) * matmul(x, p["w_up"])
+    else:
+        h = activate(matmul(x, p["w_up"]), activation)
+    return matmul(h, p["w_down"])

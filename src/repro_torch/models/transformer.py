@@ -1,0 +1,169 @@
+"""Dense decoder-only LM (PyTorch), counterpart of ``make_dense_lm``.
+
+:class:`DenseLM` holds the weights of ``repro.models.transformer.dense_lm_defs``
+in the same ``(d_in, d_out)`` layout, one :class:`DecoderLayer` per layer
+(a Python loop over layers replaces ``lax.scan``), and serves:
+
+    prefill(tokens[, lengths])         -> (last logits, (k, v))
+    decode_step(cache, tokens, pos)    -> (logits, cache)
+    init_cache(batch, max_len)         -> (k, v), each (L, B, KV, Smax, D) bf16
+
+The KV cache is bf16 whatever the weights' dtype, as in the reference.
+``decode_step`` updates the cache in place and returns it.  Loss and
+training wait for a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (attention_block_decode,
+                                       attention_block_prefill, embed_lookup,
+                                       lm_head_logits, mlp_block, rms_norm)
+
+CACHE_DTYPE = torch.bfloat16
+
+
+def _param(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+        self.ln1 = _param((d,), device, dtype)
+        attn = {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd), "wo": (qd, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=(qd,), bk=(kvd,), bv=(kvd,))
+        self.attn = nn.ParameterDict(
+            {k: _param(s, device, dtype) for k, s in attn.items()})
+        self.ln2 = _param((d,), device, dtype)
+        if cfg.activation in ("swiglu", "geglu"):
+            mlp = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+        else:
+            mlp = {"w_up": (d, f), "w_down": (f, d)}
+        self.mlp = nn.ParameterDict(
+            {k: _param(s, device, dtype) for k, s in mlp.items()})
+
+    def prefill(self, x, cfg, plain):
+        h, kv = attention_block_prefill(
+            self.attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg, plain=plain)
+        x = x + h
+        x = x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
+                          cfg.activation)
+        return x, kv
+
+    def decode(self, x, kv, pos, cfg, plain):
+        h, kv = attention_block_decode(
+            self.attn, rms_norm(x, self.ln1, cfg.norm_eps), kv, pos, cfg,
+            plain=plain)
+        x = x + h
+        x = x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
+                          cfg.activation)
+        return x, kv
+
+
+class DenseLM(nn.Module):
+    """A dense GQA/RoPE decoder on one device.
+
+    The weights start at zero; ``init_params`` draws them from a generator,
+    and ``repro_torch.bridge.load_reference_params`` copies them from the
+    reference's parameter tree.  Setting ``plain_attention`` to True runs
+    the plain PyTorch versions of the attention kernels (for comparisons
+    only).
+    """
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.device = dev
+        self.dtype = dtype
+        self.plain_attention = False
+        d, v = cfg.d_model, cfg.padded_vocab
+        self.embed = _param((v, d), dev, dtype)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, dev, dtype) for _ in range(cfg.num_layers))
+        self.final_norm = _param((d,), dev, dtype)
+        self.lm_head = None if cfg.tie_embeddings else _param((v, d), dev, dtype)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "DenseLM":
+        """Draw every weight as the reference's ``ParamDef.instantiate`` does:
+        normal * 1/sqrt(fan_in) with fan_in = shape[-2] (the embedding at
+        scale 1.0), norms and biases zeros.  Each tensor is drawn on the
+        device in f32 and cast to the weights' dtype, one at a time."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if p.ndim == 1:  # ln1/ln2/final_norm/bq/bk/bv
+                p.zero_()
+                continue
+            scale = 1.0 if leaf == "embed" else 1.0 / math.sqrt(p.shape[-2])
+            draw = torch.randn(p.shape, generator=generator, device=p.device,
+                               dtype=torch.float32)
+            p.copy_(draw.mul_(scale))
+            del draw
+        return self
+
+    # -- model-facing helpers --
+    def _embed_in(self, tokens):
+        x = embed_lookup(self.embed, tokens)
+        if self.cfg.name.startswith("gemma"):
+            x = x * math.sqrt(self.cfg.d_model)
+        return x
+
+    def _logits_out(self, x):
+        table = self.embed if self.lm_head is None else self.lm_head
+        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
+                                table, valid_vocab=self.cfg.vocab_size)
+        return logits[..., :self.cfg.vocab_size]
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    @torch.no_grad()
+    def prefill(self, tokens, lengths: Optional[torch.Tensor] = None):
+        """tokens: (B, S).  Returns the logits (B, vocab) of the last token
+        (of token ``lengths[b]-1`` when given) and the prompt's KV, each
+        (L, B, KV, S, D) in the weights' dtype."""
+        tokens = self._tokens(tokens)
+        x = self._embed_in(tokens)
+        ks, vs = [], []
+        for layer in self.layers:
+            x, (k, v) = layer.prefill(x, self.cfg, self.plain_attention)
+            ks.append(k)
+            vs.append(v)
+        if lengths is None:
+            last = x[:, -1]
+        else:
+            lengths = torch.as_tensor(lengths, device=self.device).long()
+            last = x[torch.arange(x.shape[0], device=self.device), lengths - 1]
+        return self._logits_out(last), (torch.stack(ks), torch.stack(vs))
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos):
+        """One token per row.  cache: (k, v), each (L, B, KV, Smax, D);
+        tokens: (B,); pos: scalar or (B,) positions, negative for an idle
+        row (no KV write, output discarded).  Updates ``cache`` in place and
+        returns (logits (B, vocab) f32, cache)."""
+        x = self._embed_in(self._tokens(tokens))
+        pos = torch.as_tensor(pos, device=self.device)
+        k_all, v_all = cache
+        for i, layer in enumerate(self.layers):
+            x, _ = layer.decode(x, (k_all[i], v_all[i]), pos, self.cfg,
+                                self.plain_attention)
+        return self._logits_out(x), cache
+
+    def init_cache(self, batch: int, max_len: int):
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        return (torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
+                torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE))

@@ -1,0 +1,284 @@
+"""The port's attention kernels against the JAX package's.
+
+On the CPU each wrapper runs its plain PyTorch version; that is held
+against the JAX Pallas kernels run in interpret mode (as the JAX package's
+own tests run them) and against the jnp oracles and model-layer functions.
+The CUDA kernels themselves are held against the plain versions by the
+``gpu``-marked test at the end, which skips where there is no card.
+Tolerances follow ``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in bf16.
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.decode_attention import (decode_attention_op,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention_op,
+                                                 flash_attention_ref)
+from repro_torch.models import layers as TL
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _Ref:
+    """The JAX package's kernels and layers.  Imported inside the tests that
+    use them, so that the card's tests below run where JAX is absent."""
+
+    def __init__(self):
+        self.jnp = pytest.importorskip("jax.numpy")
+        flash = importlib.import_module("repro.kernels.flash_attention")
+        decode = importlib.import_module("repro.kernels.decode_attention")
+        self.flash_op, self.flash_ref = flash.flash_attention_op, flash.flash_attention_ref
+        self.decode_op, self.decode_ref = decode.decode_attention_op, decode.decode_attention_ref
+        self.layers = importlib.import_module("repro.models.layers")
+
+    def inputs(self, seed, *shapes, dtype="float32"):
+        """numpy arrays (rounded to ``dtype``) as (jnp, torch) twins."""
+        rng = np.random.default_rng(seed)
+        jdtype = {"float32": self.jnp.float32, "bfloat16": self.jnp.bfloat16}[dtype]
+        out = []
+        for s in shapes:
+            a = (rng.standard_normal(s) * 0.5).astype(np.float32)
+            out.append((self.jnp.asarray(a, jdtype),
+                        torch.from_numpy(a).to(TORCH[dtype])))
+        return out
+
+    def close(self, ours, ref, tol):
+        np.testing.assert_allclose(
+            np.asarray(ours.float()),
+            np.asarray(self.jnp.asarray(ref, self.jnp.float32)),
+            atol=tol, rtol=tol)
+
+
+@pytest.fixture(scope="module")
+def R():
+    return _Ref()
+
+
+def _torch_inputs(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))
+            for s in shapes]
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (1, 2, 2, 128, 64),   # MHA
+    (2, 4, 2, 256, 64),   # GQA group 2
+    (1, 8, 1, 128, 128),  # MQA, wide head
+    (1, 2, 2, 192, 64),   # the block-divisible ragged case of the JAX sweep
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_matches_pallas_kernel(R, B, H, KV, S, D, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(0, (B, S, H, D), (B, S, KV, D),
+                                           (B, S, KV, D), dtype=dtype)
+    ref = R.flash_op(jq, jk, jv, block_q=64, block_kv=64)
+    R.close(flash_attention_op(tq, tk, tv), ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [64, 128])
+def test_flash_window_matches_pallas_kernel(R, window):
+    B, H, KV, S, D = 1, 4, 2, 256, 64
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(1, (B, S, H, D), (B, S, KV, D),
+                                           (B, S, KV, D))
+    ref = R.flash_op(jq, jk, jv, window=window, block_q=64, block_kv=64)
+    R.close(flash_attention_op(tq, tk, tv, window=window), ref, TOL["float32"])
+
+
+@pytest.mark.parametrize("S", [1, 77, 192])
+def test_flash_ragged_lengths_match_oracle_and_model_layer(R, S):
+    """The Pallas kernel needs block-divisible S; the port takes any S."""
+    B, H, KV, D = 2, 4, 2, 32
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(2, (B, S, H, D), (B, S, KV, D),
+                                           (B, S, KV, D))
+    ours = flash_attention_op(tq, tk, tv)
+    oracle = R.flash_ref(jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
+                           jv.transpose(0, 2, 1, 3)).transpose(0, 2, 1, 3)
+    R.close(ours, oracle, TOL["float32"])
+    R.close(ours, R.layers.causal_flash_attention(jq, jk, jv, q_chunk=64),
+           TOL["float32"])
+    R.close(TL.causal_flash_attention(tq, tk, tv), oracle, TOL["float32"])
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8, 16])
+def test_flash_head_dims_and_groups(R, D, G):
+    B, KV, S, window = 1, 2, 19, 0
+    H = KV * G
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(3, (B, S, H, D), (B, S, KV, D),
+                                           (B, S, KV, D))
+    oracle = R.flash_ref(jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
+                           jv.transpose(0, 2, 1, 3),
+                           window=window).transpose(0, 2, 1, 3)
+    R.close(flash_attention_op(tq, tk, tv), oracle, TOL["float32"])
+
+
+def test_flash_ref_layout_matches_jax_ref(R):
+    B, H, KV, S, D = 1, 4, 1, 33, 16
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(4, (B, H, S, D), (B, KV, S, D),
+                                           (B, KV, S, D))
+    R.close(flash_attention_ref(tq, tk, tv, window=8),
+           R.flash_ref(jq, jk, jv, window=8), TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,KV,D,Smax,clen", [
+    (2, 8, 2, 64, 256, 200),
+    (1, 16, 16, 128, 512, 512),  # MHA full cache
+    (4, 4, 4, 64, 128, 1),       # single valid entry
+    (2, 32, 2, 64, 256, 130),    # glm4-style extreme GQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_matches_pallas_kernel(R, B, H, KV, D, Smax, clen, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(
+        5, (B, H, D), (B, KV, Smax, D), (B, KV, Smax, D), dtype=dtype)
+    ref = R.decode_op(jq, jk, jv, R.jnp.asarray(clen), block_s=64)
+    R.close(decode_attention_op(tq, tk, tv, clen), ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8, 16])
+def test_decode_per_row_lengths_match_model_layer(R, D, G):
+    B, KV, Smax = 3, 2, 24
+    H = KV * G
+    lengths = np.array([1, 13, 24], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(
+        6, (B, H, D), (B, KV, Smax, D), (B, KV, Smax, D))
+    ours = decode_attention_op(tq, tk, tv, torch.from_numpy(lengths))
+    R.close(ours, R.layers.decode_attention(jq, jk, jv, R.jnp.asarray(lengths)),
+           TOL["float32"])
+    R.close(TL.decode_attention(tq, tk, tv, torch.from_numpy(lengths)),
+           R.layers.decode_attention(jq, jk, jv, R.jnp.asarray(lengths)),
+           TOL["float32"])
+
+
+def test_decode_per_row_lengths_match_scalar_oracle(R):
+    B, H, KV, D, Smax = 3, 8, 2, 64, 40
+    lengths = [1, 23, 40]
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(
+        9, (B, H, D), (B, KV, Smax, D), (B, KV, Smax, D))
+    ours = decode_attention_op(tq, tk, tv, torch.tensor(lengths))
+    for b, n in enumerate(lengths):
+        ref = R.decode_ref(jq[b:b + 1].reshape(1, KV, H // KV, D),
+                             jk[b:b + 1], jv[b:b + 1], n).reshape(1, H, D)
+        R.close(ours[b:b + 1], ref, TOL["float32"])
+
+
+def test_decode_length_zero_row_is_zeros():
+    """The port's contract (the JAX kernel guards l == 0 the same way; the
+    jnp layer instead averages the whole masked cache)."""
+    tq, tk, tv = _torch_inputs(7, (3, 8, 64), (3, 2, 16, 64), (3, 2, 16, 64))
+    lengths = torch.tensor([0, 5, 0])
+    out = decode_attention_op(tq, tk, tv, lengths)
+    assert torch.isfinite(out).all()
+    assert float(out[0].abs().max()) == 0.0 and float(out[2].abs().max()) == 0.0
+    ref = decode_attention_ref(tq.reshape(3, 2, 4, 64), tk, tv, lengths)
+    torch.testing.assert_close(out, ref.reshape(3, 8, 64))
+    assert float(out[1].abs().max()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    common.reset_launch_counts()
+    tq, tk, tv = _torch_inputs(8, (1, 9, 4, 64), (1, 9, 2, 64), (1, 9, 2, 64))
+    flash_attention_op(tq, tk, tv)
+    decode_attention_op(tq[:, 0], tk.transpose(1, 2), tv.transpose(1, 2), 3)
+    assert common.launch_counts == {"flash_attention": 0,
+                                    "decode_attention": 0}
+
+
+def test_wrappers_reject_mismatched_shapes():
+    q = torch.zeros(1, 8, 4, 64)
+    with pytest.raises(ValueError):
+        flash_attention_op(q, torch.zeros(1, 8, 3, 64), torch.zeros(1, 8, 3, 64))
+    with pytest.raises(ValueError):
+        flash_attention_op(q, torch.zeros(1, 7, 2, 64), torch.zeros(1, 7, 2, 64))
+    with pytest.raises(ValueError):
+        decode_attention_op(q[:, 0], torch.zeros(1, 2, 16, 32),
+                            torch.zeros(1, 2, 16, 32), 4)
+
+
+def test_library_paths_are_keyed_by_source_hash():
+    path = common.library_path("flash_attention")
+    assert path.parent == common.BUILD_DIR
+    assert path.name.startswith("flash_attention-") and path.suffix == ".so"
+    assert common.library_path("decode_attention") != path
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    common.reset_launch_counts()
+
+    def rnd(*shape, dtype):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(dtype)
+
+    n_flash = n_decode = 0
+    for name, dtype in TORCH.items():
+        tol = TOL[name]
+        for B, S, H, KV, D, window in [(1, 1, 32, 8, 128, 0), (2, 77, 32, 8, 128, 0),
+                                       (1, 192, 16, 4, 64, 64), (1, 300, 28, 4, 128, 0),
+                                       (1, 130, 16, 16, 256, 0), (1, 100, 32, 2, 128, 0),
+                                       (1, 1000, 32, 8, 128, 256)]:
+            q = rnd(B, S, H, D, dtype=dtype)
+            k = rnd(B, S, KV, D, dtype=dtype)
+            v = rnd(B, S, KV, D, dtype=dtype)
+            out = flash_attention_op(q, k, v, window=window)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), window=window)
+            torch.testing.assert_close(out.float(), ref.transpose(1, 2).float(),
+                                       atol=tol, rtol=tol)
+            n_flash += 1
+        for B, H, KV, D, Smax, lens in [(8, 32, 8, 128, 1024, [0, 1, 77, 1000, 1024, 5, 300, 2]),
+                                        (3, 28, 4, 128, 300, [299, 5, 0]),
+                                        (2, 16, 1, 256, 200, [150, 199]),
+                                        (2, 32, 2, 64, 256, [130, 256])]:
+            q = rnd(B, H, D, dtype=dtype)
+            kc = rnd(B, KV, Smax, D, dtype=dtype)
+            vc = rnd(B, KV, Smax, D, dtype=dtype)
+            lengths = torch.tensor(lens, device=dev, dtype=torch.int32)
+            out = decode_attention_op(q, kc, vc, lengths)
+            torch.cuda.synchronize()
+            ref = decode_attention_ref(q.reshape(B, KV, H // KV, D), kc, vc, lengths)
+            torch.testing.assert_close(out.float(), ref.reshape(B, H, D).float(),
+                                       atol=tol, rtol=tol)
+            n_decode += 1
+    # f32 queries over a bf16 cache: the engine's cache with f32 weights
+    q = rnd(2, 32, 128, dtype=torch.float32)
+    kc = rnd(2, 8, 300, 128, dtype=torch.bfloat16)
+    vc = rnd(2, 8, 300, 128, dtype=torch.bfloat16)
+    lengths = torch.tensor([299, 7], device=dev, dtype=torch.int32)
+    out = decode_attention_op(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    ref = decode_attention_ref(q.reshape(2, 8, 4, 128), kc, vc, lengths)
+    torch.testing.assert_close(out, ref.reshape(2, 32, 128),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    n_decode += 1
+    assert common.launch_counts == {"flash_attention": n_flash,
+                                    "decode_attention": n_decode}
