@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
-``src/repro_torch``.  It prints one JSON object per phase:
+``src/repro_torch``.  It drives two paths, llama-3.1-8b through the two
+attention kernels and rwkv6-7b through the WKV6 scan kernel, and prints
+one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
-2. ``build``: both kernels compiled from ``src/repro_torch/csrc`` for
+2. ``build``: the three kernels compiled from ``src/repro_torch/csrc`` for
    sm_90a, in parallel, with nvcc's register/spill report;
-3. ``kernel_checks``: each kernel against its plain PyTorch version on the
-   card at the main path's shapes, with times (CUDA events), the bound of
-   each call and one PyTorch library call as a yardstick;
+3. ``kernel_checks``: the attention kernels against their plain PyTorch
+   versions on the card at the llama path's shapes, with times (CUDA
+   events), the bound of each call and one PyTorch library call as a
+   yardstick;
 4. ``model_check``: full-width llama-3.1-8b (seeded random weights, in
    f32 and in bf16), a 1000-token prefill and 8 decode steps through the
    kernels and through the plain versions, with their largest logit
@@ -19,6 +22,11 @@ Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
 5. ``engine``: the serving engine at full width and depth serving 16
    requests (8 share a 1024-token prefix), with the kernels' launch counts
    during that run;
+6. with the llama model freed, ``kernel_checks`` of the WKV6 scan at the
+   rwkv path's shapes (no single PyTorch call computes it), then
+   ``model_check`` and ``engine`` for rwkv6-7b: 16 requests of 256-2048
+   prompt tokens, no prefix reuse (a recurrent state has no prefix to
+   copy), and every prefill and decode step through the kernel;
 
 then the ``kernels`` summary line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -26,6 +34,7 @@ the last line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -46,6 +55,7 @@ MODEL_REL_TOL_F32 = 1e-3
 BF16_ERR_RATIO = 1.25
 
 ARCH = "llama-3.1-8b"
+RWKV_ARCH = "rwkv6-7b"
 SEED = 0
 
 
@@ -84,6 +94,31 @@ def cuda_ms(torch, fn, target_ms: float = 60.0) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, calls: int = 20) -> float:
+    """Device time of ``fn`` per call, without the host's launch cost:
+    ``calls`` calls captured in one CUDA graph, replayed and timed by CUDA
+    events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * calls)
+
+
 def bound(ops: float, nbytes: float, dtype: str):
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     t_bytes = nbytes / BYTES_PER_S * 1e3
@@ -92,8 +127,9 @@ def bound(ops: float, nbytes: float, dtype: str):
 
 def ptxas_summary(text: str):
     """Registers, static shared memory, stack and spill bytes of each kernel
-    entry in nvcc -Xptxas -v.  Both kernels take all their shared memory
-    dynamically, which ptxas does not see: its static figure is 0."""
+    entry in nvcc -Xptxas -v.  The attention kernels take all their shared
+    memory dynamically, which ptxas does not see: their static figure is 0;
+    the WKV6 kernel's is static."""
     entries = []
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -217,6 +253,67 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
             "library_ms": cuda_ms(torch, library), "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0):
+    """The WKV6 kernel against its plain version from a carried state, on
+    (B, S, H, D) projections seen as (B, H, S, D), as the model passes them.
+    With ``split``, the kernel also runs as two calls over [0, split) and
+    [split, S), the second updating the state in place, and both are held
+    against the one plain call over the whole."""
+    from repro_torch.kernels.rwkv6_scan import wkv6_scan_ref
+
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    r, k, v = (rnd(B, S, H, D).to(dt).transpose(1, 2) for _ in range(3))
+    logw = (-torch.exp(rnd(B, S, H, D) - 1.0)).transpose(1, 2)
+    u = rnd(H, D, scale=0.2)
+    s0 = rnd(B, H, D, D, scale=0.1)
+
+    def kernel():
+        return ops_mod.wkv6_op(r, k, v, logw, u, s0)
+
+    def plain():
+        return wkv6_scan_ref(r, k, v, logw, u, s0)
+
+    out, s1 = kernel()
+    torch.cuda.synchronize()
+    ref, sref = plain()
+    if split:
+        mid = s0.clone()
+        a, _ = ops_mod.wkv6_op(r[:, :, :split], k[:, :, :split],
+                               v[:, :, :split], logw[:, :, :split], u, mid,
+                               out_state=mid)
+        b, _ = ops_mod.wkv6_op(r[:, :, split:], k[:, :, split:],
+                               v[:, :, split:], logw[:, :, split:], u, mid,
+                               out_state=mid)
+        torch.cuda.synchronize()
+        out, s1 = torch.cat([a, b], dim=2), mid
+    tol = TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    serr = (s1 - sref).abs()
+    ok = (bool((err <= tol + tol * ref.float().abs()).all())
+          and bool((serr <= tol + tol * sref.abs()).all())
+          and bool(torch.isfinite(out).all()) and bool(torch.isfinite(s1).all()))
+    esize = r.element_size()
+    # r, k, v read and o written in the model's dtype, logw read in f32,
+    # u read, the state read and written in f32; ~5 D^2 f32 operations per
+    # token and head (r S: D^2 FMA; S * w + k^T v: D^2 products and FMA)
+    nbytes = (4 * esize * B * H * S * D + 4 * B * H * S * D + 4 * H * D
+              + 2 * 4 * B * H * D * D)
+    b_ms, b_by = bound(5.0 * B * H * S * D * D, nbytes, "float32")
+    return {"kernel": "wkv6_scan", "dtype": dtype,
+            "shape": {"B": B, "S": S, "H": H, "D": D, "split": split},
+            "max_abs_err": float(max(err.max(), serr.max())), "tol": tol,
+            "ok": ok, "kernel_ms": cuda_ms(torch, kernel),
+            # where the host's launch cost exceeds the kernel's (S=1, S=77)
+            # kernel_ms measures the host; this is the device alone
+            "kernel_graph_ms": graph_ms(torch, kernel),
+            "plain_ms": cuda_ms(torch, plain), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 # the main path's shapes: llama-3.1-8b (H=32, KV=8, D=128) first, then one
 # size each of the other head dims and group sizes the registry serves
 FLASH_CASES = [
@@ -242,8 +339,22 @@ DECODE_CASES = [
     # f32 weights over the bf16 cache, as in the f32 model check
     (32, 8, 128, 1024, [0, 5, 1024, 300], "float32", "bfloat16"),
 ]
+# rwkv6-7b: H=64, D=64; prompts of the engine phase are 256-2048 tokens,
+# decode runs S=1 over its 8 slots
+WKV6_CASES = [(B, S, 64, 64, dtype, split)
+              for dtype in ("bfloat16", "float32")
+              for B, S, split in ((1, 1, 0), (1, 77, 0), (1, 1000, 0),
+                                  (1, 2048, 0), (8, 1, 0), (1, 1000, 500))]
 # the row of each kernel in the summary line
-SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0}
+SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0, "wkv6_scan": 2}
+SOURCES = {
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:90"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:74"),
+    "wkv6_scan": ("src/repro_torch/csrc/wkv6_scan.cu",
+                  "src/repro/kernels/rwkv6_scan/kernel.py:77"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +364,12 @@ SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0}
 
 def _logits_run(torch, model, prompt, steps):
     """Logits (9, 1, vocab) of a 1000-token prefill and 8 decode steps."""
-    cache = model.init_cache(1, 1024)
-    logits, (k, v) = model.prefill(prompt)
-    cache[0][:, :, :, :1000] = k
-    cache[1][:, :, :, :1000] = v
+    logits, cache = model.prefill(prompt)
+    if isinstance(cache, tuple):  # dense KV: into a 1024-position cache
+        k, v = cache
+        cache = model.init_cache(1, 1024)
+        cache[0][:, :, :, :1000] = k
+        cache[1][:, :, :, :1000] = v
     out = [logits]
     for i, tok in enumerate(steps):
         logits, cache = model.decode_step(cache, tok, [1000 + i])
@@ -268,14 +381,19 @@ def _rel(torch, a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def model_check(torch, np, cfg, dev, build_model):
+def _rms(torch, a, b) -> float:
+    return float((a - b).square().mean().sqrt())
+
+
+def model_check(torch, np, cfg, dev, build_model, plain_attr):
     """Full-width prefill + decode through the kernels and through the
-    plain versions, in f32 and in bf16 weights drawn from one seed.
+    plain versions (``model.<plain_attr> = True``), in f32 and in bf16
+    weights drawn from one seed.
 
     In f32 the two differ only by the kernels' arithmetic, and that
-    difference is held to MODEL_REL_TOL_F32: the sound kernels read
-    2.2e-5 of the logit scale there, an attention that rounded P or V to
-    bf16 inside would read ~1e-2.  In bf16, two 32-layer pipelines whose
+    difference is held to MODEL_REL_TOL_F32: on llama-3.1-8b the sound
+    kernels read 2.2e-5 of the logit scale there, an attention that
+    rounded P or V to bf16 inside would read ~1e-2.  In bf16, two 32-layer pipelines whose
     roundings part at one element end up as far apart as bf16 noise
     (2.4e-2 of the scale, above a 2e-2 bound), so there each bf16 path is
     held against the f32 plain run: the kernel path's error may exceed the
@@ -292,9 +410,9 @@ def model_check(torch, np, cfg, dev, build_model):
         torch.cuda.synchronize()
         weights_s = time.perf_counter() - t0
         for plain in (False, True):
-            model.plain_attention = plain
+            setattr(model, plain_attr, plain)
             runs[dtype, plain] = _logits_run(torch, model, prompt, steps)
-        model.plain_attention = False
+        setattr(model, plain_attr, False)
         if dtype == "float32":
             del model
             torch.cuda.empty_cache()
@@ -315,6 +433,10 @@ def model_check(torch, np, cfg, dev, build_model):
               "bf16_plain_vs_f32_plain": plain_err,
               "bf16_err_ratio": kernel_err / plain_err,
               "bf16_err_ratio_tol": BF16_ERR_RATIO,
+              # the same ratio over the root mean square of all 9 x vocab
+              # logits, less at the mercy of one element (reported only)
+              "bf16_rms_err_ratio": (_rms(torch, runs["bfloat16", False], ref)
+                                     / _rms(torch, runs["bfloat16", True], ref)),
               "bf16_same_argmax_steps": same_argmax, "finite": finite,
               "shape_ok": shape_ok, "bf16_weights_s": weights_s}
     result["ok"] = (finite and shape_ok and f32_rel <= MODEL_REL_TOL_F32
@@ -322,10 +444,8 @@ def model_check(torch, np, cfg, dev, build_model):
     return result, model
 
 
-def engine_run(torch, np, model, common):
-    from repro_torch.serving.engine import ServeRequest, ServingEngine
-
-    cfg = model.cfg
+def llama_prompts(np, cfg):
+    """8 requests sharing a 1024-token prefix, 8 of 256-2048 own tokens."""
     rng = np.random.default_rng(SEED + 1)
     shared = rng.integers(0, cfg.vocab_size, size=1024)
     reqs = []
@@ -334,6 +454,24 @@ def engine_run(torch, np, model, common):
         reqs.append(np.concatenate([shared, suffix]).astype(np.int32))
         reqs.append(rng.integers(0, cfg.vocab_size,
                                  size=int(rng.integers(256, 2049))).astype(np.int32))
+    return reqs
+
+
+def rwkv_prompts(np, cfg):
+    """16 requests of 256-2048 own tokens."""
+    rng = np.random.default_rng(SEED + 2)
+    return [rng.integers(0, cfg.vocab_size,
+                         size=int(rng.integers(256, 2049))).astype(np.int32)
+            for _ in range(16)]
+
+
+def engine_run(torch, np, model, common, reqs, kernels, cached):
+    """Serve ``reqs`` at full width; ``ok`` needs every request served, a
+    launch of each of ``kernels`` in this run, and cached prompt tokens
+    (``cached``) or none."""
+    from repro_torch.serving.engine import ServeRequest, ServingEngine
+
+    cfg = model.cfg
     max_new = 64
     engine = ServingEngine(model, device=model.device, slots=8, max_len=4096)
     decode_s = []
@@ -375,8 +513,8 @@ def engine_run(torch, np, model, common):
         "launches": launches,
     }
     result["ok"] = (len(done) == len(reqs) and tokens_ok
-                    and engine.stats["cached_tokens"] > 0
-                    and all(n > 0 for n in launches.values()))
+                    and (engine.stats["cached_tokens"] > 0) == cached
+                    and all(launches[name] > 0 for name in kernels))
     return result
 
 
@@ -395,6 +533,7 @@ def run():
     from repro_torch.kernels import common
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv6_ops
     from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -423,28 +562,60 @@ def run():
     if bad:
         raise SmokeFailure(f"{len(bad)} kernel check(s) out of tolerance")
 
-    result, model = model_check(torch, np, get_config(ARCH), dev, build_model)
+    cfg = get_config(ARCH)
+    result, model = model_check(torch, np, cfg, dev, build_model,
+                                "plain_attention")
     emit(result)
     if not result["ok"]:
         raise SmokeFailure("full-width model check failed")
     torch.cuda.empty_cache()
 
-    result = engine_run(torch, np, model, common)
+    engines = {}
+    result = engine_run(torch, np, model, common, llama_prompts(np, cfg),
+                        ("flash_attention", "decode_attention"), cached=True)
     emit(result)
     if not result["ok"]:
         raise SmokeFailure("engine run failed")
+    engines["flash_attention"] = engines["decode_attention"] = result
+
+    # the rwkv6-7b path, on a card free of the llama model
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        wkv = [check_wkv6(torch, wkv6_ops, dev, gen, *c) for c in WKV6_CASES]
+    emit({"phase": "kernel_checks", "checks": wkv})
+    bad = [c for c in wkv if not c["ok"]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} wkv6 kernel check(s) out of tolerance")
+    checks += wkv
+
+    cfg = get_config(RWKV_ARCH)
+    result, model = model_check(torch, np, cfg, dev, build_model, "plain_wkv")
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("full-width rwkv6-7b model check failed")
+    torch.cuda.empty_cache()
+
+    result = engine_run(torch, np, model, common, rwkv_prompts(np, cfg),
+                        ("wkv6_scan",), cached=False)
+    # one launch per layer in every prefill and every decode step
+    expected = cfg.num_layers * (result["requests"] + result["decode_steps"])
+    result["wkv6_scan_launches_expected"] = expected
+    result["ok"] = result["ok"] and result["launches"]["wkv6_scan"] == expected
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("rwkv6-7b engine run failed")
+    engines["wkv6_scan"] = result
 
     summary = []
-    for name, source, replaces in (
-            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:90"),
-            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:74")):
+    for name in common.KERNELS:
+        source, replaces = SOURCES[name]
         mine = [c for c in checks if c["kernel"] == name]
         row = mine[SUMMARY_SHAPE[name]]
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": result["launches"][name],
+            "replaces": replaces, "launches": engines[name]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

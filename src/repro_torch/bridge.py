@@ -14,6 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.models.rwkv import RWKVLM
 from repro_torch.models.transformer import DenseLM
 
 
@@ -40,14 +41,18 @@ def _check_keys(have: Mapping, want, where: str) -> None:
 
 
 @torch.no_grad()
-def load_reference_params(model: DenseLM, params: Mapping) -> DenseLM:
-    """Copy a dense LM's reference parameter tree into ``model``.
+def load_reference_params(model, params: Mapping):
+    """Copy a reference parameter tree into a ``DenseLM`` or ``RWKVLM``.
 
     ``params`` is the tree of ``build_model(cfg).init(key)`` with numpy
-    leaves.  The stacked layer leaves are split along their leading ``L``.
-    Values are cast to the model's dtype; with equal dtypes the copy is
-    bit-exact.
+    leaves.  The stacked layer leaves are split along their leading ``L``:
+    a layer's own tensors (``ln1``, ``ln2``) and its groups of tensors
+    (``attn``/``mlp`` or ``tm``/``cm``) take the reference's names.  Values
+    are cast to each weight's dtype (the model's, or f32 for the rwkv ``w0``
+    and ``u``); with equal dtypes the copy is bit-exact.
     """
+    if not isinstance(model, (DenseLM, RWKVLM)):
+        raise TypeError(f"no bridge for {type(model).__name__}")
     top = {"embed", "layers", "final_norm"}
     if model.lm_head is not None:
         top.add("lm_head")
@@ -57,16 +62,19 @@ def load_reference_params(model: DenseLM, params: Mapping) -> DenseLM:
     if model.lm_head is not None:
         _copy(model.lm_head, params["lm_head"], "lm_head")
     stack = params["layers"]
-    _check_keys(stack, ("ln1", "attn", "ln2", "mlp"), "layers")
+    first = model.layers[0]
+    tensors = [name for name, _ in first.named_parameters(recurse=False)]
+    groups = [name for name, _ in first.named_children()]
+    _check_keys(stack, tensors + groups, "layers")
     n_layers = len(model.layers)
-    for name in ("ln1", "ln2"):
+    for name in tensors:
         if np.shape(stack[name])[0] != n_layers:
             raise ValueError(f"layers.{name}: {np.shape(stack[name])[0]} "
                              f"layers, model has {n_layers}")
     for i, layer in enumerate(model.layers):
-        _copy(layer.ln1, stack["ln1"][i], f"layers.ln1[{i}]")
-        _copy(layer.ln2, stack["ln2"][i], f"layers.ln2[{i}]")
-        for group in ("attn", "mlp"):
+        for name in tensors:
+            _copy(getattr(layer, name), stack[name][i], f"layers.{name}[{i}]")
+        for group in groups:
             mine = getattr(layer, group)
             _check_keys(stack[group], mine.keys(), f"layers.{group}")
             for key, leaf in stack[group].items():

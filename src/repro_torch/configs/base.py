@@ -89,16 +89,21 @@ class ArchConfig:
         return self.num_experts > 0
 
     def layer_param_count(self) -> int:
-        """Parameters of one dense decoder layer (attention + FFN + norms)."""
+        """Parameters of one decoder layer (attention or time mix + FFN +
+        norms).  An attention-free layer (rwkv6) counts its r, k, v, g, o
+        projections, the decay lora and the mixes in place of attention."""
         d = self.d_model
-        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        if self.qkv_bias:
-            attn += self.q_dim + 2 * self.kv_dim
+        if self.attn_free:  # rwkv6: r,k,v,g,o (d*d each) + w lora + mixes
+            attn = 5 * d * d + 2 * d * 64 + 6 * d
+        else:
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.qkv_bias:
+                attn += self.q_dim + 2 * self.kv_dim
         n_mlp_mats = 3 if self.activation in ("swiglu", "geglu") else 2
         return attn + n_mlp_mats * d * self.d_ff + 2 * d
 
     def param_count(self) -> int:
-        """Total parameter count of a dense decoder (embeddings + layers)."""
+        """Total parameter count (embeddings + layers)."""
         total = self.vocab_size * self.d_model
         if not self.tie_embeddings:
             total += self.vocab_size * self.d_model

@@ -1,7 +1,7 @@
 """Registry of the architectures the port serves (``--arch <id>``).
 
-The port registers the dense decoders only; the other families of the
-reference registry join with the slices that port their models.
+The port registers the dense decoders and rwkv6-7b; the other families of
+the reference registry join with the slices that port their models.
 """
 from __future__ import annotations
 
@@ -14,9 +14,10 @@ from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B
 from repro_torch.configs.paper_workloads import PAPER_LLMS
 from repro_torch.configs.qwen2_5_3b import CONFIG as QWEN2_5_3B
 from repro_torch.configs.qwen2_7b import CONFIG as QWEN2_7B
+from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6
 
 ASSIGNED: Dict[str, ArchConfig] = {
-    c.name: c for c in (GEMMA_7B, GLM4_9B, QWEN2_7B, QWEN2_5_3B)
+    c.name: c for c in (GEMMA_7B, GLM4_9B, QWEN2_7B, QWEN2_5_3B, RWKV6)
 }
 
 REGISTRY: Dict[str, ArchConfig] = {**ASSIGNED, **PAPER_LLMS}

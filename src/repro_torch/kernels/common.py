@@ -33,7 +33,7 @@ BUILD_DIR = REPO_ROOT / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("flash_attention", "decode_attention")
+KERNELS = ("flash_attention", "decode_attention", "wkv6_scan")
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -138,7 +138,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,
                   dtype: torch.dtype) -> None:
-    """What both kernels require of a tensor they read or write: the given
+    """What the kernels require of a tensor they read or write: the given
     device and dtype, a contiguous last dim, and 16-byte alignment of the
     base and of every row, for 16-byte vector loads."""
     if t.device != device:

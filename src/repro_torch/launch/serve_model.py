@@ -1,9 +1,11 @@
 """Serve a model with seeded random weights through the port's engine --
-continuous batching, slot KV cache, prefix reuse, greedy decode.  The
-counterpart of ``examples/serve_model.py``.
+continuous batching, slot KV cache with prefix reuse (or rwkv's recurrent
+state), greedy decode.  The counterpart of ``examples/serve_model.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch llama-3.1-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve_model --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b --reduced --device cpu
 
 Runs on the card unless ``--device cpu`` is given.
 """

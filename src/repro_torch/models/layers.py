@@ -49,6 +49,8 @@ def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
         return F.silu(x)
     if kind in ("geglu", "gelu"):
         return F.gelu(x, approximate="tanh")
+    if kind == "relu_sq":
+        return torch.relu(x).square()
     raise ValueError(f"unknown activation {kind!r}")
 
 

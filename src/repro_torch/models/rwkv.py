@@ -1,0 +1,344 @@
+"""RWKV6 "Finch" (rwkv6-7b) in PyTorch, counterpart of ``repro.models.rwkv``.
+
+The WKV6 recurrence per head (head_dim D):
+
+    S_t = diag(exp(logw_t)) S_{t-1} + k_t^T v_t     (state: D x D, f32)
+    o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
+
+Unlike the reference, whose model prefills through the jnp ``wkv6_chunked``
+(which needs S % 64 == 0 past one chunk) and decodes through ``wkv6_step``,
+both prefill and decode here call the port's kernel ``wkv6_op`` directly,
+for any S >= 1; decode runs it at S = 1.  ``RWKVLM.plain_wkv = True`` takes
+its plain PyTorch version instead (for comparisons only).
+
+:class:`RWKVLM` holds the weights of ``repro.models.rwkv.rwkv_layer_defs``
+in the same layout, one :class:`RWKVLayer` per layer, and serves:
+
+    prefill(tokens)                   -> (last logits, state)
+    decode_step(cache, tokens, pos)   -> (logits, cache)   (pos is ignored)
+    init_cache(batch, max_len)        -> state             (max_len is ignored)
+
+The state is ``{"wkv": (L, B, H, D, D) f32, "tm_x": (L, B, d), "cm_x":
+(L, B, d)}``, the token-shift states in the weights' dtype.  (The reference
+declares them bf16 but writes back its decode's own dtype, so with bf16
+weights the two agree.)  ``decode_step`` updates the cache in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
+from repro_torch.models.layers import (ACC_DTYPE, activate, embed_lookup,
+                                       lm_head_logits, matmul, rms_norm)
+
+LORA_R = 64  # decay lora rank
+DDLERP_R = 32  # data-dependent lerp rank
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    """Shape and init rule of one weight, as the reference's ``ParamDef``:
+    init is normal (times ``scale``, default 1/sqrt(fan_in)), zeros, ones or
+    decay_init; ``f32`` weights stay f32 in a bf16 model."""
+
+    shape: Tuple[int, ...]
+    init: str = "normal"
+    scale: Optional[float] = None
+    f32: bool = False
+
+
+def rwkv_layer_defs(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "ln1": ParamDef((d,), "zeros"),
+        "tm": {
+            # data-dependent lerp (5 targets: r, k, v, w, g)
+            "mu_x": ParamDef((d,), "zeros"),
+            "mu": ParamDef((5, d), "zeros"),
+            "ddl_w1": ParamDef((d, 5 * DDLERP_R), scale=1e-2),
+            "ddl_w2": ParamDef((5, DDLERP_R, d), scale=1e-2),
+            "wr": ParamDef((d, d)),
+            "wk": ParamDef((d, d)),
+            "wv": ParamDef((d, d)),
+            "wg": ParamDef((d, d)),
+            "wo": ParamDef((d, d)),
+            "w0": ParamDef((d,), "decay_init", f32=True),
+            "w_lora1": ParamDef((d, LORA_R), scale=1e-2),
+            "w_lora2": ParamDef((LORA_R, d), scale=1e-2),
+            "u": ParamDef((d,), "zeros", f32=True),
+            "gn_scale": ParamDef((d,), "ones"),
+            "gn_bias": ParamDef((d,), "zeros"),
+        },
+        "ln2": ParamDef((d,), "zeros"),
+        "cm": {
+            "mu_k": ParamDef((d,), "zeros"),
+            "mu_r": ParamDef((d,), "zeros"),
+            "wk": ParamDef((d, f)),
+            "wv": ParamDef((f, d)),
+            "wr": ParamDef((d, d)),
+        },
+    }
+
+
+def model_defs(cfg: ArchConfig) -> dict:
+    d, v = cfg.d_model, cfg.padded_vocab
+    return {"embed": ParamDef((v, d), scale=1.0),
+            "final_norm": ParamDef((d,), "zeros"),
+            "lm_head": ParamDef((v, d))}
+
+
+@torch.no_grad()
+def instantiate(p: torch.Tensor, pdef: ParamDef,
+                generator: torch.Generator) -> None:
+    """Fill ``p`` by ``pdef``'s rule (the reference's ``ParamDef.instantiate``).
+    A normal draw is made on p's device in f32, then cast."""
+    if pdef.init == "zeros":
+        p.zero_()
+    elif pdef.init == "ones":
+        p.fill_(1.0)
+    elif pdef.init == "decay_init":
+        # log-spaced decay init of w, from -5 to -1 over the last dim
+        n = p.shape[-1]
+        base = -5.0 + 4.0 * (torch.arange(n, dtype=torch.float32,
+                                          device=p.device) / max(n - 1, 1))
+        p.copy_(base.expand(p.shape))
+    else:
+        fan_in = p.shape[-2] if p.ndim >= 2 else p.shape[-1]
+        scale = pdef.scale if pdef.scale is not None else fan_in ** -0.5
+        draw = torch.randn(p.shape, generator=generator, device=p.device,
+                           dtype=torch.float32)
+        p.copy_(draw.mul_(scale))
+
+
+def _param(pdef: ParamDef, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(pdef.shape, device=device,
+                                    dtype=torch.float32 if pdef.f32 else dtype),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Time mix and channel mix
+# ---------------------------------------------------------------------------
+
+
+def wkv6(r, k, v, logw, u, state, *, plain: bool = False):
+    """The WKV6 scan over (B, H, S, D) inputs from ``state`` (B, H, D, D),
+    which is updated in place; returns (out, state)."""
+    if plain:
+        out, s1 = wkv6_scan_ref(r, k, v, logw, u, state)
+        return out, state.copy_(s1)
+    return wkv6_op(r, k, v, logw, u, state, out_state=state)
+
+
+def _ddlerp(tm, x: torch.Tensor, xx: torch.Tensor):
+    """RWKV6 data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g)."""
+    base = x + (xx - x) * tm["mu_x"]
+    lora = torch.tanh(matmul(base, tm["ddl_w1"]))
+    lora = lora.reshape(*lora.shape[:-1], 5, DDLERP_R)
+    delta = torch.einsum("...nr,nrd->...nd", lora.to(ACC_DTYPE),
+                         tm["ddl_w2"].to(ACC_DTYPE)).to(x.dtype)
+    mu = tm["mu"]
+    return tuple(x + (xx - x) * (mu[i] + delta[..., i, :]) for i in range(5))
+
+
+def _group_norm(x: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
+    """Per-head groupnorm over head_dim, x: (..., H, D); f32 out."""
+    xf = x.to(ACC_DTYPE)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps)
+
+
+def _decay_and_gate(tm, xw: torch.Tensor, xg: torch.Tensor):
+    g = activate(matmul(xg, tm["wg"]), "silu")
+    logw = -torch.exp(tm["w0"].to(ACC_DTYPE)
+                      + matmul(torch.tanh(matmul(xw, tm["w_lora1"])),
+                               tm["w_lora2"]).to(ACC_DTYPE))
+    return logw, g
+
+
+def _mix_out(tm, out: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
+    """Groupnorm of the (..., H, D) wkv output, gate and output projection."""
+    normed = _group_norm(out).reshape(*out.shape[:-2], -1)
+    normed = (normed * tm["gn_scale"].to(ACC_DTYPE)
+              + tm["gn_bias"].to(ACC_DTYPE)).to(dtype)
+    return matmul(normed * g, tm["wo"])
+
+
+def time_mix_prefill(tm, x: torch.Tensor, cfg: ArchConfig,
+                     tm_state: torch.Tensor, wkv_state: torch.Tensor, *,
+                     plain: bool = False):
+    """x: (B, S, d).  Returns (out, (last_x, wkv_state')); ``wkv_state`` is
+    updated in place."""
+    B, S, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    xx = torch.cat([tm_state[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+    xr, xk, xv, xw, xg = _ddlerp(tm, x, xx)
+    # (B, S, H, D) projections seen as (B, H, S, D) views, no copy
+    r, k, v = (matmul(a, tm[w]).view(B, S, H, D).transpose(1, 2)
+               for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
+    logw, g = _decay_and_gate(tm, xw, xg)
+    logw = logw.view(B, S, H, D).transpose(1, 2)
+    out, wkv_state = wkv6(r, k, v, logw, tm["u"].view(H, D), wkv_state,
+                          plain=plain)
+    return _mix_out(tm, out.transpose(1, 2), g, x.dtype), (x[:, -1], wkv_state)
+
+
+def time_mix_decode(tm, x: torch.Tensor, cfg: ArchConfig,
+                    tm_state: torch.Tensor, wkv_state: torch.Tensor, *,
+                    plain: bool = False):
+    """x: (B, d), one token.  ``wkv_state`` is updated in place."""
+    B, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    xr, xk, xv, xw, xg = _ddlerp(tm, x, tm_state.to(x.dtype))
+    r, k, v = (matmul(a, tm[w]).view(B, H, 1, D)
+               for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
+    logw, g = _decay_and_gate(tm, xw, xg)
+    out, wkv_state = wkv6(r, k, v, logw.view(B, H, 1, D), tm["u"].view(H, D),
+                          wkv_state, plain=plain)
+    return _mix_out(tm, out[:, :, 0], g, x.dtype), (x, wkv_state)
+
+
+def channel_mix(cm, x: torch.Tensor, cm_state: torch.Tensor, prefill: bool):
+    if prefill:
+        xx = torch.cat([cm_state[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+        new_state = x[:, -1]
+    else:
+        xx = cm_state.to(x.dtype)
+        new_state = x
+    xk = x + (xx - x) * cm["mu_k"]
+    xr = x + (xx - x) * cm["mu_r"]
+    kv = matmul(activate(matmul(xk, cm["wk"]), "relu_sq"), cm["wv"])
+    gate = torch.sigmoid(matmul(xr, cm["wr"]).to(ACC_DTYPE)).to(x.dtype)
+    return gate * kv, new_state
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+class RWKVLayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        defs = rwkv_layer_defs(cfg)
+        self.ln1 = _param(defs["ln1"], device, dtype)
+        self.tm = nn.ParameterDict(
+            {k: _param(p, device, dtype) for k, p in defs["tm"].items()})
+        self.ln2 = _param(defs["ln2"], device, dtype)
+        self.cm = nn.ParameterDict(
+            {k: _param(p, device, dtype) for k, p in defs["cm"].items()})
+
+    def forward(self, x, state, cfg, plain: bool, prefill: bool):
+        """x: (B, S, d) in prefill, (B, d) in decode; state: (tm_x, cm_x,
+        wkv), the last updated in place."""
+        tm_x, cm_x, wkv = state
+        time_mix = time_mix_prefill if prefill else time_mix_decode
+        h, (tm_x, wkv) = time_mix(
+            self.tm, rms_norm(x, self.ln1, cfg.norm_eps), cfg, tm_x, wkv,
+            plain=plain)
+        x = x + h
+        h, cm_x = channel_mix(self.cm, rms_norm(x, self.ln2, cfg.norm_eps),
+                              cm_x, prefill=prefill)
+        return x + h, (tm_x, cm_x, wkv)
+
+
+class RWKVLM(nn.Module):
+    """rwkv6 on one device.
+
+    The weights start at zero; ``init_params`` draws them by the
+    reference's rules, and ``repro_torch.bridge.load_reference_params``
+    copies them from the reference's parameter tree.  ``w0`` and ``u`` are
+    f32 whatever the model's dtype.  Setting ``plain_wkv`` to True runs the
+    plain PyTorch version of the WKV6 kernel (for comparisons only).
+    """
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.device = dev
+        self.dtype = dtype
+        self.plain_wkv = False
+        defs = model_defs(cfg)
+        self.embed = _param(defs["embed"], dev, dtype)
+        self.layers = nn.ModuleList(
+            RWKVLayer(cfg, dev, dtype) for _ in range(cfg.num_layers))
+        self.final_norm = _param(defs["final_norm"], dev, dtype)
+        self.lm_head = _param(defs["lm_head"], dev, dtype)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "RWKVLM":
+        """Draw every weight by its ``ParamDef`` rule, one at a time."""
+        defs = model_defs(self.cfg)
+        for name in defs:
+            instantiate(getattr(self, name), defs[name], generator)
+        layer_defs = rwkv_layer_defs(self.cfg)
+        for layer in self.layers:
+            for name, pdef in layer_defs.items():
+                if isinstance(pdef, dict):
+                    group = getattr(layer, name)
+                    for key, sub in pdef.items():
+                        instantiate(group[key], sub, generator)
+                else:
+                    instantiate(getattr(layer, name), pdef, generator)
+        return self
+
+    def _logits_out(self, x):
+        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
+                                self.lm_head, valid_vocab=self.cfg.vocab_size)
+        return logits[..., :self.cfg.vocab_size]
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """tokens: (B, S), any S >= 1.  Returns the logits (B, vocab) of the
+        last token and the state after the prompt (the cache layout)."""
+        tokens = self._tokens(tokens)
+        x = embed_lookup(self.embed, tokens)
+        state = self.init_cache(tokens.shape[0], 0)
+        x = self._run(x, state, prefill=True)
+        return self._logits_out(x[:, -1]), state
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos):
+        """One token per row.  cache: the state dict; tokens: (B,); ``pos``
+        is ignored (the recurrence carries position).  Updates ``cache`` in
+        place and returns (logits (B, vocab) f32, cache)."""
+        del pos
+        x = embed_lookup(self.embed, self._tokens(tokens))
+        return self._logits_out(self._run(x, cache, prefill=False)), cache
+
+    def _run(self, x, state, prefill: bool):
+        """Every layer over ``x``, updating the state dict in place."""
+        for i, layer in enumerate(self.layers):
+            x, (tm_x, cm_x, _) = layer(
+                x, (state["tm_x"][i], state["cm_x"][i], state["wkv"][i]),
+                self.cfg, self.plain_wkv, prefill)
+            state["tm_x"][i] = tm_x
+            state["cm_x"][i] = cm_x
+        return x
+
+    def init_cache(self, batch: int, max_len: int):
+        """Zero state for ``batch`` sequences; O(1) in length, so
+        ``max_len`` is ignored."""
+        del max_len
+        cfg = self.cfg
+        L, H, D, d = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.d_model
+        return {
+            "wkv": torch.zeros((L, batch, H, D, D), device=self.device,
+                               dtype=torch.float32),
+            "tm_x": torch.zeros((L, batch, d), device=self.device,
+                                dtype=self.dtype),
+            "cm_x": torch.zeros((L, batch, d), device=self.device,
+                                dtype=self.dtype),
+        }

@@ -4,12 +4,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.rwkv import RWKVLM
 from repro_torch.models.transformer import DenseLM
 
 # family -> the ROADMAP.md queue-A item that ports it
 _LATER = {
     "moe": "A8 (models/moe.py::moe_block)",
-    "ssm": "A9 (models/rwkv.py with the wkv6_scan kernel, B3)",
     "hybrid": "A10 (models/hymba.py)",
     "vlm": "A11 (models/vision.py)",
     "audio": "A11 (models/encdec.py)",
@@ -18,9 +18,11 @@ _LATER = {
 
 
 def build_model(cfg: ArchConfig, *, device="cuda",
-                dtype: torch.dtype = torch.bfloat16) -> DenseLM:
+                dtype: torch.dtype = torch.bfloat16):
     if cfg.family == "dense":
         return DenseLM(cfg, device=device, dtype=dtype)
+    if cfg.family == "ssm":
+        return RWKVLM(cfg, device=device, dtype=dtype)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "

@@ -1,12 +1,15 @@
 """Serving engine for the port's models, counterpart of ``repro.serving.engine``.
 
-Slot-based continuous batching on a :class:`DenseLM`:
+Slot-based continuous batching on a :class:`DenseLM` or an :class:`RWKVLM`:
 
   * prefill admits a waiting request into a free slot (logits for its
-    last token seed decoding); exact-prefix cache reuse via
-    :class:`PrefixCache` + :meth:`SlotKVCache.copy_prefix` -- the longest
-    cached prefix of the prompt is copied from the slot that already holds
-    its KV and only the suffix is computed;
+    last token seed decoding); for a dense KV cache, exact-prefix cache
+    reuse via :class:`PrefixCache` + :meth:`SlotKVCache.copy_prefix` -- the
+    longest cached prefix of the prompt is copied from the slot that
+    already holds its KV and only the suffix is computed.  A recurrent
+    state (rwkv) has no per-token prefix to copy, so, as in the reference,
+    it gets no prefix cache and ``cached_tokens`` stays 0; admission
+    writes every leaf of the slot's state;
   * decode runs one step for all slots with per-slot positions (ragged
     continuous batching);
   * greedy sampling; requests complete when their token budget is spent.
@@ -16,7 +19,10 @@ the reference: the reference decodes idle slots too, as token 0 at
 position 0, and so overwrites position 0 of every idle slot's KV, which
 the prefix cache may still point at for a finished sequence.  Here an
 idle slot decodes at position -1, which writes no KV and attends over
-nothing; its logits are thrown away as in the reference.
+nothing; its logits are thrown away as in the reference.  An idle slot
+of a recurrent state is decoded as in the reference (token 0; the model
+ignores positions), which changes that slot's state, but admission
+overwrites all of it.
 """
 from __future__ import annotations
 
@@ -27,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import DenseLM
 from repro_torch.serving.kv_cache import SlotKVCache
 from repro_torch.serving.prefix_cache import PrefixCache
 
@@ -44,7 +49,7 @@ class ServeRequest:
 
 
 class ServingEngine:
-    def __init__(self, model: DenseLM, *, device="cuda", slots: int = 8,
+    def __init__(self, model, *, device="cuda", slots: int = 8,
                  max_len: int = 256, prefix_caching: bool = True,
                  min_prefix: int = 8):
         self.device = resolve_device(device)
@@ -57,8 +62,15 @@ class ServingEngine:
         self.max_len = max_len
         self.min_prefix = min_prefix
         self.lengths = np.zeros(slots, np.int32)
-        k, v = model.init_cache(slots, max_len)
-        self.kv = SlotKVCache(k=k, v=v, lengths=self.lengths)
+        cache = model.init_cache(slots, max_len)
+        # prefix reuse needs the positional (k, v) layout; a recurrent
+        # state (a dict of (L, slots, ...) leaves) has no prefix to copy
+        if isinstance(cache, tuple):
+            self.kv = SlotKVCache(k=cache[0], v=cache[1], lengths=self.lengths)
+            self.state = None
+        else:
+            self.kv, self.state = None, cache
+            prefix_caching = False
         # every live trie node is a token whose KV some slot holds, so
         # slots * max_len entries never evict a live prefix (the
         # reference's fixed 1024 would drop any prefix of a longer prompt)
@@ -72,8 +84,9 @@ class ServingEngine:
 
     @property
     def cache(self):
-        """(k, v), each (L, slots, KV, max_len, D)."""
-        return self.kv.k, self.kv.v
+        """(k, v), each (L, slots, KV, max_len, D), or the recurrent state
+        dict of (L, slots, ...) leaves."""
+        return (self.kv.k, self.kv.v) if self.state is None else self.state
 
     def submit(self, req: ServeRequest) -> None:
         self.waiting.append(req)
@@ -182,10 +195,17 @@ class ServingEngine:
 
 
 def _merge_slot(cache, prefill_cache, slot: int) -> None:
-    """Write one sequence's prefill KV (L, 1, KV, S, D) into slot ``slot``
-    of the (L, slots, KV, max_len, D) cache, in place: the prompt's
-    positions get its KV (cast to the cache's dtype), the rest of the slot
-    zeros, as the reference's padded update leaves it."""
+    """Write one sequence's prefill cache into slot ``slot``, in place.
+
+    A recurrent state dict gets every (L, 1, ...) leaf written at
+    ``[:, slot]``.  A dense (k, v) cache, (L, slots, KV, max_len, D), gets
+    the prompt's (L, 1, KV, S, D) KV at its positions (cast to the cache's
+    dtype) and zeros in the rest of the slot, as the reference's padded
+    update leaves it."""
+    if isinstance(cache, dict):
+        for name, big in cache.items():
+            big[:, slot] = prefill_cache[name][:, 0].to(big.dtype)
+        return
     for big, small in zip(cache, prefill_cache):
         S = small.shape[3]
         big[:, slot, :, :S] = small[:, 0].to(big.dtype)

@@ -4,7 +4,8 @@ On the CPU each wrapper runs its plain PyTorch version; that is held
 against the JAX Pallas kernels run in interpret mode (as the JAX package's
 own tests run them) and against the jnp oracles and model-layer functions.
 The CUDA kernels themselves are held against the plain versions by the
-``gpu``-marked test at the end, which skips where there is no card.
+``gpu``-marked tests at the end, which skip where there is no card; the
+WKV6 kernel's CPU parity with the JAX package is in ``test_torch_rwkv.py``.
 Tolerances follow ``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in bf16.
 """
 import importlib
@@ -18,6 +19,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_op,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_op,
                                                  flash_attention_ref)
+from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -200,7 +202,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     flash_attention_op(tq, tk, tv)
     decode_attention_op(tq[:, 0], tk.transpose(1, 2), tv.transpose(1, 2), 3)
     assert common.launch_counts == {"flash_attention": 0,
-                                    "decode_attention": 0}
+                                    "decode_attention": 0, "wkv6_scan": 0}
 
 
 def test_wrappers_reject_mismatched_shapes():
@@ -281,4 +283,52 @@ def test_cuda_kernels_match_plain_versions():
                                atol=TOL["float32"], rtol=TOL["float32"])
     n_decode += 1
     assert common.launch_counts == {"flash_attention": n_flash,
-                                    "decode_attention": n_decode}
+                                    "decode_attention": n_decode,
+                                    "wkv6_scan": 0}
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_matches_plain_version():
+    """The WKV6 kernel against its plain version: ragged S, a carried
+    state, strided (B, S, H, D) inputs, and an update in place.  Both run
+    the recurrence in f32 and differ only in the order of sums, so the
+    port's kernel tolerances hold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    common.reset_launch_counts()
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    n = 0
+    for name, dtype in TORCH.items():
+        tol = TOL[name]
+        for B, H, S, D in [(1, 64, 1, 64), (1, 64, 77, 64), (8, 64, 1, 64),
+                           (2, 8, 130, 32), (1, 4, 200, 128), (1, 64, 1000, 64)]:
+            # (B, S, H, D) projections seen as (B, H, S, D), as the model has them
+            r, k, v = (rnd(B, S, H, D).to(dtype).transpose(1, 2) for _ in range(3))
+            logw = (-torch.exp(rnd(B, S, H, D) - 1.0)).transpose(1, 2)
+            u = rnd(H, D, scale=0.2)
+            s0 = rnd(B, H, D, D, scale=0.1)
+            out, s1 = wkv6_op(r, k, v, logw, u, s0)
+            torch.cuda.synchronize()
+            ref, sref = wkv6_scan_ref(r, k, v, logw, u, s0)
+            assert out.dtype == dtype and s1.dtype == torch.float32
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+            torch.testing.assert_close(s1, sref, atol=tol, rtol=tol)
+            n += 1
+            if S > 1:  # two calls over the halves, the second in place
+                h = S // 2
+                a, mid = wkv6_op(r[:, :, :h], k[:, :, :h], v[:, :, :h],
+                                 logw[:, :, :h], u, s0)
+                b, end = wkv6_op(r[:, :, h:], k[:, :, h:], v[:, :, h:],
+                                 logw[:, :, h:], u, mid, out_state=mid)
+                torch.cuda.synchronize()
+                assert end.data_ptr() == mid.data_ptr()
+                torch.testing.assert_close(torch.cat([a, b], 2).float(),
+                                           ref.float(), atol=tol, rtol=tol)
+                torch.testing.assert_close(end, sref, atol=tol, rtol=tol)
+                n += 2
+    assert common.launch_counts["wkv6_scan"] == n
