@@ -10,11 +10,15 @@ one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
 2. ``build``: the three kernels compiled from ``src/repro_torch/csrc`` for
-   sm_90a, in parallel, with nvcc's register/spill report;
+   sm_90a, in parallel, with nvcc's register/spill report; then one
+   ``sass`` line per kernel library with its HGMMA, HMMA and FFMA
+   instructions per entry (``cuobjdump -sass``), which fails the run if a
+   bf16 attention entry has no tensor-core instruction;
 3. ``kernel_checks``: the attention kernels against their plain PyTorch
-   versions on the card at the llama path's shapes, with times (CUDA
-   events), the bound of each call and one PyTorch library call as a
-   yardstick;
+   versions on the card at the llama path's shapes (within TOL, and each
+   output row within ROW_REL_TOL of its RMS), with times (CUDA
+   events, and device time through a CUDA graph), the bound of each call
+   and one PyTorch library call as a yardstick, timed the same two ways;
 4. ``model_check``: full-width llama-3.1-8b (seeded random weights, in
    f32 and in bf16), a 1000-token prefill and 8 decode steps through the
    kernels and through the plain versions, with their largest logit
@@ -48,6 +52,13 @@ ROOT = Path(__file__).resolve().parent
 BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# beside TOL, each attention output row (the D values of one query head)
+# is held to a bound scaled to that row: its largest error against the
+# plain version computed in f32 (no output rounding), over the row's RMS
+# there.  Inputs of randn * 0.5 give |out| ~ 0.5 / sqrt(len), below TOL on
+# long rows, so TOL alone would pass a kernel that dropped part of a long
+# row.  A row whose reference is all zeros (length 0) must be exactly zero.
+ROW_REL_TOL = 0.05
 # the full-width model check: kernels vs plain versions in f32 weights,
 # and in bf16 the kernel path's error over the plain path's, each
 # against the f32 plain run (see model_check)
@@ -119,6 +130,15 @@ def graph_ms(torch, fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / (5 * calls)
 
 
+def row_rel_err(torch, out, truth) -> float:
+    """Largest over rows (the last dim) of max |out - truth| / rms(truth)."""
+    err = (out.float() - truth).abs().amax(-1)
+    rms = truth.square().mean(-1).sqrt()
+    rel = torch.where(rms > 0, err / rms.clamp_min(1e-30),
+                      torch.where(err > 0, float("inf"), 0.0))
+    return float(rel.max())
+
+
 def bound(ops: float, nbytes: float, dtype: str):
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     t_bytes = nbytes / BYTES_PER_S * 1e3
@@ -149,6 +169,40 @@ def ptxas_summary(text: str):
     return entries
 
 
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+# entries that must run on the tensor cores: the bf16 attention kernels
+TENSOR_CORE_ENTRIES = {"flash_attention": "flash_fwd_tc",
+                       "decode_attention": "decode_split"}
+
+
+def sass_counts(common, name: str) -> dict:
+    """HGMMA, HMMA and FFMA instructions per (mangled) kernel entry of the
+    built library of ``name``, from the toolkit's ``cuobjdump -sass``."""
+    tool = Path(common.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return {"phase": "sass", "library": name,
+                "error": "cuobjdump not found: SASS not inspected"}
+    text = subprocess.run([str(tool), "-sass", str(common.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, entry = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            entry = line.split("Function :")[1].strip()
+            counts[entry] = dict.fromkeys(SASS_OPS, 0)
+        elif entry is not None:
+            for op in SASS_OPS:
+                if f" {op}." in line or f" {op} " in line:
+                    counts[entry][op] += 1
+    result = {"phase": "sass", "library": name, "entries": counts}
+    marker = TENSOR_CORE_ENTRIES.get(name)
+    if marker:
+        mine = [c for e, c in counts.items() if marker in e]
+        result["tensor_core_entries"] = len(mine)
+        result["ok"] = bool(mine) and all(c["HGMMA"] + c["HMMA"] > 0 for c in mine)
+    return result
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -174,10 +228,14 @@ def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype):
     out = kernel()
     torch.cuda.synchronize()
     ref = plain().transpose(1, 2)
+    truth = flash_attention_ref(qt.float(), kt.float(), vt.float(),
+                                window=window).transpose(1, 2)
     err = (out.float() - ref.float()).abs()
     tol = TOL[dtype]
-    ok = bool((err <= tol + tol * ref.float().abs()).all()) and \
+    ok_abs = bool((err <= tol + tol * ref.float().abs()).all()) and \
         bool(torch.isfinite(out).all())
+    row_err = row_rel_err(torch, out, truth)
+    del truth
     pos = torch.arange(S, device=dev)
     mask = pos[None, :] <= pos[:, None]
     if window > 0:
@@ -193,12 +251,21 @@ def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype):
 
     esize = q.element_size()
     nbytes = esize * (2 * B * S * H * D + 2 * B * S * KV * D)
-    b_ms, b_by = bound(4.0 * B * H * D * pairs, nbytes, dtype)
+    flops = 4.0 * B * H * D * pairs
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    kernel_graph_ms = graph_ms(torch, kernel)
     return {"kernel": "flash_attention", "dtype": dtype,
             "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
-            "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
-            "kernel_ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
-            "library_ms": cuda_ms(torch, library), "bound_ms": b_ms, "bound_by": b_by}
+            "max_abs_err": float(err.max()), "tol": tol,
+            "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
+            "ok_abs": ok_abs, "ok_rows": row_err <= ROW_REL_TOL,
+            "ok": ok_abs and row_err <= ROW_REL_TOL,
+            "kernel_ms": cuda_ms(torch, kernel), "kernel_graph_ms": kernel_graph_ms,
+            "tflops_graph": flops / kernel_graph_ms * 1e-9,
+            "plain_ms": cuda_ms(torch, plain),
+            "library_ms": cuda_ms(torch, library),
+            "library_graph_ms": graph_ms(torch, library),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
@@ -227,10 +294,13 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
     out = kernel()
     torch.cuda.synchronize()
     ref = plain().reshape(B, H, D)
+    truth = decode_attention_ref(qg.float(), kc.float(), vc.float(),
+                                 lengths).reshape(B, H, D)
     err = (out.float() - ref.float()).abs()
     tol = TOL[dtype]
-    ok = bool((err <= tol + tol * ref.float().abs()).all()) and \
+    ok_abs = bool((err <= tol + tol * ref.float().abs()).all()) and \
         bool(torch.isfinite(out).all())
+    row_err = row_rel_err(torch, out, truth)
     valid = torch.arange(Smax, device=dev)[None, :] < lengths[:, None]
     attn_mask = valid[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -245,12 +315,20 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
     nbytes = (q.element_size() * 2 * B * H * D
               + kc.element_size() * 2 * tokens * KV * D + 4 * B)
     b_ms, b_by = bound(4.0 * H * D * tokens, nbytes, dtype)
+    kernel_graph_ms = graph_ms(torch, kernel)
     return {"kernel": "decode_attention", "dtype": dtype,
             "cache_dtype": cache_dtype,
             "shape": {"B": B, "H": H, "KV": KV, "D": D, "Smax": Smax, "lengths": lens},
-            "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
-            "kernel_ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
-            "library_ms": cuda_ms(torch, library), "bound_ms": b_ms, "bound_by": b_by}
+            "max_abs_err": float(err.max()), "tol": tol,
+            "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
+            "ok_abs": ok_abs, "ok_rows": row_err <= ROW_REL_TOL,
+            "ok": ok_abs and row_err <= ROW_REL_TOL,
+            "kernel_ms": cuda_ms(torch, kernel), "kernel_graph_ms": kernel_graph_ms,
+            "gbytes_per_s_graph": nbytes / kernel_graph_ms * 1e-6,
+            "plain_ms": cuda_ms(torch, plain),
+            "library_ms": cuda_ms(torch, library),
+            "library_graph_ms": graph_ms(torch, library),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0):
@@ -326,6 +404,7 @@ FLASH_CASES = [
     (1, 1000, 16, 2, 128, 0, "bfloat16"),    # qwen2.5-3b: G=8
     (1, 1000, 16, 16, 256, 0, "bfloat16"),   # gemma-7b: D=256, G=1
     (1, 77, 32, 8, 128, 0, "float32"),
+    (1, 256, 32, 8, 128, 0, "bfloat16"),    # the engine's shortest prompt
 ]
 DECODE_LENS = [0, 1, 77, 1000, 2048, 3000, 4095, 4096]
 DECODE_CASES = [
@@ -338,6 +417,11 @@ DECODE_CASES = [
     (32, 8, 128, 1024, [0, 5, 1024, 300], "float32"),
     # f32 weights over the bf16 cache, as in the f32 model check
     (32, 8, 128, 1024, [0, 5, 1024, 300], "float32", "bfloat16"),
+    # the engine's prefix-hit suffix step: one sequence over its slot
+    (32, 8, 128, 4096, [1100], "bfloat16"),
+    (32, 8, 128, 4096, [0], "bfloat16"),
+    # Smax not a multiple of the split
+    (32, 8, 128, 1000, [999, 1000, 3, 0], "bfloat16"),
 ]
 # rwkv6-7b: H=64, D=64; prompts of the engine phase are 256-2048 tokens,
 # decode runs S=1 over its 8 slots
@@ -551,6 +635,12 @@ def run():
                              "ptxas": ptxas_summary(r["ptxas"])}
                       for name, r in reports.items()},
           "cached": sorted(set(common.KERNELS) - set(reports))})
+    for name in common.KERNELS:
+        result = sass_counts(common, name)
+        emit(result)
+        if result.get("ok") is False:
+            raise SmokeFailure(f"{name}: a bf16 entry has no tensor-core "
+                               "instruction in its SASS")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     with torch.no_grad():
@@ -617,10 +707,14 @@ def run():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": engines[name]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_row_rel_err": max((c["max_row_rel_err"] for c in mine
+                                    if "max_row_rel_err" in c), default=None),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"],
-            "dtype": row["dtype"]})
+            "library_ms": row["library_ms"],
+            "graph_ms": row["kernel_graph_ms"],
+            "library_graph_ms": row.get("library_graph_ms"),
+            "shape": row["shape"], "dtype": row["dtype"]})
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,14 @@
 """Wrapper of the decode attention kernel, in the model's (B, H, D) layout.
 
 A CPU tensor goes to the plain version in ``ref.py``.  A CUDA tensor goes
-to the kernel of ``csrc/decode_attention.cu``, or the wrapper raises.
+to the kernel of ``csrc/decode_attention.cu``, or the wrapper raises.  With
+q and the caches in bf16 that is the split-K kernel pair, planned on the
+host by ``plan_splits``; otherwise the single-pass f32 kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -15,9 +18,25 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 NAME = "decode_attention"
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
+# cache rows per tile of the split kernel (16 per warp, 4 warps), and the
+# blocks per SM the split plan aims for
+SPLIT_TILE = 64
+BLOCKS_PER_SM = 4
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 5 + [_I] * 7 + [_L] * 6 + [_P]
+_ARGTYPES = [_P] * 6 + [_I] * 9 + [_L] * 6 + [_P]
+
+
+def plan_splits(batch_heads: int, smax: int, sms: int) -> Tuple[int, int]:
+    """(chunk, splits) of the split-K kernel: each of ``splits`` blocks per
+    (sequence, kv head) covers ``chunk`` cache positions, a multiple of
+    ``SPLIT_TILE``.  Planned from ``smax``, ``batch_heads`` = B * KV and
+    the card's SM count ``sms`` alone (never from the device lengths, so no
+    host sync), aiming at ``BLOCKS_PER_SM * sms`` blocks where ``smax``
+    allows."""
+    want = -(-BLOCKS_PER_SM * sms // max(batch_heads, 1))
+    chunk = max(SPLIT_TILE, smax // want // SPLIT_TILE * SPLIT_TILE)
+    return chunk, max(1, -(-smax // chunk))
 
 
 def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
@@ -66,10 +85,19 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
         return out
     fn = common.load_function(NAME, "decode_attention_fwd", _ARGTYPES)
     strides = [t.stride(i) for t in (k_cache, v_cache) for i in (0, 1, 2)]
+    chunk = splits = 0
+    scratch = None
+    if q.dtype == k_cache.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        chunk, splits = plan_splits(B * KV, Smax, sms)
+        # per (b, kv head, split, g): O[D] unnormalised, then (m, l)
+        scratch = torch.empty(B * KV * splits * G * (D + 2),
+                              dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), B, KV, G, Smax, D,
-            common.DTYPE_CODES[q.dtype], common.DTYPE_CODES[k_cache.dtype],
-            *strides,
+            lens.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, B, KV, G,
+            Smax, D, common.DTYPE_CODES[q.dtype],
+            common.DTYPE_CODES[k_cache.dtype], chunk, splits, *strides,
             common.current_stream(q.device))
     common.check(NAME, rc)
     common.count_launch(NAME)

@@ -24,6 +24,18 @@ from repro_torch.models import layers as TL
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the card's attention outputs, row by row (the D values of one head): the
+# largest error against the plain version in f32 over the row's RMS, as
+# chip_smoke.py's ROW_REL_TOL; long rows' outputs are small beside TOL
+ROW_REL_TOL = 0.05
+
+
+def _assert_rows_close(out, truth):
+    err = (out.float() - truth).abs().amax(-1)
+    rms = truth.square().mean(-1).sqrt()
+    assert bool((err[rms == 0] == 0).all()), "a zero row came out nonzero"
+    worst = float((err[rms > 0] / rms[rms > 0]).max()) if bool((rms > 0).any()) else 0.0
+    assert worst <= ROW_REL_TOL, f"row error {worst} of the row's RMS"
 
 
 class _Ref:
@@ -245,7 +257,11 @@ def test_cuda_kernels_match_plain_versions():
         for B, S, H, KV, D, window in [(1, 1, 32, 8, 128, 0), (2, 77, 32, 8, 128, 0),
                                        (1, 192, 16, 4, 64, 64), (1, 300, 28, 4, 128, 0),
                                        (1, 130, 16, 16, 256, 0), (1, 100, 32, 2, 128, 0),
-                                       (1, 1000, 32, 8, 128, 256)]:
+                                       (1, 1000, 32, 8, 128, 256)] + [
+                # ragged tails around the 64-row tiles, every head dim, the
+                # group sizes from MHA to 16, with and without a window
+                (1, S, 2 * G, 2, D, window) for S in (1, 63, 65, 256)
+                for D in (64, 128, 256) for G in (1, 7, 16) for window in (0, 64)]:
             q = rnd(B, S, H, D, dtype=dtype)
             k = rnd(B, S, KV, D, dtype=dtype)
             v = rnd(B, S, KV, D, dtype=dtype)
@@ -255,11 +271,19 @@ def test_cuda_kernels_match_plain_versions():
                                       v.transpose(1, 2), window=window)
             torch.testing.assert_close(out.float(), ref.transpose(1, 2).float(),
                                        atol=tol, rtol=tol)
+            truth = flash_attention_ref(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                                        v.transpose(1, 2).float(), window=window)
+            _assert_rows_close(out, truth.transpose(1, 2))
             n_flash += 1
         for B, H, KV, D, Smax, lens in [(8, 32, 8, 128, 1024, [0, 1, 77, 1000, 1024, 5, 300, 2]),
                                         (3, 28, 4, 128, 300, [299, 5, 0]),
                                         (2, 16, 1, 256, 200, [150, 199]),
-                                        (2, 32, 2, 64, 256, [130, 256])]:
+                                        (2, 32, 2, 64, 256, [130, 256]),
+                                        # one sequence, long and empty
+                                        (1, 32, 8, 128, 4096, [4000]),
+                                        (1, 32, 8, 128, 4096, [0]),
+                                        # Smax not a multiple of the split
+                                        (4, 32, 8, 128, 1000, [999, 1000, 3, 0])]:
             q = rnd(B, H, D, dtype=dtype)
             kc = rnd(B, KV, Smax, D, dtype=dtype)
             vc = rnd(B, KV, Smax, D, dtype=dtype)
@@ -269,7 +293,26 @@ def test_cuda_kernels_match_plain_versions():
             ref = decode_attention_ref(q.reshape(B, KV, H // KV, D), kc, vc, lengths)
             torch.testing.assert_close(out.float(), ref.reshape(B, H, D).float(),
                                        atol=tol, rtol=tol)
+            truth = decode_attention_ref(q.reshape(B, KV, H // KV, D).float(), kc.float(),
+                                         vc.float(), lengths)
+            _assert_rows_close(out, truth.reshape(B, H, D))
             n_decode += 1
+    # a batch-1 view of one slot of a layered cache, as the engine's
+    # prefix-hit suffix steps pass it
+    for name, dtype in TORCH.items():
+        q = rnd(1, 32, 128, dtype=dtype)
+        cache = rnd(2, 2, 4, 8, 2048, 128, dtype=dtype)  # (k/v, L, slots, ...)
+        kc, vc = cache[0, 1, 2:3], cache[1, 1, 2:3]
+        lengths = torch.tensor([1100], device=dev, dtype=torch.int32)
+        out = decode_attention_op(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q.reshape(1, 8, 4, 128), kc, vc, lengths)
+        torch.testing.assert_close(out.float(), ref.reshape(1, 32, 128).float(),
+                                   atol=TOL[name], rtol=TOL[name])
+        truth = decode_attention_ref(q.reshape(1, 8, 4, 128).float(), kc.float(),
+                                     vc.float(), lengths)
+        _assert_rows_close(out, truth.reshape(1, 32, 128))
+        n_decode += 1
     # f32 queries over a bf16 cache: the engine's cache with f32 weights
     q = rnd(2, 32, 128, dtype=torch.float32)
     kc = rnd(2, 8, 300, 128, dtype=torch.bfloat16)
