@@ -5,15 +5,17 @@
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
 ``src/repro_torch``.  It drives two paths, llama-3.1-8b through the two
-attention kernels and rwkv6-7b through the WKV6 scan kernel, and prints
-one JSON object per phase:
+attention kernels and rwkv6-7b through the two WKV6 kernels (the chunked
+tensor-core kernel for bf16 prefill, the scan for decode and f32), and
+prints one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
-2. ``build``: the three kernels compiled from ``src/repro_torch/csrc`` for
+2. ``build``: the four kernels compiled from ``src/repro_torch/csrc`` for
    sm_90a, in parallel, with nvcc's register/spill report; then one
    ``sass`` line per kernel library with its HGMMA, HMMA and FFMA
    instructions per entry (``cuobjdump -sass``), which fails the run if a
-   bf16 attention entry has no tensor-core instruction;
+   bf16 attention entry or the chunked WKV6 entry has no tensor-core
+   instruction;
 3. ``kernel_checks``: the attention kernels against their plain PyTorch
    versions on the card at the llama path's shapes (within TOL, and each
    output row within ROW_REL_TOL of its RMS), with times (CUDA
@@ -26,11 +28,15 @@ one JSON object per phase:
 5. ``engine``: the serving engine at full width and depth serving 16
    requests (8 share a 1024-token prefix), with the kernels' launch counts
    during that run;
-6. with the llama model freed, ``kernel_checks`` of the WKV6 scan at the
-   rwkv path's shapes (no single PyTorch call computes it), then
+6. with the llama model freed, ``kernel_checks`` of the WKV6 kernels at
+   the rwkv path's shapes, each call on the kernel ``wkv6_op`` routes it
+   to (no single PyTorch call computes WKV6), each output and state row
+   held to ROW_REL_TOL as well as TOL, with strong and slow decays; then
    ``model_check`` and ``engine`` for rwkv6-7b: 16 requests of 256-2048
    prompt tokens, no prefix reuse (a recurrent state has no prefix to
-   copy), and every prefill and decode step through the kernel;
+   copy), every prefill through the chunked kernel (one launch per layer
+   and request) and every decode step through the scan (one per layer and
+   step);
 
 then the ``kernels`` summary line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -51,9 +57,13 @@ ROOT = Path(__file__).resolve().parent
 # on the CUDA cores (the f32 kernels do not use the tensor cores)
 BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# the rate assumed for the chunked WKV6 kernel's exponentials (reported
+# beside its bound, not part of it): 16 results per clock per SM on the SFU
+# (CUDA's throughput table for compute capability 9.0), 132 SMs, 1.98 GHz
+EXP2_PER_S = 16 * 132 * 1.98e9
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # beside TOL, each attention output row (the D values of one query head)
-# is held to a bound scaled to that row: its largest error against the
+# and each WKV6 output and state row is held to a bound scaled to that row: its largest error against the
 # plain version computed in f32 (no output rounding), over the row's RMS
 # there.  Inputs of randn * 0.5 give |out| ~ 0.5 / sqrt(len), below TOL on
 # long rows, so TOL alone would pass a kernel that dropped part of a long
@@ -170,9 +180,11 @@ def ptxas_summary(text: str):
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
-# entries that must run on the tensor cores: the bf16 attention kernels
+# entries that must run on the tensor cores: the bf16 attention kernels and
+# the chunked WKV6 kernel
 TENSOR_CORE_ENTRIES = {"flash_attention": "flash_fwd_tc",
-                       "decode_attention": "decode_split"}
+                       "decode_attention": "decode_split",
+                       "wkv6_chunk": "wkv6_chunk_kernel"}
 
 
 def sass_counts(common, name: str) -> dict:
@@ -331,21 +343,53 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0):
-    """The WKV6 kernel against its plain version from a carried state, on
-    (B, S, H, D) projections seen as (B, H, S, D), as the model passes them.
-    With ``split``, the kernel also runs as two calls over [0, split) and
-    [split, S), the second updating the state in place, and both are held
-    against the one plain call over the whole."""
+def wkv6_chunk_work(B, S, H, D):
+    """Tensor-core operations and exponentials of the chunked WKV6 form for
+    this call's tokens (the last chunk's padding not counted), per
+    ``csrc/wkv6_chunk.cu``: per (b, h) and chunk of C tokens, the
+    inter-chunk (C x D x D) product, the 6 off-diagonal (16 x 16 x D)
+    sub-chunk products, A v over the 10 sub-chunk blocks at or below the
+    diagonal, and the (D x C x D) state update, each once (the kernel
+    takes three bf16 products for each, its hi/lo split, which are not
+    counted); the exponentials are those of the decayed operands and the
+    diagonal sub-chunks' pairs, once per head (the two column blocks of a
+    head share them)."""
+    C, SUB = 64, 16
+    chunks = B * H * S / C
+    ops = 2.0 * D * (C * D + 6 * SUB * SUB + 10 * SUB * SUB + C * D) * chunks
+    exps = D * (2 * C + (C - SUB) + 6 * SUB + 4 * SUB * (SUB - 1) // 2)
+    return ops, exps * chunks
+
+
+# logw = -exp(N(mean, 0.5)) per decay: the model's mild decays (~-0.4 per
+# token), strong ones (~-7, as published RWKV6 weights have, where
+# exp(-cum) over a chunk overflows f32) and slow ones (~-0.02, where tokens
+# three sub-chunks apart still weigh ~0.4, so that every block of the
+# chunked form shows in the output)
+LOGW_MEAN = {"mild": -1.0, "strong": 2.0, "slow": -4.0}
+
+
+def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
+               decay="mild"):
+    """A WKV6 call against its plain version from a carried state, on
+    (B, S, H, D) projections seen as (B, H, S, D), as the model passes them,
+    through the kernel ``wkv6_op`` routes it to.  With ``split``, the
+    kernel also runs as two calls over [0, split) and [split, S), the
+    second updating the state in place, and both are held against the one
+    plain call over the whole.  ``decay`` picks the decays (``LOGW_MEAN``).
+    Beside TOL, each output row and each state row is held to ROW_REL_TOL
+    against the plain version run on the same inputs in f32 (no output
+    rounding)."""
     from repro_torch.kernels.rwkv6_scan import wkv6_scan_ref
 
     dt = getattr(torch, dtype)
+    name = ops_mod.kernel_for(dt, S, D)
 
     def rnd(*shape, scale=0.5):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     r, k, v = (rnd(B, S, H, D).to(dt).transpose(1, 2) for _ in range(3))
-    logw = (-torch.exp(rnd(B, S, H, D) - 1.0)).transpose(1, 2)
+    logw = (-torch.exp(rnd(B, S, H, D) + LOGW_MEAN[decay])).transpose(1, 2)
     u = rnd(H, D, scale=0.2)
     s0 = rnd(B, H, D, D, scale=0.1)
 
@@ -358,6 +402,7 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0):
     out, s1 = kernel()
     torch.cuda.synchronize()
     ref, sref = plain()
+    truth, _ = wkv6_scan_ref(r.float(), k.float(), v.float(), logw, u, s0)
     if split:
         mid = s0.clone()
         a, _ = ops_mod.wkv6_op(r[:, :, :split], k[:, :, :split],
@@ -371,25 +416,40 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0):
     tol = TOL[dtype]
     err = (out.float() - ref.float()).abs()
     serr = (s1 - sref).abs()
-    ok = (bool((err <= tol + tol * ref.float().abs()).all())
-          and bool((serr <= tol + tol * sref.abs()).all())
-          and bool(torch.isfinite(out).all()) and bool(torch.isfinite(s1).all()))
+    ok_abs = (bool((err <= tol + tol * ref.float().abs()).all())
+              and bool((serr <= tol + tol * sref.abs()).all())
+              and bool(torch.isfinite(out).all()) and bool(torch.isfinite(s1).all()))
+    row_err = row_rel_err(torch, out, truth)
+    state_row_err = row_rel_err(torch, s1, sref)
+    del truth
     esize = r.element_size()
     # r, k, v read and o written in the model's dtype, logw read in f32,
-    # u read, the state read and written in f32; ~5 D^2 f32 operations per
-    # token and head (r S: D^2 FMA; S * w + k^T v: D^2 products and FMA)
+    # u read, the state read and written in f32
     nbytes = (4 * esize * B * H * S * D + 4 * B * H * S * D + 4 * H * D
               + 2 * 4 * B * H * D * D)
-    b_ms, b_by = bound(5.0 * B * H * S * D * D, nbytes, "float32")
-    return {"kernel": "wkv6_scan", "dtype": dtype,
-            "shape": {"B": B, "S": S, "H": H, "D": D, "split": split},
-            "max_abs_err": float(max(err.max(), serr.max())), "tol": tol,
-            "ok": ok, "kernel_ms": cuda_ms(torch, kernel),
-            # where the host's launch cost exceeds the kernel's (S=1, S=77)
-            # kernel_ms measures the host; this is the device alone
-            "kernel_graph_ms": graph_ms(torch, kernel),
-            "plain_ms": cuda_ms(torch, plain), "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by}
+    result = {"kernel": name, "dtype": dtype,
+              "shape": {"B": B, "S": S, "H": H, "D": D, "split": split,
+                        "decay": decay}}
+    if name == "wkv6_chunk":
+        flops, exps = wkv6_chunk_work(B, S, H, D)
+        b_ms, b_by = bound(flops, nbytes, dtype)
+        result.update({"exp2": exps, "exp2_ms_at_sfu_rate": exps / EXP2_PER_S * 1e3})
+    else:
+        # ~5 D^2 f32 operations per token and head on the CUDA cores (r S:
+        # D^2 FMA; S * w + k^T v: D^2 products and FMA)
+        b_ms, b_by = bound(5.0 * B * H * S * D * D, nbytes, "float32")
+    ok_rows = row_err <= ROW_REL_TOL and state_row_err <= ROW_REL_TOL
+    result.update({
+        "max_abs_err": float(max(err.max(), serr.max())), "tol": tol,
+        "max_row_rel_err": row_err, "max_state_row_rel_err": state_row_err,
+        "row_rel_tol": ROW_REL_TOL, "ok_abs": ok_abs, "ok_rows": ok_rows,
+        "ok": ok_abs and ok_rows, "kernel_ms": cuda_ms(torch, kernel),
+        # where the host's launch cost exceeds the kernel's (S=1, S=77)
+        # kernel_ms measures the host; this is the device alone
+        "kernel_graph_ms": graph_ms(torch, kernel),
+        "plain_ms": cuda_ms(torch, plain), "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by})
+    return result
 
 
 # the main path's shapes: llama-3.1-8b (H=32, KV=8, D=128) first, then one
@@ -424,13 +484,21 @@ DECODE_CASES = [
     (32, 8, 128, 1000, [999, 1000, 3, 0], "bfloat16"),
 ]
 # rwkv6-7b: H=64, D=64; prompts of the engine phase are 256-2048 tokens,
-# decode runs S=1 over its 8 slots
-WKV6_CASES = [(B, S, 64, 64, dtype, split)
-              for dtype in ("bfloat16", "float32")
-              for B, S, split in ((1, 1, 0), (1, 77, 0), (1, 1000, 0),
-                                  (1, 2048, 0), (8, 1, 0), (1, 1000, 500))]
-# the row of each kernel in the summary line
-SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0, "wkv6_scan": 2}
+# decode runs S=1 over its 8 slots.  bf16 prompts (S >= 2) go to the
+# chunked kernel, decode and f32 to the scan.
+WKV6_CASES = [(B, S, 64, 64, "bfloat16", split, "mild")
+              for B, S, split in ((1, 2, 0), (1, 77, 0), (1, 256, 0),
+                                  (1, 1000, 0), (1, 2048, 0), (1, 1000, 500))]
+WKV6_CASES += [(1, 1000, 64, 64, "bfloat16", 0, decay) for decay in ("strong", "slow")]
+WKV6_CASES += [(B, 1, 64, 64, "bfloat16", 0, "mild") for B in (1, 8)]
+WKV6_CASES += [(B, S, 64, 64, "float32", split, "mild")
+               for B, S, split in ((1, 1, 0), (1, 77, 0), (1, 1000, 0),
+                                   (1, 2048, 0), (8, 1, 0), (1, 1000, 500))]
+# the row of each kernel in the summary line: its index among the kernel's
+# checks (flash: S=1000; decode: the engine's 8 slots; wkv6_chunk: B=1,
+# S=1000; wkv6_scan: the engine's decode step, B=8 at S=1, bf16)
+SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0, "wkv6_chunk": 3,
+                 "wkv6_scan": 1}
 SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:90"),
@@ -438,6 +506,8 @@ SOURCES = {
                          "src/repro/kernels/decode_attention/kernel.py:74"),
     "wkv6_scan": ("src/repro_torch/csrc/wkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:77"),
+    "wkv6_chunk": ("src/repro_torch/csrc/wkv6_chunk.cu",
+                   "src/repro/kernels/rwkv6_scan/kernel.py:77"),
 }
 
 
@@ -688,15 +758,19 @@ def run():
     torch.cuda.empty_cache()
 
     result = engine_run(torch, np, model, common, rwkv_prompts(np, cfg),
-                        ("wkv6_scan",), cached=False)
-    # one launch per layer in every prefill and every decode step
-    expected = cfg.num_layers * (result["requests"] + result["decode_steps"])
-    result["wkv6_scan_launches_expected"] = expected
-    result["ok"] = result["ok"] and result["launches"]["wkv6_scan"] == expected
+                        ("wkv6_chunk", "wkv6_scan"), cached=False)
+    # one launch per layer: of the chunked kernel in every prefill (every
+    # prompt is bf16 and longer than one token), of the scan in every
+    # decode step
+    expected = {"wkv6_chunk": cfg.num_layers * result["requests"],
+                "wkv6_scan": cfg.num_layers * result["decode_steps"]}
+    result["launches_expected"] = expected
+    result["ok"] = result["ok"] and all(result["launches"][name] == n
+                                        for name, n in expected.items())
     emit(result)
     if not result["ok"]:
         raise SmokeFailure("rwkv6-7b engine run failed")
-    engines["wkv6_scan"] = result
+    engines["wkv6_chunk"] = engines["wkv6_scan"] = result
 
     summary = []
     for name in common.KERNELS:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of this checkout and another on one card.
+"""Time the attention and WKV6 kernels of this checkout and another on one card.
 
     git archive <rev> | tar -x -C build/parent   # the other checkout
     python3 kernel_ab.py --other build/parent
@@ -12,7 +12,10 @@ kernels into that checkout's ``build/`` and prints one JSON line: the
 device time per call through a CUDA graph (``chip_smoke.graph_ms``) of
 ``flash_attention_op`` and ``decode_attention_op`` at the llama-3.1-8b
 shapes of ``chip_smoke.py``, and of PyTorch's
-``scaled_dot_product_attention`` on the same inputs.  Needs one CUDA card.
+``scaled_dot_product_attention`` on the same inputs; then of ``wkv6_op``
+at rwkv6-7b's prefill shapes (bf16, B=1, H=64, D=64, the model's mild
+decays), on whichever kernel that checkout routes them to.  Needs one
+CUDA card.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ H, KV, D = 32, 8, 128
 FLASH_S = (256, 1000, 2048)
 DECODE_ROWS = {"b8_mixed": (4096, [0, 1, 77, 1000, 2048, 3000, 4095, 4096]),
                "b1_suffix": (4096, [1100])}
+WKV6_H, WKV6_D = 64, 64
+WKV6_S = (256, 1000, 2048)
 
 
 def worker(root: Path) -> dict:
@@ -38,6 +43,7 @@ def worker(root: Path) -> dict:
 
     from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.kernels.rwkv6_scan import wkv6_op
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device is available")
@@ -65,6 +71,13 @@ def worker(root: Path) -> dict:
                 torch, lambda: decode_attention_op(q, kc, vc, lengths))
             out[f"sdpa_decode_{name}"] = graph_ms(torch, lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :], enable_gqa=True))
+        for S in WKV6_S:
+            r, k, v = (rnd(1, S, WKV6_H, WKV6_D).transpose(1, 2) for _ in range(3))
+            logw = (-torch.exp(torch.randn(1, S, WKV6_H, WKV6_D, generator=gen, device=dev)
+                               * 0.5 - 1.0)).transpose(1, 2)
+            u = torch.randn(WKV6_H, WKV6_D, generator=gen, device=dev) * 0.2
+            s0 = torch.randn(1, WKV6_H, WKV6_D, WKV6_D, generator=gen, device=dev) * 0.1
+            out[f"wkv6_S{S}"] = graph_ms(torch, lambda: wkv6_op(r, k, v, logw, u, s0))
     return out
 
 

@@ -33,7 +33,7 @@ BUILD_DIR = REPO_ROOT / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("flash_attention", "decode_attention", "wkv6_scan")
+KERNELS = ("flash_attention", "decode_attention", "wkv6_scan", "wkv6_chunk")
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 

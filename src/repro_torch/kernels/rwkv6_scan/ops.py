@@ -1,7 +1,11 @@
-"""Wrapper of the WKV6 scan kernel, in the reference's (B, H, S, D) layout.
+"""Wrapper of the WKV6 kernels, in the reference's (B, H, S, D) layout.
 
 A CPU tensor goes to the plain version in ``ref.py``.  A CUDA tensor goes
-to the kernel of ``csrc/wkv6_scan.cu``, or the wrapper raises.
+to one of two kernels by a fixed rule on its shape and dtype
+(``kernel_for``), or the wrapper raises: bf16 prompts of S >= 2 tokens at
+D = 64 to the chunked tensor-core kernel of ``csrc/wkv6_chunk.cu``,
+everything else (decode at S = 1, f32, D of 32 or 128) to the token-by-
+token kernel of ``csrc/wkv6_scan.cu``.
 """
 from __future__ import annotations
 
@@ -14,10 +18,20 @@ from repro_torch.kernels import common
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
 
 NAME = "wkv6_scan"
+CHUNK_NAME = "wkv6_chunk"
 HEAD_DIMS = (32, 64, 128)
+CHUNK_HEAD_DIM = 64
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P]
+
+
+def kernel_for(dtype: torch.dtype, S: int, D: int) -> str:
+    """The kernel a CUDA call of ``wkv6_op`` launches.  f32 stays on the
+    scan: bf16 products would miss its f32 checks."""
+    if dtype == torch.bfloat16 and S >= 2 and D == CHUNK_HEAD_DIM:
+        return CHUNK_NAME
+    return NAME
 
 
 def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,7 +45,9 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     views (the model passes transposed (B, S, H, D) projections).  Returns
     (out (B, H, S, D) in r's dtype, final state (B, H, D, D) f32).  The
     final state goes to ``out_state`` when it is given, which may be
-    ``state`` itself (an update in place).
+    ``state`` itself (an update in place).  On the card the call runs
+    the kernel ``kernel_for(r.dtype, S, D)`` names and bumps its launch
+    count.
     """
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"{NAME}: r/k/v/logw must share one (B, H, S, D) "
@@ -69,13 +85,14 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(r)  # keeps r's strides when r is dense
     if out.numel() == 0:
         return out, out_state.copy_(state)
-    fn = common.load_function(NAME, "wkv6_scan_fwd", _ARGTYPES)
+    name = kernel_for(r.dtype, S, D)
+    fn = common.load_function(name, f"{name}_fwd", _ARGTYPES)
     # element strides in (batch, head, position) order
     strides = [t.stride(i) for t in (r, k, v, logw, out) for i in (0, 1, 2)]
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), state.data_ptr(), out.data_ptr(),
             out_state.data_ptr(), B, H, S, D, common.DTYPE_CODES[r.dtype],
             *strides, common.current_stream(r.device))
-    common.check(NAME, rc)
-    common.count_launch(NAME)
+    common.check(name, rc)
+    common.count_launch(name)
     return out, out_state

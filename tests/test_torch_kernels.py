@@ -5,7 +5,8 @@ against the JAX Pallas kernels run in interpret mode (as the JAX package's
 own tests run them) and against the jnp oracles and model-layer functions.
 The CUDA kernels themselves are held against the plain versions by the
 ``gpu``-marked tests at the end, which skip where there is no card; the
-WKV6 kernel's CPU parity with the JAX package is in ``test_torch_rwkv.py``.
+WKV6 kernels' CPU parity with the JAX package is in ``test_torch_rwkv.py``
+and ``test_torch_wkv6_chunk.py``.
 Tolerances follow ``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in bf16.
 """
 import importlib
@@ -19,7 +20,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_op,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_op,
                                                  flash_attention_ref)
-from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan import kernel_for, wkv6_op, wkv6_scan_ref
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -214,7 +215,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     flash_attention_op(tq, tk, tv)
     decode_attention_op(tq[:, 0], tk.transpose(1, 2), tv.transpose(1, 2), 3)
     assert common.launch_counts == {"flash_attention": 0,
-                                    "decode_attention": 0, "wkv6_scan": 0}
+                                    "decode_attention": 0, "wkv6_scan": 0,
+                                    "wkv6_chunk": 0}
 
 
 def test_wrappers_reject_mismatched_shapes():
@@ -327,15 +329,17 @@ def test_cuda_kernels_match_plain_versions():
     n_decode += 1
     assert common.launch_counts == {"flash_attention": n_flash,
                                     "decode_attention": n_decode,
-                                    "wkv6_scan": 0}
+                                    "wkv6_scan": 0, "wkv6_chunk": 0}
 
 
 @pytest.mark.gpu
 def test_cuda_wkv6_matches_plain_version():
-    """The WKV6 kernel against its plain version: ragged S, a carried
-    state, strided (B, S, H, D) inputs, and an update in place.  Both run
-    the recurrence in f32 and differ only in the order of sums, so the
-    port's kernel tolerances hold."""
+    """The WKV6 kernels against their plain version, each call on the
+    kernel ``wkv6_op`` routes it to (bf16 prompts at D=64 on the chunked
+    kernel, the rest on the scan): ragged S, a carried state, strided
+    (B, S, H, D) inputs, an update in place, strong and slow decays.  Beside the
+    kernel tolerances, each output row and each state row is held to
+    ROW_REL_TOL against the plain version run in f32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -345,23 +349,33 @@ def test_cuda_wkv6_matches_plain_version():
     def rnd(*shape, scale=0.5):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    n = 0
+    n = {"wkv6_scan": 0, "wkv6_chunk": 0}
     for name, dtype in TORCH.items():
         tol = TOL[name]
-        for B, H, S, D in [(1, 64, 1, 64), (1, 64, 77, 64), (8, 64, 1, 64),
-                           (2, 8, 130, 32), (1, 4, 200, 128), (1, 64, 1000, 64)]:
+        for B, H, S, D, mean in [
+                (1, 64, 1, 64, -1.0), (1, 64, 77, 64, -1.0), (8, 64, 1, 64, -1.0),
+                (2, 8, 130, 32, -1.0), (1, 4, 200, 128, -1.0), (1, 64, 1000, 64, -1.0),
+                # the chunked kernel's edges: one pair, whole and partial
+                # chunks, a batch, the longest prompt; strong decays (logw
+                # ~-7) and slow ones (~-0.02, where every sub-chunk block
+                # of a chunk weighs in the output)
+                (1, 64, 2, 64, -1.0), (1, 64, 64, 64, -1.0), (2, 64, 130, 64, -1.0),
+                (1, 64, 2048, 64, -1.0), (1, 64, 1000, 64, 2.0), (1, 64, 1000, 64, -4.0)]:
             # (B, S, H, D) projections seen as (B, H, S, D), as the model has them
             r, k, v = (rnd(B, S, H, D).to(dtype).transpose(1, 2) for _ in range(3))
-            logw = (-torch.exp(rnd(B, S, H, D) - 1.0)).transpose(1, 2)
+            logw = (-torch.exp(rnd(B, S, H, D) + mean)).transpose(1, 2)
             u = rnd(H, D, scale=0.2)
             s0 = rnd(B, H, D, D, scale=0.1)
             out, s1 = wkv6_op(r, k, v, logw, u, s0)
             torch.cuda.synchronize()
             ref, sref = wkv6_scan_ref(r, k, v, logw, u, s0)
+            truth, _ = wkv6_scan_ref(r.float(), k.float(), v.float(), logw, u, s0)
             assert out.dtype == dtype and s1.dtype == torch.float32
             torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
             torch.testing.assert_close(s1, sref, atol=tol, rtol=tol)
-            n += 1
+            _assert_rows_close(out, truth)
+            _assert_rows_close(s1, sref)
+            n[kernel_for(dtype, S, D)] += 1
             if S > 1:  # two calls over the halves, the second in place
                 h = S // 2
                 a, mid = wkv6_op(r[:, :, :h], k[:, :, :h], v[:, :, :h],
@@ -373,5 +387,9 @@ def test_cuda_wkv6_matches_plain_version():
                 torch.testing.assert_close(torch.cat([a, b], 2).float(),
                                            ref.float(), atol=tol, rtol=tol)
                 torch.testing.assert_close(end, sref, atol=tol, rtol=tol)
-                n += 2
-    assert common.launch_counts["wkv6_scan"] == n
+                _assert_rows_close(torch.cat([a, b], 2), truth)
+                _assert_rows_close(end, sref)
+                n[kernel_for(dtype, h, D)] += 1
+                n[kernel_for(dtype, S - h, D)] += 1
+    assert n["wkv6_chunk"] > 0
+    assert {name: common.launch_counts[name] for name in n} == n
