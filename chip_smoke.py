@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
-``src/repro_torch``.  It drives two paths, llama-3.1-8b through the two
-attention kernels and rwkv6-7b through the two WKV6 kernels (the chunked
-tensor-core kernel for bf16 prefill, the scan for decode and f32), and
-prints one JSON object per phase:
+``src/repro_torch``.  It drives three paths, llama-3.1-8b through the two
+attention kernels, rwkv6-7b through the two WKV6 kernels (the chunked
+tensor-core kernel for bf16 prefill, the scan for decode and f32) and
+rag_reranker's two encoders through the flash kernel's non-causal mode,
+and prints one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
 2. ``build``: the four kernels compiled from ``src/repro_torch/csrc`` for
@@ -17,7 +18,8 @@ prints one JSON object per phase:
    bf16 attention entry or the chunked WKV6 entry has no tensor-core
    instruction;
 3. ``kernel_checks``: the attention kernels against their plain PyTorch
-   versions on the card at the llama path's shapes (within TOL, and each
+   versions on the card at the llama path's shapes, then the encoders'
+   non-causal and head-dim-32 shapes (within TOL, and each
    output row within ROW_REL_TOL of its RMS), with times (CUDA
    events, and device time through a CUDA graph), the bound of each call
    and one PyTorch library call as a yardstick, timed the same two ways;
@@ -37,6 +39,15 @@ prints one JSON object per phase:
    copy), every prefill through the chunked kernel (one launch per layer
    and request) and every decode step through the scan (one per layer and
    step);
+7. with rwkv6-7b freed, ``encoder_check`` for e5-base-v2 and
+   reranker-minilm (full width and depth, seeded weights, f32 and bf16,
+   a 512- and a 137-token prompt; the pooled embeddings through the
+   kernel and through the plain version), then ``encode``: rag_reranker's
+   encoder traffic, 16 queries embedded by e5-base-v2 and 8 reranks each
+   by reranker-minilm, one ``prefill`` per call, with per-model calls/s,
+   tokens/s, mean and p99 ms per call, peak memory, the flash launch
+   count (one per layer and call) and a ``torch.profiler`` breakdown of
+   one query's calls;
 
 then the ``kernels`` summary line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -77,6 +88,7 @@ BF16_ERR_RATIO = 1.25
 
 ARCH = "llama-3.1-8b"
 RWKV_ARCH = "rwkv6-7b"
+ENCODER_ARCHS = ("e5-base-v2", "reranker-minilm")
 SEED = 0
 
 
@@ -220,28 +232,32 @@ def sass_counts(common, name: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype):
+def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
+                Sk=None, causal=True):
+    """A flash call against its plain version: S query rows over Sk keys
+    (Sk = S when not given), causal or not."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
     dt = getattr(torch, dtype)
+    Sk = S if Sk is None else Sk
 
     def rnd(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(dt)
 
-    q, k, v = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D)
+    q, k, v = rnd(B, S, H, D), rnd(B, Sk, KV, D), rnd(B, Sk, KV, D)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def kernel():
-        return ops_mod.flash_attention_op(q, k, v, window=window)
+        return ops_mod.flash_attention_op(q, k, v, window=window, causal=causal)
 
     def plain():
-        return flash_attention_ref(qt, kt, vt, window=window)
+        return flash_attention_ref(qt, kt, vt, window=window, causal=causal)
 
     out = kernel()
     torch.cuda.synchronize()
     ref = plain().transpose(1, 2)
     truth = flash_attention_ref(qt.float(), kt.float(), vt.float(),
-                                window=window).transpose(1, 2)
+                                window=window, causal=causal).transpose(1, 2)
     err = (out.float() - ref.float()).abs()
     tol = TOL[dtype]
     ok_abs = bool((err <= tol + tol * ref.float().abs()).all()) and \
@@ -252,9 +268,14 @@ def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype):
     mask = pos[None, :] <= pos[:, None]
     if window > 0:
         mask &= pos[None, :] > pos[:, None] - window
-    pairs = int(mask.sum())
+    # the (query, key) pairs the call must weigh: all of them when
+    # non-causal, those the causal (and window) mask keeps otherwise
+    pairs = int(mask.sum()) if causal else S * Sk
 
     def library():
+        if not causal:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False,
+                                                  enable_gqa=True)
         if window > 0:
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
@@ -262,12 +283,14 @@ def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype):
                                               enable_gqa=True)
 
     esize = q.element_size()
-    nbytes = esize * (2 * B * S * H * D + 2 * B * S * KV * D)
+    # q read and o written over S rows, k and v read over Sk
+    nbytes = esize * (2 * B * S * H * D + 2 * B * Sk * KV * D)
     flops = 4.0 * B * H * D * pairs
     b_ms, b_by = bound(flops, nbytes, dtype)
     kernel_graph_ms = graph_ms(torch, kernel)
     return {"kernel": "flash_attention", "dtype": dtype,
-            "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
+            "shape": {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
+                      "window": window, "causal": causal},
             "max_abs_err": float(err.max()), "tol": tol,
             "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
             "ok_abs": ok_abs, "ok_rows": row_err <= ROW_REL_TOL,
@@ -465,6 +488,14 @@ FLASH_CASES = [
     (1, 1000, 16, 16, 256, 0, "bfloat16"),   # gemma-7b: D=256, G=1
     (1, 77, 32, 8, 128, 0, "float32"),
     (1, 256, 32, 8, 128, 0, "bfloat16"),    # the engine's shortest prompt
+    # the encoders' modes, (..., Sk, causal): non-causal, head dim 32
+    (1, 512, 12, 12, 64, 0, "bfloat16", 512, False),    # e5-base-v2
+    (1, 286, 12, 12, 32, 0, "bfloat16", 286, False),    # reranker-minilm
+    (8, 137, 12, 12, 32, 0, "bfloat16", 137, False),    # reranker, ragged
+    (1, 77, 32, 8, 128, 0, "bfloat16", 1601, False),    # cross-attention
+    (1, 1, 12, 12, 64, 0, "bfloat16", 512, False),      # one query row
+    (1, 1000, 12, 12, 32, 0, "bfloat16", 1000, True),   # causal, D=32
+    (1, 77, 12, 12, 32, 0, "float32", 77, False),
 ]
 DECODE_LENS = [0, 1, 77, 1000, 2048, 3000, 4095, 4096]
 DECODE_CASES = [
@@ -672,6 +703,184 @@ def engine_run(torch, np, model, common, reqs, kernels, cached):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: rag_reranker's encoders
+# ---------------------------------------------------------------------------
+
+
+def encoder_check(torch, np, cfg, dev, build_model):
+    """Full-width and full-depth pooled embeddings of a 512- and a
+    137-token prompt (one ``prefill`` each) through the kernel and through
+    the plain version (``plain_attention``), in f32 and in bf16 weights
+    drawn from one seed: held to MODEL_REL_TOL_F32 in f32, and in bf16 by
+    BF16_ERR_RATIO against the f32 plain run, as ``model_check`` holds the
+    decoders' logits.  Returns the result and the bf16 model."""
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(1, n)) for n in (512, 137)]
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(cfg, device=dev, dtype=getattr(torch, dtype))
+        model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+        for plain in (False, True):
+            model.plain_attention = plain
+            runs[dtype, plain] = torch.cat(
+                [model.prefill(p)[0] for p in prompts]).float()
+        model.plain_attention = False
+        if dtype == "float32":
+            del model
+            torch.cuda.empty_cache()
+    ref = runs["float32", True]
+    finite = all(bool(torch.isfinite(r).all()) for r in runs.values())
+    shape_ok = all(tuple(r.shape) == (2, cfg.d_model) for r in runs.values())
+    f32_rel = _rel(torch, runs["float32", False], ref)
+    kernel_err = _rel(torch, runs["bfloat16", False], ref)
+    plain_err = _rel(torch, runs["bfloat16", True], ref)
+    result = {"phase": "encoder_check", "arch": cfg.name,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+              "prompt_tokens": [512, 137],
+              "max_rel_emb_diff_f32": f32_rel, "tol_f32": MODEL_REL_TOL_F32,
+              "max_rel_emb_diff_bf16": _rel(torch, runs["bfloat16", False],
+                                            runs["bfloat16", True]),
+              "bf16_kernel_vs_f32_plain": kernel_err,
+              "bf16_plain_vs_f32_plain": plain_err,
+              "bf16_err_ratio": kernel_err / plain_err,
+              "bf16_err_ratio_tol": BF16_ERR_RATIO,
+              # the same ratio over the RMS of all 2 x d_model values
+              # (reported only)
+              "bf16_rms_err_ratio": (_rms(torch, runs["bfloat16", False], ref)
+                                     / _rms(torch, runs["bfloat16", True], ref)),
+              "finite": finite, "shape_ok": shape_ok}
+    result["ok"] = (finite and shape_ok and f32_rel <= MODEL_REL_TOL_F32
+                    and kernel_err <= BF16_ERR_RATIO * plain_err)
+    return result, model
+
+
+RERANK_K = 8
+MAX_POSITIONS = 512  # the published encoders' max_position_embeddings
+
+
+def rag_encoder_calls(np, vocab):
+    """rag_reranker's encoder calls for 16 queries, drawn as
+    ``rag_reranker_program`` draws them: a query of 16 + Exp(mean 30)
+    tokens embedded by e5-base-v2, then RERANK_K reranks of the query and a
+    document of 120 + Exp(mean 120) tokens by reranker-minilm; lengths are
+    capped at MAX_POSITIONS.  Returns (arch, tokens (1, S)) in call order."""
+    rng = np.random.default_rng(SEED + 4)
+    calls = []
+    for _ in range(16):
+        query = 16 + int(rng.exponential(30.0))
+        lengths = [("e5-base-v2", query)]
+        lengths += [("reranker-minilm", query + 120 + int(rng.exponential(120.0)))
+                    for _ in range(RERANK_K)]
+        for arch, n in lengths:
+            n = min(n, MAX_POSITIONS)
+            calls.append((arch, rng.integers(0, vocab, size=(1, n)).astype(np.int32)))
+    return calls
+
+
+def device_breakdown(torch, calls):
+    """Device time by kernel over ``calls`` (zero-argument functions), from
+    ``torch.profiler``: the flash kernel, the matrix products (cuBLAS and
+    CUTLASS kernels) and the rest, beside the host's wall time of the
+    window.  Measurement only: a profiler that fails is reported, not
+    fatal."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+        kernels = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            name = e.key.lower()
+            if "flash_fwd" in name:
+                group = "flash_attention"
+            elif any(w in name for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+                group = "matmul"
+            else:
+                group = "other"
+            groups[group] += us / 1e3
+            kernels.append((us / 1e3, e.count, e.key[:80]))
+        kernels.sort(reverse=True)
+        device_ms = sum(groups.values())
+        return {"calls": len(calls), "wall_ms": wall_ms, "device_ms": device_ms,
+                "device_busy_share": device_ms / wall_ms if wall_ms else None,
+                "device_ms_by_group": groups,
+                "top_kernels": [{"ms": ms, "count": n, "name": k}
+                                for ms, n, k in kernels[:6]]}
+    except Exception as exc:  # noqa: BLE001 - a measurement, not a check
+        return {"error": f"{type(exc).__name__}: {exc}"}
+
+
+def encode_run(torch, np, models, common):
+    """rag_reranker's encoder traffic (``rag_encoder_calls``), one
+    ``prefill`` per call: the reference's encoder takes an unmasked (B, S)
+    batch, so calls of different lengths cannot share one without changing
+    the result.  Each call is timed on the host clock to its
+    synchronisation.  ``ok`` needs a finite (1, d_model) embedding from
+    every call and exactly one flash launch per layer and call."""
+    calls = rag_encoder_calls(np, min(m.cfg.vocab_size for m in models.values()))
+    for arch, model in models.items():  # warm-up, not counted
+        model.prefill(next(t for a, t in calls if a == arch))
+    torch.cuda.synchronize()
+    per = {arch: {"ms": [], "tokens": 0, "peak": 0} for arch in models}
+    finite = shape_ok = True
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    for arch, tokens in calls:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        emb, _ = models[arch].prefill(tokens)
+        torch.cuda.synchronize()
+        per[arch]["ms"].append((time.perf_counter() - t) * 1e3)
+        per[arch]["tokens"] += tokens.shape[1]
+        per[arch]["peak"] = max(per[arch]["peak"], torch.cuda.max_memory_allocated())
+        finite = finite and bool(torch.isfinite(emb).all())
+        shape_ok = shape_ok and tuple(emb.shape) == (1, models[arch].cfg.d_model)
+    wall = time.perf_counter() - t0
+    launches = dict(common.launch_counts)
+    expected = sum(models[arch].cfg.num_layers for arch, _ in calls)
+    report = {}
+    for arch, p in per.items():
+        busy_s = sum(p["ms"]) / 1e3
+        lengths = [t.shape[1] for a, t in calls if a == arch]
+        report[arch] = {
+            "calls": len(p["ms"]), "tokens": p["tokens"],
+            "tokens_per_call": {"min": min(lengths), "mean": float(np.mean(lengths)),
+                                "max": max(lengths)},
+            "calls_per_s": len(p["ms"]) / busy_s, "tokens_per_s": p["tokens"] / busy_s,
+            "mean_ms": float(np.mean(p["ms"])),
+            "p99_ms": float(np.percentile(p["ms"], 99)),
+            "max_memory_allocated_bytes": p["peak"]}
+    # where one query's time goes: its embedding and its reranks, profiled
+    # after the counted run
+    first = calls[:1 + RERANK_K]
+    profiled = {arch: device_breakdown(torch, [
+        (lambda m=models[a], t=t: m.prefill(t)) for a, t in first if a == arch])
+        for arch in models}
+    result = {"phase": "encode", "workflow": "rag_reranker", "queries": 16,
+              "reranks_per_query": RERANK_K, "calls": len(calls), "wall_s": wall,
+              "models": report, "launches": launches,
+              "launches_expected": {"flash_attention": expected},
+              "finite": finite, "shape_ok": shape_ok, "profile_first_query": profiled}
+    result["ok"] = (finite and shape_ok and launches["flash_attention"] == expected
+                    and all(n == 0 for k, n in launches.items()
+                            if k != "flash_attention"))
+    return result
+
+
 def run():
     import torch
 
@@ -772,6 +981,24 @@ def run():
         raise SmokeFailure("rwkv6-7b engine run failed")
     engines["wkv6_chunk"] = engines["wkv6_scan"] = result
 
+    # rag_reranker's encoders, on a card free of rwkv6-7b
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoders = {}
+    for arch in ENCODER_ARCHS:
+        result, encoders[arch] = encoder_check(torch, np, get_config(arch), dev,
+                                               build_model)
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"full-size {arch} encoder check failed")
+    torch.cuda.empty_cache()
+    result = encode_run(torch, np, encoders, common)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("rag_reranker encode run failed")
+    encode_launches = result["launches"]["flash_attention"]
+
     summary = []
     for name in common.KERNELS:
         source, replaces = SOURCES[name]
@@ -789,6 +1016,10 @@ def run():
             "graph_ms": row["kernel_graph_ms"],
             "library_graph_ms": row.get("library_graph_ms"),
             "shape": row["shape"], "dtype": row["dtype"]})
+    # the flash kernel's launches on the encoder path (its row's
+    # ``launches`` stays the llama engine's)
+    next(r for r in summary if r["name"] == "flash_attention")[
+        "launches_encode"] = encode_launches
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.rwkv import RWKVLM
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import DenseLM, EncoderLM
 
 
 def to_torch(arr) -> torch.Tensor:
@@ -42,7 +42,8 @@ def _check_keys(have: Mapping, want, where: str) -> None:
 
 @torch.no_grad()
 def load_reference_params(model, params: Mapping):
-    """Copy a reference parameter tree into a ``DenseLM`` or ``RWKVLM``.
+    """Copy a reference parameter tree into a ``DenseLM``, ``RWKVLM`` or
+    ``EncoderLM``.
 
     ``params`` is the tree of ``build_model(cfg).init(key)`` with numpy
     leaves.  The stacked layer leaves are split along their leading ``L``:
@@ -51,16 +52,17 @@ def load_reference_params(model, params: Mapping):
     are cast to each weight's dtype (the model's, or f32 for the rwkv ``w0``
     and ``u``); with equal dtypes the copy is bit-exact.
     """
-    if not isinstance(model, (DenseLM, RWKVLM)):
+    if not isinstance(model, (DenseLM, RWKVLM, EncoderLM)):
         raise TypeError(f"no bridge for {type(model).__name__}")
+    lm_head = getattr(model, "lm_head", None)  # an encoder has none
     top = {"embed", "layers", "final_norm"}
-    if model.lm_head is not None:
+    if lm_head is not None:
         top.add("lm_head")
     _check_keys(params, top, "params")
     _copy(model.embed, params["embed"], "embed")
     _copy(model.final_norm, params["final_norm"], "final_norm")
-    if model.lm_head is not None:
-        _copy(model.lm_head, params["lm_head"], "lm_head")
+    if lm_head is not None:
+        _copy(lm_head, params["lm_head"], "lm_head")
     stack = params["layers"]
     first = model.layers[0]
     tensors = [name for name, _ in first.named_parameters(recurse=False)]

@@ -1,11 +1,11 @@
-"""Workload LLMs of the paper (§7.1) and the agentic fleet: dense decoders.
+"""Workload LLMs of the paper (§7.1) and the agentic fleet.
 
-RAG+reranker generator: Llama-3-8B.  Beam search: Llama-3.2-1B (generator)
-+ Llama-3.1-8B-PRM (verifier).  Fleet workloads (ReAct agent / map-reduce /
-debate) use a mid-size Qwen2.5-3B-shaped agent model.
-
-The encoder models of rag_reranker (e5-base-v2, the MiniLM reranker) are
-not served by the port yet; they join with the encoder slice.
+RAG+reranker: e5-base-v2 (embedder) + a MiniLM cross-encoder (reranker) +
+Llama-3-8B (generator).  Beam search: Llama-3.2-1B (generator) +
+Llama-3.1-8B-PRM (verifier).  Fleet workloads (ReAct agent / map-reduce /
+debate) use a mid-size Qwen2.5-3B-shaped agent model.  The port serves all
+of them: the decoders through ``DenseLM``, the two encoders through
+``EncoderLM``.
 """
 from repro_torch.configs.base import ArchConfig
 
@@ -55,6 +55,34 @@ LLAMA_3_1_8B_PRM = ArchConfig(
     source="hf:RLHFlow/Llama3.1-8B-PRM-Mistral-Data",
 )
 
+# Embedder (encoder-only, BERT-base shape).
+E5_BASE_V2 = ArchConfig(
+    name="e5-base-v2",
+    family="encoder",
+    num_layers=12,
+    d_model=768,
+    num_heads=12,
+    num_kv_heads=12,
+    d_ff=3072,
+    vocab_size=30_522,
+    activation="gelu",
+    source="hf:intfloat/e5-base-v2",
+)
+
+# Cross-encoder reranker (MiniLM shape).
+RERANKER_MINILM = ArchConfig(
+    name="reranker-minilm",
+    family="encoder",
+    num_layers=6,
+    d_model=384,
+    num_heads=12,
+    num_kv_heads=12,
+    d_ff=1536,
+    vocab_size=30_522,
+    activation="gelu",
+    source="hf:cross-encoder/ms-marco-MiniLM-L-6-v2",
+)
+
 # Mid-size tool-calling agent (Qwen2.5-3B shape) for the agentic-fleet
 # workloads — sits between the 1B drafters and the 8B generators so the
 # scheduler has three distinct model sizes to pack.
@@ -76,5 +104,6 @@ QWEN_2_5_3B_AGENT = ArchConfig(
 
 PAPER_LLMS = {
     c.name: c
-    for c in (LLAMA_3_2_1B, LLAMA_3_1_8B, LLAMA_3_1_8B_PRM, QWEN_2_5_3B_AGENT)
+    for c in (LLAMA_3_2_1B, LLAMA_3_1_8B, LLAMA_3_1_8B_PRM, E5_BASE_V2,
+              RERANKER_MINILM, QWEN_2_5_3B_AGENT)
 }

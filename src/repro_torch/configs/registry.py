@@ -1,7 +1,8 @@
 """Registry of the architectures the port serves (``--arch <id>``).
 
-The port registers the dense decoders and rwkv6-7b; the other families of
-the reference registry join with the slices that port their models.
+The port registers the dense decoders, rwkv6-7b and the two encoders of
+rag_reranker; the other families of the reference registry join with the
+slices that port their models.
 """
 from __future__ import annotations
 

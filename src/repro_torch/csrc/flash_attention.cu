@@ -1,8 +1,11 @@
-// Causal, optionally sliding-window, GQA flash attention for prefill on Hopper.
+// GQA flash attention for prefill on Hopper: causal, optionally
+// sliding-window, or non-causal with its own key length (Sq != Sk).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py ::
 // flash_attention (body _flash_kernel), reached through ops.py ::
-// flash_attention_op.
+// flash_attention_op; the non-causal mode is the kernel behind the
+// reference's plain bidirectional_attention (src/repro/models/layers.py),
+// which the encoders use.
 //
 // What bounds it on the H100: operations, at the prompt lengths the engine
 // serves.  Causal QK^T plus PV costs 4*D flops per unmasked (query, key)
@@ -29,6 +32,13 @@
 // mask drops them, and rows past S are not stored.  Query rows per block
 // (128, or 64 where 128 would leave SMs idle) are chosen by S so that short
 // prompts still spread over the card's SMs.
+//
+// Non-causal (the encoders): every query tile walks all ceil(Sk / BKV) kv
+// tiles, and only keys at or past Sk are masked.  Head dim 32 (the MiniLM
+// reranker) keeps the 64-wide, 128B-swizzled boxes: the tensor maps say
+// the rows are 32 wide, so TMA fills columns 32-63 of every box with
+// zeros; S = Q K^T runs only the two k-steps of the real columns, O += P V
+// runs at n = 64 and the zero columns 32-63 of O are not stored.
 //
 // f32 (f32::flash_fwd) keeps the first design, on the CUDA cores: the f32
 // model checks hold it to 2e-5, which TF32 on the tensor cores would miss.
@@ -97,8 +107,9 @@ constexpr size_t smem_floats() {
 template <typename T, int D, int BQ, int BKV>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int G, int window,
-          float scale, Strides qs_, Strides ks_, Strides vs_, Strides os_) {
+          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int G,
+          int window, int causal, float scale, Strides qs_, Strides ks_,
+          Strides vs_, Strides os_) {
   constexpr int RM = BQ / 16;  // query rows per thread
   constexpr int CN = BKV / 8;  // score columns per thread
   constexpr int DN = D / 8;    // output columns per thread
@@ -123,7 +134,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * qs_.b + h * qs_.h + q_lo * qs_.s;
   const T* kb = k + b * ks_.b + kvh * ks_.h;
   const T* vb = v + b * vs_.b + kvh * vs_.h;
-  stage_tile<T, D>(qb, qs_.s, BQ, min(BQ, S - q_lo), qs, QP, scale);
+  stage_tile<T, D>(qb, qs_.s, BQ, min(BQ, Sq - q_lo), qs, QP, scale);
 
   float m[RM], l[RM], acc[RM][DN];
 #pragma unroll
@@ -134,13 +145,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
   }
 
+  // causal: from the window's edge to the diagonal; non-causal: all keys
   int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, q_lo - window + 1) / BKV * BKV;
-  const int kv_end = min(S, q_lo + BQ);
+  if (causal && window > 0) kv_begin = max(0, q_lo - window + 1) / BKV * BKV;
+  const int kv_end = causal ? min(Sk, q_lo + BQ) : Sk;
 
   for (int kv_lo = kv_begin; kv_lo < kv_end; kv_lo += BKV) {
     __syncthreads();  // the previous tile's readers are done
-    const int valid = min(BKV, S - kv_lo);
+    const int valid = min(BKV, Sk - kv_lo);
     stage_tile<T, D>(kb + kv_lo * ks_.s, ks_.s, BKV, valid, ks, KP, 1.f);
     stage_tile<T, D>(vb + kv_lo * vs_.s, vs_.s, BKV, valid, vs, VP, 1.f);
     __syncthreads();
@@ -181,7 +193,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
         const int kpos = kv_lo + tx + 8 * j;
-        const bool ok = kpos < S && kpos <= qpos && (window <= 0 || kpos > qpos - window);
+        const bool ok = kpos < Sk && (!causal || (kpos <= qpos &&
+                                                  (window <= 0 || kpos > qpos - window)));
         s[i][j] = ok ? s[i][j] : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -226,7 +239,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qpos = q_lo + ty * RM + i;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     T* orow = o + b * os_.b + h * os_.h + qpos * os_.s;
 #pragma unroll
@@ -236,8 +249,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int BQ, int BKV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int S, int window, Strides qs, Strides ks, Strides vs,
-           Strides os, cudaStream_t stream) {
+           int KV, int Sq, int Sk, int window, int causal, Strides qs, Strides ks,
+           Strides vs, Strides os, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D, BQ, BKV>() * sizeof(float);
   static bool configured = false;
   if (!configured) {
@@ -247,28 +260,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const float scale = 1.f / sqrtf((float)D);
   flash_fwd<T, D, BQ, BKV><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H / KV, window, scale, qs, ks, vs, os);
+      static_cast<T*>(o), Sq, Sk, H / KV, window, causal, scale, qs, ks, vs, os);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-             int KV, int S, int D, int window, Strides qs, Strides ks,
-             Strides vs, Strides os, cudaStream_t stream) {
+             int KV, int Sq, int Sk, int D, int window, int causal, Strides qs,
+             Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+#define FLASH_F32(D_, BQ_)                                                       \
+  launch<T, D_, BQ_, 32>(q, k, v, o, B, H, KV, Sq, Sk, window, causal, qs, ks, vs, \
+                         os, stream)
   switch (D) {
+    case 32:
+      return FLASH_F32(32, 64);
     case 64:
-      return launch<T, 64, 64, 32>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, stream);
+      return FLASH_F32(64, 64);
     case 128:
-      return launch<T, 128, 64, 32>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, stream);
+      return FLASH_F32(128, 64);
     case 256:
-      return launch<T, 256, 32, 32>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, stream);
+      return FLASH_F32(256, 32);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_F32
 }
 
 }  // namespace f32
@@ -527,11 +546,14 @@ __device__ __forceinline__ void wgmma_o<256>(float (&d)[128], const uint32_t (&a
 }
 
 // Tiles of one block: NWG consumer warpgroups of 64 query rows each, kv
-// tiles of BKV rows in a ring of STAGES, every tile stored as D/64 boxes of
-// (rows x 64) bf16 = rows x 128 bytes, 128B-swizzled by TMA.
+// tiles of BKV rows in a ring of STAGES, every tile stored as DP/64 boxes of
+// (rows x 64) bf16 = rows x 128 bytes, 128B-swizzled by TMA.  DP is the
+// head dim padded to a whole box: 64 for D = 32, whose columns 32-63 TMA
+// fills with zeros.
 template <int D, int NWG, int BKV>
 struct Cfg {
-  static constexpr int DC = D / 64;
+  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int DC = DP / 64;
   // with two consumer warpgroups the producer is a whole warpgroup, so that
   // setmaxnreg can hand its registers to the consumers (24 + 2 x 240 per
   // thread; 168 for all would spill the D=128 accumulators)
@@ -560,15 +582,16 @@ struct Cfg {
 // S = Q K^T (wgmma, both operands in shared memory), masks it and runs the
 // online softmax in registers in the accumulator's layout, rounds P to bf16
 // as the register A operand of O += P V (wgmma, V an MN-major B operand).
+// Non-causal (causal = 0) runs every query row over all Sk keys.
 template <int D, int NWG, int BKV>
 __global__ void __launch_bounds__(Cfg<D, NWG, BKV>::THREADS, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
              const __grid_constant__ CUtensorMap tmk,
-             const __grid_constant__ CUtensorMap tmv, bf16* __restrict__ o, int S,
-             int G, int window, float scale_log2, long long osb,
+             const __grid_constant__ CUtensorMap tmv, bf16* __restrict__ o, int Sq,
+             int Sk, int G, int window, int causal, float scale_log2, long long osb,
              long long osh, long long oss) {
   using C = Cfg<D, NWG, BKV>;
-  constexpr int DC = C::DC, STAGES = C::STAGES;
+  constexpr int DP = C::DP, DC = C::DC, STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -580,13 +603,15 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
   auto empty = [&](int s) { return bar + 8 * (1 + 2 * STAGES + s); };
 
   // the longest query tiles first: causal work grows with the tile index
+  // (non-causal tiles are all equal)
   const int q_lo = (gridDim.x - 1 - blockIdx.x) * C::ROWS;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
+  // causal: from the window's edge to the diagonal; non-causal: all keys
   int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, q_lo - window + 1) / BKV * BKV;
-  const int kv_end = min(S, q_lo + C::ROWS);
+  if (causal && window > 0) kv_begin = max(0, q_lo - window + 1) / BKV * BKV;
+  const int kv_end = causal ? min(Sk, q_lo + C::ROWS) : Sk;
   const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
 
   if (threadIdx.x == 0) {
@@ -635,9 +660,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
   const int q0 = q_lo + wg * 64 + r0;
   const int wq_first = q_lo + wg * 64, wq_last = wq_first + 63;
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
@@ -648,13 +673,14 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
     const uint32_t ph = (it / STAGES) & 1;
     const int kv_lo = kv_begin + it * BKV;
     // a tile past this warpgroup's diagonal, or wholly before its window
-    const bool skip = kv_lo > wq_last ||
-                      (window > 0 && kv_lo + BKV - 1 <= wq_first - window);
+    const bool skip = causal && (kv_lo > wq_last ||
+                                 (window > 0 && kv_lo + BKV - 1 <= wq_first - window));
     uint32_t p[BKV / 16][4];
     mbar_wait(kfull(st), ph);
     if (!skip) {
       float s[BKV / 2];
       wgmma_fence();
+      // the real columns only: with D = 32 the box's columns 32-63 are zeros
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
@@ -667,14 +693,18 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
       wgmma_wait0();
       fence_regs(s);
 
-      const bool need_mask = kv_lo + BKV - 1 > wq_first ||
-                             (window > 0 && kv_lo <= wq_last - window);
+      // causal: keys past a row's diagonal or before its window (keys past
+      // Sk lie past every stored row's diagonal); non-causal: keys past Sk
+      const bool need_mask =
+          causal ? kv_lo + BKV - 1 > wq_first || (window > 0 && kv_lo <= wq_last - window)
+                 : kv_lo + BKV > Sk;
       if (need_mask) {
 #pragma unroll
         for (int j = 0; j < BKV / 2; ++j) {
           const int kpos = kv_lo + (j / 4) * 8 + (lane % 4) * 2 + (j & 1);
           const int qpos = q0 + 8 * ((j >> 1) & 1);
-          const bool ok = kpos <= qpos && (window <= 0 || kpos > qpos - window);
+          const bool ok = causal ? kpos <= qpos && (window <= 0 || kpos > qpos - window)
+                                 : kpos < Sk;
           s[j] = ok ? s[j] : -INFINITY;
         }
       }
@@ -708,7 +738,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
         p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+      for (int j = 0; j < DP / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
     }
     mbar_wait(vfull(st), ph);
     if (!skip) {
@@ -716,11 +746,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) {
-        // keys 16kk..16kk+15: two 8-row groups (SBO 1024 B); the D columns
-        // are D/64 boxes of 64 (LBO = one box)
+        // keys 16kk..16kk+15: two 8-row groups (SBO 1024 B); the DP columns
+        // are DP/64 boxes of 64 (LBO = one box)
         const uint64_t db = desc_sw128(sv + st * C::KV_TILE + kk * 16 * 128, C::KV_BOX,
                                        1024);
-        wgmma_o<D>(acc, p[kk], db);
+        wgmma_o<DP>(acc, p[kk], db);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -735,12 +765,13 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+  // accumulators j < D / 2 hold columns < D: the padding columns are not stored
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {
     const int r = (j >> 1) & 1;
     const int row = wg * 64 + r0 + 8 * r;  // within the block
     const int qpos = q_lo + row;
-    if (qpos < S) {
+    if (qpos < Sq) {
       const int col = (j / 4) * 8 + (lane % 4) * 2;
       bf16* dst = o + b * osb + h * osh + qpos * oss + col;
       *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[j] * inv[r], acc[j + 1] * inv[r]);
@@ -774,7 +805,7 @@ EncodeTiled encoder() {
 
 // A (B, heads, S, D) bf16 tensor with element strides (batch, head,
 // position) as a 4-d tensor map, boxes of (rows x 64), 128B swizzle; rows
-// past S read as zeros.
+// past S, and columns past D when D = 32, read as zeros.
 bool encode(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
             Strides st, int rows) {
   EncodeTiled fn = encoder();
@@ -794,8 +825,8 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
 
 template <int D, int NWG, int BKV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-           int S, int window, Strides qs, Strides ks, Strides vs, Strides os,
-           cudaStream_t stream) {
+           int Sq, int Sk, int window, int causal, Strides qs, Strides ks, Strides vs,
+           Strides os, cudaStream_t stream) {
   using C = Cfg<D, NWG, BKV>;
   static bool configured = false;
   if (!configured) {
@@ -805,13 +836,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, B, H, S, D, qs, 64) || !encode(&tk, k, B, KV, S, D, ks, BKV) ||
-      !encode(&tv, v, B, KV, S, D, vs, BKV))
+  if (!encode(&tq, q, B, H, Sq, D, qs, 64) || !encode(&tk, k, B, KV, Sk, D, ks, BKV) ||
+      !encode(&tv, v, B, KV, Sk, D, vs, BKV))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + C::ROWS - 1) / C::ROWS, H, B);
+  const dim3 grid((Sq + C::ROWS - 1) / C::ROWS, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   flash_fwd_tc<D, NWG, BKV><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), S, H / KV, window, scale_log2, os.b, os.h, os.s);
+      tq, tk, tv, static_cast<bf16*>(o), Sq, Sk, H / KV, window, causal, scale_log2,
+      os.b, os.h, os.s);
   return (int)cudaGetLastError();
 }
 
@@ -826,21 +858,24 @@ int pick_warpgroups(int B, int H, int S, int D) {
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int S, int D, int window, Strides qs, Strides ks, Strides vs, Strides os,
-             cudaStream_t st) {
-  const bool two = pick_warpgroups(B, H, S, D) == 2;
+             int Sq, int Sk, int D, int window, int causal, Strides qs, Strides ks,
+             Strides vs, Strides os, cudaStream_t st) {
+  const bool two = pick_warpgroups(B, H, Sq, D) == 2;
+#define FLASH_TC(D_, NWG_, BKV_) \
+  launch<D_, NWG_, BKV_>(q, k, v, o, B, H, KV, Sq, Sk, window, causal, qs, ks, vs, os, st)
   switch (D) {
+    case 32:
+      return two ? FLASH_TC(32, 2, 128) : FLASH_TC(32, 1, 128);
     case 64:
-      return two ? launch<64, 2, 128>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, st)
-                 : launch<64, 1, 128>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, st);
+      return two ? FLASH_TC(64, 2, 128) : FLASH_TC(64, 1, 128);
     case 128:
-      return two ? launch<128, 2, 128>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, st)
-                 : launch<128, 1, 128>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, st);
+      return two ? FLASH_TC(128, 2, 128) : FLASH_TC(128, 1, 128);
     case 256:
-      return launch<256, 1, 64>(q, k, v, o, B, H, KV, S, window, qs, ks, vs, os, st);
+      return FLASH_TC(256, 1, 64);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_TC
 }
 
 }  // namespace tc
@@ -849,12 +884,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 extern "C" {
 
-// q: (B, H, S, D) and k/v: (B, KV, S, D) addressed through element strides
-// (batch, head, position); the last dim is contiguous.  out has q's shape.
+// q: (B, H, Sq, D) and k/v: (B, KV, Sk, D) addressed through element
+// strides (batch, head, position); the last dim is contiguous.  out has q's
+// shape.  causal = 1 (Sq == Sk, optional window) or 0 (no mask, window 0).
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 // Returns cudaGetLastError().
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KV, int S, int D, int window, int dtype,
+                        int B, int H, int KV, int Sq, int Sk, int D, int window,
+                        int causal, int dtype,
                         long long qsb, long long qsh, long long qss,
                         long long ksb, long long ksh, long long kss,
                         long long vsb, long long vsh, long long vss,
@@ -864,9 +901,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return f32::dispatch<float>(q, k, v, o, B, H, KV, S, D, window, qs, ks, vs, os, st);
+    return f32::dispatch<float>(q, k, v, o, B, H, KV, Sq, Sk, D, window, causal, qs, ks,
+                                vs, os, st);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, o, B, H, KV, S, D, window, qs, ks, vs, os, st);
+    return tc::dispatch(q, k, v, o, B, H, KV, Sq, Sk, D, window, causal, qs, ks, vs, os,
+                        st);
   return (int)cudaErrorInvalidValue;
 }
 

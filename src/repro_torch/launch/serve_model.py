@@ -1,11 +1,15 @@
 """Serve a model with seeded random weights through the port's engine --
 continuous batching, slot KV cache with prefix reuse (or rwkv's recurrent
 state), greedy decode.  The counterpart of ``examples/serve_model.py``.
+An encoder (e5-base-v2, reranker-minilm) has no engine: each request is
+one ``prefill`` call that returns its pooled embedding.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch llama-3.1-8b
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch e5-base-v2
     PYTHONPATH=src python -m repro_torch.launch.serve_model --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch reranker-minilm --reduced --device cpu
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -41,9 +45,11 @@ def main(argv=None):
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     model = build_model(cfg, device=device, dtype=dtype)
     model.init_params(torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    if cfg.family == "encoder":
+        return encode(model, cfg, args, rng, device)
     engine = ServingEngine(model, device=device, slots=args.slots, max_len=128)
 
-    rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
@@ -61,6 +67,28 @@ def main(argv=None):
         print(f"  req {r.req_id}: prompt[{len(r.prompt)}] -> "
               f"{r.generated[:8]}...")
     return done
+
+
+def encode(model, cfg, args, rng, device):
+    """One ``prefill`` per request (the reference's encoder takes an
+    unmasked batch, so prompts of different lengths do not share one)."""
+    embeddings, tokens = [], 0
+    t0 = time.perf_counter()
+    for _ in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              size=(1, int(rng.integers(8, 24)))).astype(np.int32)
+        emb, _ = model.prefill(prompt)
+        embeddings.append(emb)
+        tokens += prompt.shape[1]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    size = "reduced" if args.reduced else "full"
+    print(f"arch={cfg.name} ({size}, {device}) encoded {len(embeddings)} "
+          f"requests, {tokens} tokens in {dt:.2f}s "
+          f"({len(embeddings) / dt:.1f} calls/s, {tokens / dt:.1f} tok/s); "
+          f"embedding dim {embeddings[0].shape[-1]}")
+    return embeddings
 
 
 if __name__ == "__main__":

@@ -11,10 +11,11 @@ Conventions kept from the reference:
 
 Unlike the reference, whose model path uses a jnp chunked attention, the
 attention here calls the port's kernels directly: ``causal_flash_attention``
-goes to the flash prefill kernel and ``decode_attention`` to the decode
+and the encoders' ``bidirectional_attention`` go to the flash kernel
+(causal and non-causal modes) and ``decode_attention`` to the decode
 kernel.  ``plain=True`` takes their plain PyTorch versions instead; only
-``DenseLM.plain_attention``, which the chip smoke check sets to compare
-the two, passes it.
+the models' ``plain_attention``, which the chip smoke check sets to
+compare the two, passes it.
 """
 from __future__ import annotations
 
@@ -123,6 +124,20 @@ def causal_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    v.transpose(1, 2),
                                    window=window).transpose(1, 2)
     return flash_attention_op(q, k, v, window=window)
+
+
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            *, plain: bool = False) -> torch.Tensor:
+    """Full (non-causal) GQA attention of the encoders: every query over
+    all keys.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  Returns (B, Sq, H, D).
+    """
+    if plain:
+        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2),
+                                   causal=False).transpose(1, 2)
+    return flash_attention_op(q, k, v, causal=False)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

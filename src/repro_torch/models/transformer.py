@@ -1,4 +1,5 @@
-"""Dense decoder-only LM (PyTorch), counterpart of ``make_dense_lm``.
+"""Dense decoder-only LM and encoder (PyTorch), counterparts of
+``make_dense_lm`` and ``make_encoder``.
 
 :class:`DenseLM` holds the weights of ``repro.models.transformer.dense_lm_defs``
 in the same ``(d_in, d_out)`` layout, one :class:`DecoderLayer` per layer
@@ -11,6 +12,13 @@ in the same ``(d_in, d_out)`` layout, one :class:`DecoderLayer` per layer
 The KV cache is bf16 whatever the weights' dtype, as in the reference.
 ``decode_step`` updates the cache in place and returns it.  Loss and
 training wait for a later slice.
+
+:class:`EncoderLM` holds the weights of ``make_encoder`` (e5-base-v2, the
+MiniLM reranker): :class:`EncoderLayer` runs non-causal attention, and
+
+    prefill(tokens)                    -> (mean-pooled embedding, None)
+
+It has no cache and no decode step.
 """
 from __future__ import annotations
 
@@ -23,8 +31,10 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (attention_block_decode,
-                                       attention_block_prefill, embed_lookup,
-                                       lm_head_logits, mlp_block, rms_norm)
+                                       attention_block_prefill, attention_qkv,
+                                       bidirectional_attention, embed_lookup,
+                                       lm_head_logits, matmul, mlp_block,
+                                       rms_norm)
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -34,7 +44,28 @@ def _param(shape, device, dtype) -> nn.Parameter:
                         requires_grad=False)
 
 
-class DecoderLayer(nn.Module):
+@torch.no_grad()
+def init_like_reference(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every weight as the reference's ``ParamDef.instantiate`` does:
+    normal * 1/sqrt(fan_in) with fan_in = shape[-2] (the embedding at
+    scale 1.0), norms and biases zeros.  Each tensor is drawn on the
+    device in f32 and cast to the weights' dtype, one at a time."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if p.ndim == 1:  # ln1/ln2/final_norm/bq/bk/bv
+            p.zero_()
+            continue
+        scale = 1.0 if leaf == "embed" else 1.0 / math.sqrt(p.shape[-2])
+        draw = torch.randn(p.shape, generator=generator, device=p.device,
+                           dtype=torch.float32)
+        p.copy_(draw.mul_(scale))
+        del draw
+
+
+class _Block(nn.Module):
+    """One layer's weights, named as the reference names them: ``ln1``,
+    ``attn`` (wq, wk, wv, wo and the optional biases), ``ln2``, ``mlp``."""
+
     def __init__(self, cfg: ArchConfig, device, dtype):
         super().__init__()
         d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
@@ -52,6 +83,8 @@ class DecoderLayer(nn.Module):
         self.mlp = nn.ParameterDict(
             {k: _param(s, device, dtype) for k, s in mlp.items()})
 
+
+class DecoderLayer(_Block):
     def prefill(self, x, cfg, plain):
         h, kv = attention_block_prefill(
             self.attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg, plain=plain)
@@ -95,22 +128,9 @@ class DenseLM(nn.Module):
         self.final_norm = _param((d,), dev, dtype)
         self.lm_head = None if cfg.tie_embeddings else _param((v, d), dev, dtype)
 
-    @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "DenseLM":
-        """Draw every weight as the reference's ``ParamDef.instantiate`` does:
-        normal * 1/sqrt(fan_in) with fan_in = shape[-2] (the embedding at
-        scale 1.0), norms and biases zeros.  Each tensor is drawn on the
-        device in f32 and cast to the weights' dtype, one at a time."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if p.ndim == 1:  # ln1/ln2/final_norm/bq/bk/bv
-                p.zero_()
-                continue
-            scale = 1.0 if leaf == "embed" else 1.0 / math.sqrt(p.shape[-2])
-            draw = torch.randn(p.shape, generator=generator, device=p.device,
-                               dtype=torch.float32)
-            p.copy_(draw.mul_(scale))
-            del draw
+        """Seeded weights by the reference's rules (``init_like_reference``)."""
+        init_like_reference(self, generator)
         return self
 
     # -- model-facing helpers --
@@ -167,3 +187,58 @@ class DenseLM(nn.Module):
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         return (torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
                 torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE))
+
+
+class EncoderLayer(_Block):
+    """``encoder_layer``: rope at positions 0..S-1, non-causal attention,
+    the MLP (GELU with no gate for the encoders), pre-norm residuals."""
+
+    def forward(self, x, cfg, plain=False):
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)
+        q, k, v = attention_qkv(self.attn, rms_norm(x, self.ln1, cfg.norm_eps),
+                                positions, cfg)
+        h = bidirectional_attention(q, k, v, plain=plain)
+        x = x + matmul(h.reshape(B, S, cfg.q_dim), self.attn["wo"])
+        return x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
+                             cfg.activation)
+
+
+class EncoderLM(nn.Module):
+    """An encoder-only model on one device (e5-base-v2, the MiniLM
+    reranker), counterpart of ``make_encoder``: ``embed``, ``layers`` and
+    ``final_norm``, no LM head.  Weights start at zero, as in ``DenseLM``;
+    ``plain_attention`` runs the plain version of the attention kernel
+    (for comparisons only)."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.device = dev
+        self.dtype = dtype
+        self.plain_attention = False
+        d = cfg.d_model
+        self.embed = _param((cfg.padded_vocab, d), dev, dtype)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, dev, dtype) for _ in range(cfg.num_layers))
+        self.final_norm = _param((d,), dev, dtype)
+
+    def init_params(self, generator: torch.Generator) -> "EncoderLM":
+        """Seeded weights by the reference's rules (``init_like_reference``)."""
+        init_like_reference(self, generator)
+        return self
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """tokens: (B, S), every row S tokens long (no padding mask, as in
+        the reference).  Returns the mean over S of the final-normed
+        states, (B, d_model), taken in f32 and returned in the weights'
+        dtype, and None (an encoder keeps no cache)."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = embed_lookup(self.embed, tokens)
+        for layer in self.layers:
+            x = layer(x, self.cfg, self.plain_attention)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return x.float().mean(dim=1).to(x.dtype), None

@@ -5,7 +5,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.rwkv import RWKVLM
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import DenseLM, EncoderLM
 
 # family -> the ROADMAP.md queue-A item that ports it
 _LATER = {
@@ -13,7 +13,6 @@ _LATER = {
     "hybrid": "A10 (models/hymba.py)",
     "vlm": "A11 (models/vision.py)",
     "audio": "A11 (models/encdec.py)",
-    "encoder": "A7 (make_encoder)",
 }
 
 
@@ -23,6 +22,8 @@ def build_model(cfg: ArchConfig, *, device="cuda",
         return DenseLM(cfg, device=device, dtype=dtype)
     if cfg.family == "ssm":
         return RWKVLM(cfg, device=device, dtype=dtype)
+    if cfg.family == "encoder":
+        return EncoderLM(cfg, device=device, dtype=dtype)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "

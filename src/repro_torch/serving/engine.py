@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import EncoderLM
 from repro_torch.serving.kv_cache import SlotKVCache
 from repro_torch.serving.prefix_cache import PrefixCache
 
@@ -52,6 +53,9 @@ class ServingEngine:
     def __init__(self, model, *, device="cuda", slots: int = 8,
                  max_len: int = 256, prefix_caching: bool = True,
                  min_prefix: int = 8):
+        if isinstance(model, EncoderLM):
+            raise ValueError(f"{model.cfg.name} is an encoder: it has no decode "
+                             "step or cache to serve from; call its prefill")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "

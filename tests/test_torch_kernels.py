@@ -20,6 +20,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_op,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_op,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rwkv6_scan import kernel_for, wkv6_op, wkv6_scan_ref
 from repro_torch.models import layers as TL
 
@@ -48,6 +49,8 @@ class _Ref:
         flash = importlib.import_module("repro.kernels.flash_attention")
         decode = importlib.import_module("repro.kernels.decode_attention")
         self.flash_op, self.flash_ref = flash.flash_attention_op, flash.flash_attention_ref
+        self.flash_kernel = importlib.import_module(
+            "repro.kernels.flash_attention.kernel").flash_attention
         self.decode_op, self.decode_ref = decode.decode_attention_op, decode.decode_attention_ref
         self.layers = importlib.import_module("repro.models.layers")
 
@@ -144,6 +147,39 @@ def test_flash_ref_layout_matches_jax_ref(R):
            R.flash_ref(jq, jk, jv, window=8), TOL["float32"])
 
 
+# the encoders' non-causal mode: queries over a key set of their own length
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (77, 77), (64, 200), (200, 64)])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noncausal_matches_bidirectional_attention(R, Sq, Sk, G, D, dtype):
+    B, KV = 2, 2
+    H = KV * G
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(10, (B, Sq, H, D), (B, Sk, KV, D),
+                                           (B, Sk, KV, D), dtype=dtype)
+    ref = R.layers.bidirectional_attention(jq, jk, jv)
+    ours = flash_attention_ref(tq.transpose(1, 2), tk.transpose(1, 2),
+                               tv.transpose(1, 2), causal=False).transpose(1, 2)
+    assert ours.dtype == TORCH[dtype] and tuple(ours.shape) == (B, Sq, H, D)
+    R.close(ours, ref, TOL[dtype])
+    R.close(TL.bidirectional_attention(tq, tk, tv), ref, TOL[dtype])
+    R.close(flash_attention_op(tq, tk, tv, causal=False), ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [1, 77, 256])
+def test_causal_head_dim_32_matches_pallas_kernel(R, S):
+    """Head dim 32 (the MiniLM reranker's) in the causal mode, against the
+    Pallas kernel in interpret mode."""
+    B, H, KV, D = 1, 4, 2, 32
+    (jq, tq), (jk, tk), (jv, tv) = R.inputs(11, (B, H, S, D), (B, KV, S, D),
+                                           (B, KV, S, D))
+    ref = R.flash_kernel(jq, jk, jv, interpret=True)
+    R.close(flash_attention_ref(tq, tk, tv), ref, TOL["float32"])
+    R.close(flash_attention_op(tq.transpose(1, 2), tk.transpose(1, 2),
+                               tv.transpose(1, 2)).transpose(1, 2),
+            ref, TOL["float32"])
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------
@@ -213,6 +249,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     common.reset_launch_counts()
     tq, tk, tv = _torch_inputs(8, (1, 9, 4, 64), (1, 9, 2, 64), (1, 9, 2, 64))
     flash_attention_op(tq, tk, tv)
+    flash_attention_op(tq[:, :3], tk, tv, causal=False)
     decode_attention_op(tq[:, 0], tk.transpose(1, 2), tv.transpose(1, 2), 3)
     assert common.launch_counts == {"flash_attention": 0,
                                     "decode_attention": 0, "wkv6_scan": 0,
@@ -228,6 +265,39 @@ def test_wrappers_reject_mismatched_shapes():
     with pytest.raises(ValueError):
         decode_attention_op(q[:, 0], torch.zeros(1, 2, 16, 32),
                             torch.zeros(1, 2, 16, 32), 4)
+
+
+def test_noncausal_routing_and_refusals():
+    """On the CPU, ``causal=False`` takes the plain version (any Sk, any
+    head dim); the wrapper refuses a window without causality and a causal
+    call over keys of another length.  What the kernel takes beyond that
+    (f32/bf16, a head dim of HEAD_DIMS) it checks before a CUDA launch."""
+    q, k, v = _torch_inputs(12, (1, 5, 4, 48), (1, 9, 2, 48), (1, 9, 2, 48))
+    common.reset_launch_counts()
+    out = flash_attention_op(q, k, v, causal=False)
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=False).transpose(1, 2)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert common.launch_counts["flash_attention"] == 0
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_op(q, k, v, causal=False, window=4)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_op(q, k, v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False, window=4)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    with pytest.raises(ValueError, match="no keys"):
+        flash_attention_op(q, k[:, :0], v[:, :0], causal=False)
+    assert flash_ops.HEAD_DIMS == (32, 64, 128, 256)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_ops.check_kernel_operands(q, k, v)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_ops.check_kernel_operands(q.double(), k.double(), v.double())
+    for D in flash_ops.HEAD_DIMS:
+        t = torch.zeros(1, 5, 4, D)
+        flash_ops.check_kernel_operands(t, t[:, :, :2], t[:, :, :2])
 
 
 def test_library_paths_are_keyed_by_source_hash():
@@ -330,6 +400,47 @@ def test_cuda_kernels_match_plain_versions():
     assert common.launch_counts == {"flash_attention": n_flash,
                                     "decode_attention": n_decode,
                                     "wkv6_scan": 0, "wkv6_chunk": 0}
+
+
+@pytest.mark.gpu
+def test_cuda_flash_noncausal_and_head_dim_32_match_plain_version():
+    """The encoders' modes of the flash kernel on the card: non-causal with
+    Sq != Sk (ragged ends around the 64- and 128-row tiles, every head dim,
+    G of 1 to 16) and head dim 32 in both modes, against the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    common.reset_launch_counts()
+
+    def rnd(*shape, dtype):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(dtype)
+
+    cases = [(1, 512, 512, 12, 12, 64, False), (1, 286, 286, 12, 12, 32, False),
+             (8, 137, 137, 12, 12, 32, False), (1, 77, 1601, 32, 8, 128, False),
+             (1, 1, 512, 12, 12, 64, False), (1, 1000, 1000, 12, 12, 32, True),
+             (2, 300, 300, 4, 2, 32, True)]
+    cases += [(1, Sq, Sk, 2 * G, 2, D, False) for Sq, Sk in ((1, 1), (65, 63), (130, 257))
+              for D in (32, 64, 128, 256) for G in (1, 7, 16)]
+    n = 0
+    for name, dtype in TORCH.items():
+        tol = TOL[name]
+        for B, Sq, Sk, H, KV, D, causal in cases:
+            q = rnd(B, Sq, H, D, dtype=dtype)
+            k = rnd(B, Sk, KV, D, dtype=dtype)
+            v = rnd(B, Sk, KV, D, dtype=dtype)
+            out = flash_attention_op(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            ref = flash_attention_ref(qt, kt, vt, causal=causal)
+            torch.testing.assert_close(out.float(), ref.transpose(1, 2).float(),
+                                       atol=tol, rtol=tol)
+            truth = flash_attention_ref(qt.float(), kt.float(), vt.float(),
+                                        causal=causal)
+            _assert_rows_close(out, truth.transpose(1, 2))
+            n += 1
+    assert common.launch_counts["flash_attention"] == n
 
 
 @pytest.mark.gpu

@@ -138,6 +138,23 @@ def test_init_params_follows_reference_rules():
     assert torch.equal(again.layers[1].mlp["w_down"], model.layers[1].mlp["w_down"])
 
 
+def test_registry_serves_every_llm_of_the_paper_workflows():
+    """Every LLM the reference's two deployed workflows call is in the
+    port's registry, field for field as the reference defines it."""
+    from repro.configs.registry import REGISTRY as JAX_REGISTRY
+    from repro.workflows.beam_search import BEAM_SEARCH
+    from repro.workflows.rag_reranker import RAG_RERANKER
+    from repro_torch.configs.registry import REGISTRY
+
+    names = {c.name for wf in (RAG_RERANKER, BEAM_SEARCH) for c in wf.llms.values()}
+    assert {"e5-base-v2", "reranker-minilm"} <= names
+    for name in sorted(names):
+        assert REGISTRY[name].to_dict() == JAX_REGISTRY[name].to_dict(), name
+        model = build_model(reduced_config(REGISTRY[name]), device="cpu",
+                            dtype=torch.float32)
+        assert hasattr(model, "prefill"), name
+
+
 def test_other_families_name_their_roadmap_item():
     from repro_torch.configs.base import ArchConfig
 
