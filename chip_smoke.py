@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
-``src/repro_torch``.  It drives three paths, llama-3.1-8b through the two
-attention kernels, rwkv6-7b through the two WKV6 kernels (the chunked
+``src/repro_torch``.  It drives three serving paths, llama-3.1-8b through
+the two attention kernels, rwkv6-7b through the two WKV6 kernels (the chunked
 tensor-core kernel for bf16 prefill, the scan for decode and f32) and
 rag_reranker's two encoders through the flash kernel's non-causal mode,
 and prints one JSON object per phase:
@@ -48,6 +48,17 @@ and prints one JSON object per phase:
    tokens/s, mean and p99 ms per call, peak memory, the flash launch
    count (one per layer and call) and a ``torch.profiler`` breakdown of
    one query's calls;
+8. with the encoders freed, ``plan``: Scepsy's planner
+   (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
+   at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
+   its allocations, predicted latency and throughput and its placement,
+   which must validate, keep every TP group inside one NVLink domain and
+   fit every model in the h100 class's HBM (itself within the card's
+   memory); the host's Hopper tile plan of every flash shape of phase 3
+   against the plan the kernel library reports (``flash_attention_plan``)
+   with the card's SM count; and the cost model's decode-step and prefill
+   times (h100, tp=1) at the engine phases' batches, contexts and prompts
+   beside those phases' measured times (printed, not checked);
 
 then the ``kernels`` summary line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -60,6 +71,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -653,22 +665,40 @@ def rwkv_prompts(np, cfg):
 def engine_run(torch, np, model, common, reqs, kernels, cached):
     """Serve ``reqs`` at full width; ``ok`` needs every request served, a
     launch of each of ``kernels`` in this run, and cached prompt tokens
-    (``cached``) or none."""
+    (``cached``) or none.
+
+    Returns the result and the run's steps for the cost model's
+    predictions (the ``plan`` phase): each batched decode step's batch and
+    mean context, and each whole-prompt prefill's tokens and seconds (a
+    prefix hit's suffix runs as batch-1 decode steps, not as a prefill)."""
     from repro_torch.serving.engine import ServeRequest, ServingEngine
 
     cfg = model.cfg
     max_new = 64
     engine = ServingEngine(model, device=model.device, slots=8, max_len=4096)
-    decode_s = []
+    decode_s, decode_shapes, prefills = [], [], []
     decode_step = engine._decode_step
+    prefill = model.prefill
 
     def timed_decode_step():
+        active = sorted(engine.active)
+        if active:
+            decode_shapes.append(
+                (len(active), float(np.mean(engine.lengths[active]))))
         t = time.perf_counter()
         out = decode_step()  # ends in a host copy of the sampled tokens
         decode_s.append(time.perf_counter() - t)
         return out
 
+    def timed_prefill(prompt):
+        t = time.perf_counter()
+        out = prefill(prompt)
+        torch.cuda.synchronize()
+        prefills.append((int(prompt.shape[-1]), time.perf_counter() - t))
+        return out
+
     engine._decode_step = timed_decode_step
+    model.prefill = timed_prefill
     for i, prompt in enumerate(reqs):
         engine.submit(ServeRequest(i, prompt, max_new_tokens=max_new))
     torch.cuda.synchronize()
@@ -678,6 +708,7 @@ def engine_run(torch, np, model, common, reqs, kernels, cached):
     done = engine.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del model.prefill  # the class's method again
     launches = dict(common.launch_counts)
     generated = sum(len(r.generated) for r in done)
     tokens_ok = all(len(r.generated) == max_new and r.done and
@@ -694,13 +725,15 @@ def engine_run(torch, np, model, common, reqs, kernels, cached):
         "tokens_per_s": generated / wall,
         "decode_steps": engine.stats["decode_steps"],
         "decode_step_ms": 1e3 * sum(decode_s) / max(len(decode_s), 1),
+        "prefills": len(prefills),
+        "prefill_ms": 1e3 * sum(s for _, s in prefills) / max(len(prefills), 1),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
     }
     result["ok"] = (len(done) == len(reqs) and tokens_ok
                     and (engine.stats["cached_tokens"] > 0) == cached
                     and all(launches[name] > 0 for name in kernels))
-    return result
+    return result, {"decode": decode_shapes, "prefill": prefills}
 
 
 # ---------------------------------------------------------------------------
@@ -881,6 +914,143 @@ def encode_run(torch, np, models, common):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the planner on H100 hosts
+# ---------------------------------------------------------------------------
+
+PLAN_RATE = 0.4  # req/s, the launcher's default target
+PLAN_TRACE_REQUESTS = 30  # as repro_torch.launch.serve traces
+
+
+def plan_deploys(torch):
+    """Scepsy's ``deploy`` for beam_search and rag_reranker on one 8-GPU
+    H100 host and on four, each plan held to: a placement that validates,
+    every TP group inside one NVLink domain, every model (weights and one
+    2048-token sequence's KV) within the h100 class's HBM at its tp and
+    fraction, and that HBM within the card's own memory."""
+    from repro_torch import hw
+    from repro_torch.core.placement import PlacementError
+    from repro_torch.core.scepsy import deploy
+    from repro_torch.serving import costmodel as cm
+    from repro_torch.workflows.beam_search import BEAM_SEARCH
+    from repro_torch.workflows.rag_reranker import RAG_RERANKER
+
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    results = []
+    for wf in (BEAM_SEARCH, RAG_RERANKER):
+        for spec in (hw.H100_HOST_8, hw.H100_CLUSTER_32):
+            t0 = time.perf_counter()
+            dep = deploy(wf, spec, PLAN_RATE,
+                         n_trace_requests=PLAN_TRACE_REQUESTS, seed=SEED)
+            plan_s = time.perf_counter() - t0
+            try:
+                dep.placement.validate()
+                validates = True
+            except PlacementError:
+                validates = False
+            table = spec.chip_table()
+            in_domain = all(len({table[c][1] for c in inst.chips}) == 1
+                            for inst in dep.placement.instances)
+            fits = all(cm.max_batch_size(wf.llms[m], 2048, tp=a.tp,
+                                         fraction=a.fraction, chip=hw.H100) >= 1
+                       for m, a in dep.schedule.allocations.items())
+            pred = dep.schedule.prediction
+            result = {
+                "phase": "plan", "workflow": wf.name, "gpus": spec.num_chips,
+                "hosts": spec.total_hosts, "nvlink_domain": spec.hb_domain_size,
+                "chip_class": hw.DEFAULT_CHIP_CLASS.name, "rate": PLAN_RATE,
+                "plan_s": plan_s,
+                "allocations": {m: {"replicas": a.replicas, "tp": a.tp,
+                                    "fraction": a.fraction}
+                                for m, a in dep.schedule.allocations.items()},
+                "predicted_latency_s": pred.latency,
+                "predicted_max_throughput": pred.max_throughput,
+                "feasible": pred.feasible,
+                "placement": [{"llm": i.llm, "replica": i.replica, "tp": i.tp,
+                               "chips": i.chips, "units": i.units_per_chip,
+                               "host": i.host, "domain": i.domain}
+                              for i in dep.placement.instances],
+                "validates": validates, "tp_in_one_domain": in_domain,
+                "fits_hbm": fits, "class_hbm_bytes": hw.H100.hbm_bytes,
+                "card_bytes": card_bytes,
+            }
+            result["ok"] = (validates and in_domain and fits
+                            and hw.H100.hbm_bytes <= card_bytes)
+            results.append(result)
+    return results
+
+
+def plan_tiles(torch, flash_ops, checks):
+    """The host's Hopper tile plan of every flash shape the kernel checks
+    ran, against the plan the kernel library reports for it on this card
+    (``flash_attention_plan``)."""
+    from repro_torch.kernels.tile_plan import tile_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for c in checks:
+        if c["kernel"] != "flash_attention":
+            continue
+        B, S, H, D = (c["shape"][k] for k in ("B", "S", "H", "D"))
+        want = tile_plan(B, H, S, D, sms, dtype=c["dtype"])
+        got = flash_ops.flash_attention_plan(B, H, S, D, getattr(torch, c["dtype"]))
+        rows.append({"shape": c["shape"], "dtype": c["dtype"],
+                     "kernel": list(got), "plan": list(want.kernel_numbers()),
+                     "blocks": want.blocks, "waves": want.waves,
+                     "ok": tuple(got) == want.kernel_numbers()})
+    return {"phase": "plan", "tile_plans": rows, "sms": sms,
+            "ok": bool(rows) and all(r["ok"] for r in rows)}
+
+
+def plan_predictions(engines, steps):
+    """The cost model's decode-step and prefill times (h100 class, tp=1) at
+    the engine phases' own batches, contexts and prompt lengths, beside the
+    times those phases measured.  Printed, not checked: the engine's steps
+    are host-bound, and these are the data the class's calibration starts
+    from."""
+    from repro_torch import hw
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving import costmodel as cm
+
+    rows = []
+    for kernel in ("flash_attention", "wkv6_scan"):
+        result = engines[kernel]
+        cfg = get_config(result["arch"])
+        run = steps[cfg.name]
+        decode = [cm.decode_step_cost(cfg, b, int(ctx), tp=1, chip=hw.H100)
+                  for b, ctx in run["decode"]]
+        prefill = [cm.prefill_cost(cfg, n, tp=1, chip=hw.H100)
+                   for n, _ in run["prefill"]]
+        rows.append({
+            "arch": cfg.name, "decode_steps": len(decode),
+            "mean_batch": sum(b for b, _ in run["decode"]) / len(decode),
+            "mean_context": sum(c for _, c in run["decode"]) / len(decode),
+            "decode_step_ms_predicted": 1e3 * sum(c.total for c in decode) / len(decode),
+            "decode_step_ms_measured": result["decode_step_ms"],
+            "decode_bottleneck": Counter(c.bottleneck
+                                        for c in decode).most_common(1)[0][0],
+            "prefills": len(prefill),
+            "mean_prompt_tokens": sum(n for n, _ in run["prefill"]) / len(prefill),
+            "prefill_ms_predicted": 1e3 * sum(c.total for c in prefill) / len(prefill),
+            "prefill_ms_measured": result["prefill_ms"],
+        })
+    return {"phase": "plan", "predicted_vs_measured": rows, "chip_class": "h100",
+            "tp": 1}
+
+
+def plan_phase(torch, flash_ops, checks, engines, steps):
+    for result in plan_deploys(torch):
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"plan of {result['workflow']} on "
+                               f"{result['gpus']} GPUs failed its checks")
+    result = plan_tiles(torch, flash_ops, checks)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("a flash tile plan differs from the kernel's")
+    emit(plan_predictions(engines, steps))
+
+
 def run():
     import torch
 
@@ -939,9 +1109,10 @@ def run():
         raise SmokeFailure("full-width model check failed")
     torch.cuda.empty_cache()
 
-    engines = {}
-    result = engine_run(torch, np, model, common, llama_prompts(np, cfg),
-                        ("flash_attention", "decode_attention"), cached=True)
+    engines, steps = {}, {}
+    result, steps[cfg.name] = engine_run(
+        torch, np, model, common, llama_prompts(np, cfg),
+        ("flash_attention", "decode_attention"), cached=True)
     emit(result)
     if not result["ok"]:
         raise SmokeFailure("engine run failed")
@@ -966,8 +1137,9 @@ def run():
         raise SmokeFailure("full-width rwkv6-7b model check failed")
     torch.cuda.empty_cache()
 
-    result = engine_run(torch, np, model, common, rwkv_prompts(np, cfg),
-                        ("wkv6_chunk", "wkv6_scan"), cached=False)
+    result, steps[cfg.name] = engine_run(
+        torch, np, model, common, rwkv_prompts(np, cfg),
+        ("wkv6_chunk", "wkv6_scan"), cached=False)
     # one launch per layer: of the chunked kernel in every prefill (every
     # prompt is bf16 and longer than one token), of the scan in every
     # decode step
@@ -998,6 +1170,11 @@ def run():
     if not result["ok"]:
         raise SmokeFailure("rag_reranker encode run failed")
     encode_launches = result["launches"]["flash_attention"]
+
+    del encoders
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_phase(torch, flash_ops, checks, engines, steps)
 
     summary = []
     for name in common.KERNELS:

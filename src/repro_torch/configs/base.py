@@ -88,26 +88,63 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
     def layer_param_count(self) -> int:
-        """Parameters of one decoder layer (attention or time mix + FFN +
-        norms).  An attention-free layer (rwkv6) counts its r, k, v, g, o
-        projections, the decay lora and the mixes in place of attention."""
+        """Parameters of one decoder layer (attention + FFN + norms).  An
+        attention-free layer (rwkv6) counts its r, k, v, g, o projections,
+        the decay lora and the mixes in place of attention; a hybrid layer
+        (hymba) adds its Mamba heads."""
         d = self.d_model
-        if self.attn_free:  # rwkv6: r,k,v,g,o (d*d each) + w lora + mixes
-            attn = 5 * d * d + 2 * d * 64 + 6 * d
-        else:
+        attn = 0
+        if not self.attn_free:
             attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
             if self.qkv_bias:
                 attn += self.q_dim + 2 * self.kv_dim
+        ssm = 0
+        if self.ssm_state > 0 or self.attn_free:
+            if self.attn_free:  # rwkv6: r,k,v,g,o (d*d each) + w lora + mixes
+                ssm = 5 * d * d + 2 * d * 64 + 6 * d
+            else:  # hymba mamba heads: in/out proj + dt/B/C projections
+                h = self.q_dim
+                ssm = d * 2 * h + h * d + h * (2 * self.ssm_state + 2)
         n_mlp_mats = 3 if self.activation in ("swiglu", "geglu") else 2
-        return attn + n_mlp_mats * d * self.d_ff + 2 * d
+        if self.is_moe:
+            ffn = self.num_experts * n_mlp_mats * d * self.d_ff + d * self.num_experts
+        else:
+            ffn = n_mlp_mats * d * self.d_ff
+        norms = 2 * d
+        return attn + ssm + ffn + norms
 
     def param_count(self) -> int:
-        """Total parameter count (embeddings + layers)."""
-        total = self.vocab_size * self.d_model
+        """Total parameter count (embeddings + layers [+ encoder, + cross])."""
+        total = self.vocab_size * self.d_model  # embedding
         if not self.tie_embeddings:
-            total += self.vocab_size * self.d_model
-        return total + self.num_layers * self.layer_param_count() + self.d_model
+            total += self.vocab_size * self.d_model  # lm head
+        total += self.num_layers * self.layer_param_count() + self.d_model
+        if self.cross_attn_every:
+            n_cross = self.num_layers // self.cross_attn_every
+            d = self.d_model
+            cross = d * self.q_dim + 2 * max(self.vision_d_model, d) * self.kv_dim + self.q_dim * d
+            total += n_cross * cross
+        if self.encoder_layers:
+            total += self.encoder_layers * self.layer_param_count()
+            # decoder cross-attention in every decoder layer
+            d = self.d_model
+            total += self.num_layers * (d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only routed experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        full = self.param_count()
+        n_mlp_mats = 3 if self.activation in ("swiglu", "geglu") else 2
+        all_exp = self.num_layers * self.num_experts * n_mlp_mats * self.d_model * self.d_ff
+        act_exp = self.num_layers * self.experts_per_token * n_mlp_mats * self.d_model * self.d_ff
+        return full - all_exp + act_exp
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -268,26 +268,51 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   return (int)cudaGetLastError();
 }
 
+// The tiles launched for head dim D: f(Tile<D, BQ, BKV>{}), or
+// cudaErrorInvalidValue for a head dim the kernel does not take.
+template <int D_, int BQ_>
+struct Tile {
+  static constexpr int D = D_, BQ = BQ_, BKV = 32;
+};
+
+template <typename F>
+int with_tile(int D, F f) {
+  switch (D) {
+    case 32:
+      return f(Tile<32, 64>{});
+    case 64:
+      return f(Tile<64, 64>{});
+    case 128:
+      return f(Tile<128, 64>{});
+    case 256:
+      return f(Tile<256, 32>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
              int KV, int Sq, int Sk, int D, int window, int causal, Strides qs,
              Strides ks, Strides vs, Strides os, cudaStream_t stream) {
-#define FLASH_F32(D_, BQ_)                                                       \
-  launch<T, D_, BQ_, 32>(q, k, v, o, B, H, KV, Sq, Sk, window, causal, qs, ks, vs, \
-                         os, stream)
-  switch (D) {
-    case 32:
-      return FLASH_F32(32, 64);
-    case 64:
-      return FLASH_F32(64, 64);
-    case 128:
-      return FLASH_F32(128, 64);
-    case 256:
-      return FLASH_F32(256, 32);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef FLASH_F32
+  return with_tile(D, [&](auto tile) {
+    using C = decltype(tile);
+    return launch<T, C::D, C::BQ, C::BKV>(q, k, v, o, B, H, KV, Sq, Sk, window, causal,
+                                          qs, ks, vs, os, stream);
+  });
+}
+
+// The plan of the tiles dispatch launches (see flash_attention_plan).
+int plan(int D, int* out) {
+  return with_tile(D, [&](auto tile) {
+    using C = decltype(tile);
+    out[0] = 0;  // no warpgroup: the CUDA cores
+    out[1] = C::BQ;
+    out[2] = C::BKV;
+    out[3] = 1;  // one tile of K and V at a time
+    out[4] = (int)(smem_floats<C::D, C::BQ, C::BKV>() * sizeof(float));
+    return 0;
+  });
 }
 
 }  // namespace f32
@@ -847,35 +872,67 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   return (int)cudaGetLastError();
 }
 
-// Consumer warpgroups per block: two (128 query rows) while that still puts
-// at least one block on each of the card's SMs, else one (64 rows).  D = 256
-// holds its (64 x 256) f32 accumulator in one warpgroup only.
-int pick_warpgroups(int B, int H, int S, int D) {
+int device_sms() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Consumer warpgroups per block: two (128 query rows) while that still puts
+// at least one block on each of the card's SMs, else one (64 rows).  D = 256
+// holds its (64 x 256) f32 accumulator in one warpgroup only.
+int pick_warpgroups(int B, int H, int S, int D, int sms) {
   return D <= 128 && (long long)B * H * ((S + 127) / 128) >= sms ? 2 : 1;
+}
+
+// The tiles launched for head dim D with nwg consumer warpgroups:
+// f(Tile<D, NWG, BKV>{}), or cudaErrorInvalidValue for a head dim the
+// kernel does not take.
+template <int D_, int NWG_, int BKV_>
+struct Tile {
+  static constexpr int D = D_, NWG = NWG_, BKV = BKV_;
+};
+
+template <typename F>
+int with_tile(int D, int nwg, F f) {
+  const bool two = nwg == 2;
+  switch (D) {
+    case 32:
+      return two ? f(Tile<32, 2, 128>{}) : f(Tile<32, 1, 128>{});
+    case 64:
+      return two ? f(Tile<64, 2, 128>{}) : f(Tile<64, 1, 128>{});
+    case 128:
+      return two ? f(Tile<128, 2, 128>{}) : f(Tile<128, 1, 128>{});
+    case 256:
+      return f(Tile<256, 1, 64>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
              int Sq, int Sk, int D, int window, int causal, Strides qs, Strides ks,
              Strides vs, Strides os, cudaStream_t st) {
-  const bool two = pick_warpgroups(B, H, Sq, D) == 2;
-#define FLASH_TC(D_, NWG_, BKV_) \
-  launch<D_, NWG_, BKV_>(q, k, v, o, B, H, KV, Sq, Sk, window, causal, qs, ks, vs, os, st)
-  switch (D) {
-    case 32:
-      return two ? FLASH_TC(32, 2, 128) : FLASH_TC(32, 1, 128);
-    case 64:
-      return two ? FLASH_TC(64, 2, 128) : FLASH_TC(64, 1, 128);
-    case 128:
-      return two ? FLASH_TC(128, 2, 128) : FLASH_TC(128, 1, 128);
-    case 256:
-      return FLASH_TC(256, 1, 64);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef FLASH_TC
+  return with_tile(D, pick_warpgroups(B, H, Sq, D, device_sms()), [&](auto tile) {
+    using T = decltype(tile);
+    return launch<T::D, T::NWG, T::BKV>(q, k, v, o, B, H, KV, Sq, Sk, window, causal, qs,
+                                        ks, vs, os, st);
+  });
+}
+
+// The plan of the tiles dispatch launches (see flash_attention_plan).
+int plan(int B, int H, int Sq, int D, int* out) {
+  return with_tile(D, pick_warpgroups(B, H, Sq, D, device_sms()), [&](auto tile) {
+    using T = decltype(tile);
+    using C = Cfg<T::D, T::NWG, T::BKV>;
+    out[0] = T::NWG;
+    out[1] = C::ROWS;
+    out[2] = T::BKV;
+    out[3] = C::STAGES;
+    out[4] = C::SMEM;
+    return 0;
+  });
 }
 
 }  // namespace tc
@@ -906,6 +963,19 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1)
     return tc::dispatch(q, k, v, o, B, H, KV, Sq, Sk, D, window, causal, qs, ks, vs, os,
                         st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tiles flash_attention_fwd launches for (B, H, Sq, D, dtype) on the
+// current device, from the same tables and warpgroup choice: out[0] consumer
+// warpgroups (0 for the f32 CUDA-core kernel), out[1] query rows per block,
+// out[2] kv rows per tile, out[3] stages of the kv ring, out[4] dynamic
+// shared memory in bytes.  The grid is ceil(Sq / out[1]) x H x B blocks.
+// Returns 0, or cudaErrorInvalidValue for a head dim or dtype the kernel
+// does not take.
+int flash_attention_plan(int B, int H, int Sq, int D, int dtype, int* out) {
+  if (dtype == 0) return f32::plan(D, out);
+  if (dtype == 1) return tc::plan(B, H, Sq, D, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,9 +11,9 @@ import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.tile_plan import HEAD_DIMS
 
 NAME = "flash_attention"
-HEAD_DIMS = (32, 64, 128, 256)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P] + [_I] * 9 + [_L] * 12 + [_P]
@@ -75,3 +75,17 @@ def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{NAME}: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
     for t in (q, k, v):
         common.check_operand(NAME, t, q.device, q.dtype)
+
+
+def flash_attention_plan(batch: int, heads: int, seq: int, head_dim: int,
+                         dtype: torch.dtype) -> tuple:
+    """The tiles the kernel launches for q of (batch, seq, heads, head_dim)
+    on the current card, as its ``flash_attention_plan`` reports them:
+    (warpgroups, rows, block_kv, stages, smem_bytes), the numbers of
+    ``tile_plan.TilePlan.kernel_numbers``.  Launches nothing."""
+    fn = common.load_function(NAME, "flash_attention_plan",
+                              [_I] * 5 + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 5)()
+    common.check(NAME, fn(batch, heads, seq, head_dim,
+                          common.DTYPE_CODES[dtype], out))
+    return tuple(out)

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_op,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rwkv6_scan import kernel_for, wkv6_op, wkv6_scan_ref
+from repro_torch.kernels.tile_plan import tile_plan
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -441,6 +442,25 @@ def test_cuda_flash_noncausal_and_head_dim_32_match_plain_version():
             _assert_rows_close(out, truth.transpose(1, 2))
             n += 1
     assert common.launch_counts["flash_attention"] == n
+
+
+@pytest.mark.gpu
+def test_cuda_flash_launch_plan_matches_tile_plan():
+    """The tiles the kernel reports it launches (``flash_attention_plan``)
+    against the host's Hopper tile plan, with the card's SM count, over
+    every head dim, both dtypes and grids on each side of the warpgroup
+    choice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel reports its plan there")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in ("bfloat16", "float32"):
+        for D in flash_ops.HEAD_DIMS:
+            for B, H, S in ((1, 32, 1000), (1, 12, 286), (8, 12, 137),
+                            (1, 32, 256), (1, 33, 512), (1, 1, 1),
+                            (4, 64, 4096)):
+                want = tile_plan(B, H, S, D, sms, dtype=dtype)
+                got = flash_ops.flash_attention_plan(B, H, S, D, TORCH[dtype])
+                assert got == want.kernel_numbers(), (dtype, D, B, H, S)
 
 
 @pytest.mark.gpu
