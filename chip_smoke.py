@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
-``src/repro_torch``.  It drives three serving paths, llama-3.1-8b through
+``src/repro_torch``.  It drives four serving paths, llama-3.1-8b through
 the two attention kernels, rwkv6-7b through the two WKV6 kernels (the chunked
-tensor-core kernel for bf16 prefill, the scan for decode and f32) and
-rag_reranker's two encoders through the flash kernel's non-causal mode,
-and prints one JSON object per phase:
+tensor-core kernel for bf16 prefill, the scan for decode and f32), the MoE
+decoders olmoe-1b-7b and granite-moe-3b-a800m through the attention
+kernels and the routed experts of ``models/moe.py``, and rag_reranker's two
+encoders through the flash kernel's non-causal mode, and prints one JSON
+object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
 2. ``build``: the four kernels compiled from ``src/repro_torch/csrc`` for
@@ -29,7 +31,9 @@ and prints one JSON object per phase:
    difference;
 5. ``engine``: the serving engine at full width and depth serving 16
    requests (8 share a 1024-token prefix), with the kernels' launch counts
-   during that run;
+   during that run (one flash launch per layer and whole-prompt prefill,
+   one decode launch per layer and model decode call) and a
+   ``torch.profiler`` window of three batched decode steps;
 6. with the llama model freed, ``kernel_checks`` of the WKV6 kernels at
    the rwkv path's shapes, each call on the kernel ``wkv6_op`` routes it
    to (no single PyTorch call computes WKV6), each output and state row
@@ -39,7 +43,15 @@ and prints one JSON object per phase:
    copy), every prefill through the chunked kernel (one launch per layer
    and request) and every decode step through the scan (one per layer and
    step);
-7. with rwkv6-7b freed, ``encoder_check`` for e5-base-v2 and
+7. with rwkv6-7b freed, ``kernel_checks`` of the attention kernels at
+   the MoE decoders' heads (olmoe: H = KV = 16, D = 128; granite-moe:
+   H = 24, KV = 8, D = 64), then ``model_check`` for olmoe-1b-7b at full
+   width and depth with its routing replayed (each run takes the experts
+   the f32 plain run chose; the free runs' routing agreement is printed),
+   its ``engine`` run (the llama traffic, exact launch counts), and
+   ``model_check`` and a short ``engine`` run (8 requests of 16 tokens)
+   for granite-moe-3b-a800m;
+8. with the MoE models freed, ``encoder_check`` for e5-base-v2 and
    reranker-minilm (full width and depth, seeded weights, f32 and bf16,
    a 512- and a 137-token prompt; the pooled embeddings through the
    kernel and through the plain version), then ``encode``: rag_reranker's
@@ -48,7 +60,7 @@ and prints one JSON object per phase:
    tokens/s, mean and p99 ms per call, peak memory, the flash launch
    count (one per layer and call) and a ``torch.profiler`` breakdown of
    one query's calls;
-8. with the encoders freed, ``plan``: Scepsy's planner
+9. with the encoders freed, ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
    its allocations, predicted latency and throughput and its placement,
@@ -57,8 +69,9 @@ and prints one JSON object per phase:
    memory); the host's Hopper tile plan of every flash shape of phase 3
    against the plan the kernel library reports (``flash_attention_plan``)
    with the card's SM count; and the cost model's decode-step and prefill
-   times (h100, tp=1) at the engine phases' batches, contexts and prompts
-   beside those phases' measured times (printed, not checked);
+   times (h100, tp=1) at the llama, rwkv and olmoe engine phases'
+   batches, contexts and prompts beside those phases' measured times
+   (printed, not checked);
 
 then the ``kernels`` summary line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -100,6 +113,7 @@ BF16_ERR_RATIO = 1.25
 
 ARCH = "llama-3.1-8b"
 RWKV_ARCH = "rwkv6-7b"
+MOE_ARCHS = ("olmoe-1b-7b", "granite-moe-3b-a800m")
 ENCODER_ARCHS = ("e5-base-v2", "reranker-minilm")
 SEED = 0
 
@@ -526,6 +540,13 @@ DECODE_CASES = [
     # Smax not a multiple of the split
     (32, 8, 128, 1000, [999, 1000, 3, 0], "bfloat16"),
 ]
+# the MoE decoders' heads, which no case above has: olmoe-1b-7b MHA (H = KV
+# = 16, D = 128, G = 1) and granite-moe-3b-a800m (H = 24, KV = 8, D = 64,
+# G = 3); a 1000-token prompt, and decode over the engine's 8 slots
+MOE_FLASH_CASES = [(1, 1000, 16, 16, 128, 0, "bfloat16"),
+                   (1, 1000, 24, 8, 64, 0, "bfloat16")]
+MOE_DECODE_CASES = [(16, 16, 128, 4096, DECODE_LENS, "bfloat16"),
+                    (24, 8, 64, 4096, DECODE_LENS, "bfloat16")]
 # rwkv6-7b: H=64, D=64; prompts of the engine phase are 256-2048 tokens,
 # decode runs S=1 over its 8 slots.  bf16 prompts (S >= 2) go to the
 # chunked kernel, decode and f32 to the scan.
@@ -582,6 +603,66 @@ def _rms(torch, a, b) -> float:
     return float((a - b).square().mean().sqrt())
 
 
+def routed_run(moe, run, replay=None):
+    """``run()`` with ``moe.route`` wrapped; returns its result and the
+    experts (B, S, K) of every route call, in call order.  With ``replay``
+    (another run's list), each call takes the experts recorded there in
+    place of its own top K, with its own router probabilities gathered at
+    them and renormalised over the K; the capacity positions follow from
+    those experts as always."""
+    route = moe.route
+    calls = []
+
+    def wrapped(router, x, cfg):
+        if replay is None:
+            top_g, top_e = route(router, x, cfg)
+        else:
+            top_e = replay[len(calls)]
+            top_g = moe.router_probs(router, x).gather(-1, top_e)
+            top_g = top_g / top_g.sum(dim=-1, keepdim=True)
+        calls.append(top_e)
+        return top_g, top_e
+
+    moe.route = wrapped
+    try:
+        out = run()
+    finally:
+        moe.route = route
+    if replay is not None and len(calls) != len(replay):
+        raise SmokeFailure(f"routing replay: {len(calls)} route calls, "
+                           f"{len(replay)} recorded")
+    return out, calls
+
+
+def routing_agreement(a, b) -> float:
+    """Share of (layer call, token, k) choices equal in two runs."""
+    same = sum(int((x == y).sum()) for x, y in zip(a, b))
+    return same / sum(x.numel() for x in a)
+
+
+def moe_stats(torch, moe, cfg, calls, router, x_shape, dev):
+    """The share of choices the capacity drops in the prefill calls of a
+    recorded run, and whether the router's product is the same with TF32
+    allowed (it must be: ``moe.router_probs`` turns TF32 off for it)."""
+    prefill = [e for e in calls if e.shape[1] > 1]
+    dropped = sum(int((moe.expert_positions(e, cfg.num_experts)
+                       >= moe.capacity_per_row(e.shape[1], cfg)).sum())
+                  for e in prefill)
+    x = torch.randn(x_shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    try:
+        flags.allow_tf32 = False
+        ieee = moe.router_probs(router, x)
+        flags.allow_tf32 = True
+        under_tf32 = moe.router_probs(router, x)
+    finally:
+        flags.allow_tf32 = before
+    return {"dropped_share_prefill": dropped / sum(e.numel() for e in prefill),
+            "router_f32_under_tf32": bool(torch.equal(ieee, under_tf32))}
+
+
 def model_check(torch, np, cfg, dev, build_model, plain_attr):
     """Full-width prefill + decode through the kernels and through the
     plain versions (``model.<plain_attr> = True``), in f32 and in bf16
@@ -595,21 +676,43 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr):
     (2.4e-2 of the scale, above a 2e-2 bound), so there each bf16 path is
     held against the f32 plain run: the kernel path's error may exceed the
     plain bf16 path's by at most BF16_ERR_RATIO.
+
+    An MoE model's routing is discontinuous: a last-bit difference can
+    swap the K-th and (K+1)-th expert, so free runs would measure routing
+    flips, not the kernels.  There the f32 plain run's experts are
+    recorded and replayed in the other three runs (``routed_run``), which
+    are held as above; the free runs' routing agreement is printed.
     Returns the result and the bf16 model, for the engine phase."""
+    from repro_torch.models import moe
+
     rng = np.random.default_rng(SEED)
     prompt = rng.integers(0, cfg.vocab_size, size=(1, 1000))
     steps = rng.integers(0, cfg.vocab_size, size=(8, 1))
-    runs = {}
+    runs, free, extra = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         t0 = time.perf_counter()
         model = build_model(cfg, device=dev, dtype=getattr(torch, dtype))
         model.init_params(torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
         weights_s = time.perf_counter() - t0
-        for plain in (False, True):
+        for plain in (True, False):  # the f32 plain run first: the reference
             setattr(model, plain_attr, plain)
-            runs[dtype, plain] = _logits_run(torch, model, prompt, steps)
+
+            def run(model=model):
+                return _logits_run(torch, model, prompt, steps)
+
+            if not cfg.is_moe:
+                runs[dtype, plain] = run()
+                continue
+            runs[dtype, plain], free[dtype, plain] = routed_run(moe, run)
+            if (dtype, plain) != ("float32", True):
+                runs[dtype, plain], _ = routed_run(
+                    moe, run, replay=free["float32", True])
         setattr(model, plain_attr, False)
+        if cfg.is_moe and dtype == "float32":
+            extra = moe_stats(torch, moe, cfg, free["float32", True],
+                              model.layers[0].mlp["router"], (1, 1000, cfg.d_model),
+                              dev)
         if dtype == "float32":
             del model
             torch.cuda.empty_cache()
@@ -638,6 +741,20 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr):
               "shape_ok": shape_ok, "bf16_weights_s": weights_s}
     result["ok"] = (finite and shape_ok and f32_rel <= MODEL_REL_TOL_F32
                     and kernel_err <= BF16_ERR_RATIO * plain_err)
+    if cfg.is_moe:
+        result.update({
+            "layers": cfg.num_layers, "experts": cfg.num_experts,
+            "top_k": cfg.experts_per_token, "routing": "replayed from f32 plain",
+            # the free runs: kernels against plain versions in each dtype,
+            # and bf16 plain against f32 plain (reported only)
+            "routing_agreement_f32": routing_agreement(
+                free["float32", False], free["float32", True]),
+            "routing_agreement_bf16": routing_agreement(
+                free["bfloat16", False], free["bfloat16", True]),
+            "routing_agreement_bf16_vs_f32": routing_agreement(
+                free["bfloat16", True], free["float32", True]),
+            **extra})
+        result["ok"] = result["ok"] and extra["router_f32_under_tf32"]
     return result, model
 
 
@@ -662,10 +779,15 @@ def rwkv_prompts(np, cfg):
             for _ in range(16)]
 
 
-def engine_run(torch, np, model, common, reqs, kernels, cached):
-    """Serve ``reqs`` at full width; ``ok`` needs every request served, a
-    launch of each of ``kernels`` in this run, and cached prompt tokens
-    (``cached``) or none.
+def engine_run(torch, np, model, common, reqs, kernels, cached, max_new=64):
+    """Serve ``reqs`` at full width, ``max_new`` tokens each; ``ok`` needs
+    every request served, a launch of each of ``kernels`` in this run, and
+    cached prompt tokens (``cached``) or none.  On a KV cache (the
+    attention kernels) it needs exactly one flash launch per layer and
+    whole-prompt prefill and one decode launch per layer and model decode
+    call (batched steps and a prefix hit's suffix steps alike).  After the
+    run, three batched decode steps (8 slots at position 1000) are
+    profiled (``device_breakdown``).
 
     Returns the result and the run's steps for the cost model's
     predictions (the ``plan`` phase): each batched decode step's batch and
@@ -674,11 +796,11 @@ def engine_run(torch, np, model, common, reqs, kernels, cached):
     from repro_torch.serving.engine import ServeRequest, ServingEngine
 
     cfg = model.cfg
-    max_new = 64
     engine = ServingEngine(model, device=model.device, slots=8, max_len=4096)
     decode_s, decode_shapes, prefills = [], [], []
+    decode_calls = 0
     decode_step = engine._decode_step
-    prefill = model.prefill
+    prefill, model_decode = model.prefill, model.decode_step
 
     def timed_decode_step():
         active = sorted(engine.active)
@@ -697,8 +819,13 @@ def engine_run(torch, np, model, common, reqs, kernels, cached):
         prefills.append((int(prompt.shape[-1]), time.perf_counter() - t))
         return out
 
+    def counted_decode(cache, tokens, pos):
+        nonlocal decode_calls
+        decode_calls += 1
+        return model_decode(cache, tokens, pos)
+
     engine._decode_step = timed_decode_step
-    model.prefill = timed_prefill
+    model.prefill, model.decode_step = timed_prefill, counted_decode
     for i, prompt in enumerate(reqs):
         engine.submit(ServeRequest(i, prompt, max_new_tokens=max_new))
     torch.cuda.synchronize()
@@ -708,7 +835,7 @@ def engine_run(torch, np, model, common, reqs, kernels, cached):
     done = engine.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    del model.prefill  # the class's method again
+    del model.prefill, model.decode_step  # the class's methods again
     launches = dict(common.launch_counts)
     generated = sum(len(r.generated) for r in done)
     tokens_ok = all(len(r.generated) == max_new and r.done and
@@ -728,11 +855,30 @@ def engine_run(torch, np, model, common, reqs, kernels, cached):
         "prefills": len(prefills),
         "prefill_ms": 1e3 * sum(s for _, s in prefills) / max(len(prefills), 1),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "model_decode_calls": decode_calls,
+        # the least time a decode step takes on this card: every weight
+        # read once at the HBM rate (an MoE step reads all E experts)
+        "weights_read_ms": 1e3 * sum(p.numel() * p.element_size()
+                                     for p in model.parameters()) / BYTES_PER_S,
         "launches": launches,
     }
     result["ok"] = (len(done) == len(reqs) and tokens_ok
                     and (engine.stats["cached_tokens"] > 0) == cached
                     and all(launches[name] > 0 for name in kernels))
+    if "flash_attention" in kernels:
+        expected = {"flash_attention": cfg.num_layers * len(prefills),
+                    "decode_attention": cfg.num_layers * decode_calls}
+        result["launches_expected"] = expected
+        result["ok"] = result["ok"] and all(launches[name] == n
+                                            for name, n in expected.items())
+    del engine
+    cache = model.init_cache(8, 1024)
+    tokens = torch.zeros(8, dtype=torch.long, device=model.device)
+    pos = torch.full((8,), 1000, dtype=torch.long, device=model.device)
+    model.decode_step(cache, tokens, pos)  # warm-up
+    result["profile_decode_steps"] = device_breakdown(
+        torch, [lambda: model.decode_step(cache, tokens, pos)] * 3)
+    del cache
     return result, {"decode": decode_shapes, "prefill": prefills}
 
 
@@ -814,8 +960,8 @@ def rag_encoder_calls(np, vocab):
 
 def device_breakdown(torch, calls):
     """Device time by kernel over ``calls`` (zero-argument functions), from
-    ``torch.profiler``: the flash kernel, the matrix products (cuBLAS and
-    CUTLASS kernels) and the rest, beside the host's wall time of the
+    ``torch.profiler``: the attention kernels, the matrix products (cuBLAS
+    and CUTLASS kernels) and the rest, beside the host's wall time of the
     window.  Measurement only: a profiler that fails is reported, not
     fatal."""
     from torch.autograd import DeviceType
@@ -829,7 +975,8 @@ def device_breakdown(torch, calls):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+        groups = {"flash_attention": 0.0, "decode_attention": 0.0,
+                  "wkv6": 0.0, "matmul": 0.0, "other": 0.0}
         kernels = []
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
@@ -840,6 +987,11 @@ def device_breakdown(torch, calls):
             name = e.key.lower()
             if "flash_fwd" in name:
                 group = "flash_attention"
+            elif any(w in name for w in ("decode_split", "decode_merge",
+                                         "decode_fwd")):
+                group = "decode_attention"
+            elif "wkv6" in name:
+                group = "wkv6"
             elif any(w in name for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
                 group = "matmul"
             else:
@@ -1002,19 +1154,23 @@ def plan_tiles(torch, flash_ops, checks):
             "ok": bool(rows) and all(r["ok"] for r in rows)}
 
 
-def plan_predictions(engines, steps):
+def plan_predictions(engine_results, steps):
     """The cost model's decode-step and prefill times (h100 class, tp=1) at
     the engine phases' own batches, contexts and prompt lengths, beside the
     times those phases measured.  Printed, not checked: the engine's steps
     are host-bound, and these are the data the class's calibration starts
-    from."""
+    from.  The cost model prices an MoE prefill by its active parameters
+    (K of E experts per token); the dispatch the port keeps from the
+    reference computes E x (C + 1) expert slots per batch row, and an MoE
+    row gives that count over the S x K choices, averaged over the run's
+    prefills."""
     from repro_torch import hw
     from repro_torch.configs.registry import get_config
+    from repro_torch.models.moe import capacity_per_row
     from repro_torch.serving import costmodel as cm
 
     rows = []
-    for kernel in ("flash_attention", "wkv6_scan"):
-        result = engines[kernel]
+    for result in engine_results:
         cfg = get_config(result["arch"])
         run = steps[cfg.name]
         decode = [cm.decode_step_cost(cfg, b, int(ctx), tp=1, chip=hw.H100)
@@ -1034,11 +1190,16 @@ def plan_predictions(engines, steps):
             "prefill_ms_predicted": 1e3 * sum(c.total for c in prefill) / len(prefill),
             "prefill_ms_measured": result["prefill_ms"],
         })
+        if cfg.is_moe:
+            E, K = cfg.num_experts, cfg.experts_per_token
+            rows[-1]["prefill_dispatch_slots_per_choice"] = sum(
+                E * (capacity_per_row(n, cfg) + 1) / (n * K)
+                for n, _ in run["prefill"]) / len(prefill)
     return {"phase": "plan", "predicted_vs_measured": rows, "chip_class": "h100",
             "tp": 1}
 
 
-def plan_phase(torch, flash_ops, checks, engines, steps):
+def plan_phase(torch, flash_ops, checks, engine_results, steps):
     for result in plan_deploys(torch):
         emit(result)
         if not result["ok"]:
@@ -1048,7 +1209,7 @@ def plan_phase(torch, flash_ops, checks, engines, steps):
     emit(result)
     if not result["ok"]:
         raise SmokeFailure("a flash tile plan differs from the kernel's")
-    emit(plan_predictions(engines, steps))
+    emit(plan_predictions(engine_results, steps))
 
 
 def run():
@@ -1109,7 +1270,7 @@ def run():
         raise SmokeFailure("full-width model check failed")
     torch.cuda.empty_cache()
 
-    engines, steps = {}, {}
+    engines, steps, predicted = {}, {}, []
     result, steps[cfg.name] = engine_run(
         torch, np, model, common, llama_prompts(np, cfg),
         ("flash_attention", "decode_attention"), cached=True)
@@ -1117,6 +1278,7 @@ def run():
     if not result["ok"]:
         raise SmokeFailure("engine run failed")
     engines["flash_attention"] = engines["decode_attention"] = result
+    predicted.append(result)
 
     # the rwkv6-7b path, on a card free of the llama model
     del model
@@ -1152,11 +1314,52 @@ def run():
     if not result["ok"]:
         raise SmokeFailure("rwkv6-7b engine run failed")
     engines["wkv6_chunk"] = engines["wkv6_scan"] = result
+    predicted.append(result)
 
-    # rag_reranker's encoders, on a card free of rwkv6-7b
+    # the MoE decoders, on a card free of rwkv6-7b: the attention kernels
+    # at their heads, then each model checked and served, one at a time
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        moe_checks = [check_flash(torch, F, flash_ops, dev, gen, *c)
+                      for c in MOE_FLASH_CASES]
+        moe_checks += [check_decode(torch, F, decode_ops, dev, gen, *c)
+                       for c in MOE_DECODE_CASES]
+    emit({"phase": "kernel_checks", "checks": moe_checks})
+    bad = [c for c in moe_checks if not c["ok"]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} MoE-shape kernel check(s) out of tolerance")
+    checks += moe_checks
+    moe_launches = {}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        result, model = model_check(torch, np, cfg, dev, build_model,
+                                    "plain_attention")
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"full-width {arch} model check failed")
+        torch.cuda.empty_cache()
+        # olmoe serves the llama traffic; granite-moe, twice as deep, half
+        # of it with 16 new tokens each, to keep the script's time
+        reqs, max_new = llama_prompts(np, cfg), 64
+        if arch != MOE_ARCHS[0]:
+            reqs, max_new = reqs[:8], 16
+        result, steps[cfg.name] = engine_run(
+            torch, np, model, common, reqs,
+            ("flash_attention", "decode_attention"), cached=True, max_new=max_new)
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"{arch} engine run failed")
+        moe_launches[arch] = {k: result["launches"][k]
+                              for k in ("flash_attention", "decode_attention")}
+        if arch == MOE_ARCHS[0]:
+            predicted.append(result)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # rag_reranker's encoders, on a card free of the MoE decoders
     encoders = {}
     for arch in ENCODER_ARCHS:
         result, encoders[arch] = encoder_check(torch, np, get_config(arch), dev,
@@ -1174,7 +1377,7 @@ def run():
     del encoders
     gc.collect()
     torch.cuda.empty_cache()
-    plan_phase(torch, flash_ops, checks, engines, steps)
+    plan_phase(torch, flash_ops, checks, predicted, steps)
 
     summary = []
     for name in common.KERNELS:
@@ -1193,8 +1396,12 @@ def run():
             "graph_ms": row["kernel_graph_ms"],
             "library_graph_ms": row.get("library_graph_ms"),
             "shape": row["shape"], "dtype": row["dtype"]})
-    # the flash kernel's launches on the encoder path (its row's
-    # ``launches`` stays the llama engine's)
+    # the attention kernels' launches on the MoE and encoder paths (their
+    # rows' ``launches`` stay the llama engine's)
+    for row in summary:
+        if row["name"] in ("flash_attention", "decode_attention"):
+            row["launches_moe"] = {arch: n[row["name"]]
+                                   for arch, n in moe_launches.items()}
     next(r for r in summary if r["name"] == "flash_attention")[
         "launches_encode"] = encode_launches
     emit({"kernels": summary})

@@ -48,9 +48,11 @@ def load_reference_params(model, params: Mapping):
     ``params`` is the tree of ``build_model(cfg).init(key)`` with numpy
     leaves.  The stacked layer leaves are split along their leading ``L``:
     a layer's own tensors (``ln1``, ``ln2``) and its groups of tensors
-    (``attn``/``mlp`` or ``tm``/``cm``) take the reference's names.  Values
-    are cast to each weight's dtype (the model's, or f32 for the rwkv ``w0``
-    and ``u``); with equal dtypes the copy is bit-exact.
+    (``attn``/``mlp`` or ``tm``/``cm``) take the reference's names; an MoE
+    model's ``mlp`` group is its router and (E, ...) experts.  Values are
+    cast to each weight's dtype (the model's, or f32 for the rwkv ``w0``
+    and ``u`` and the MoE ``router``); with equal dtypes the copy is
+    bit-exact.
     """
     if not isinstance(model, (DenseLM, RWKVLM, EncoderLM)):
         raise TypeError(f"no bridge for {type(model).__name__}")

@@ -1,14 +1,18 @@
 """Serve a model with seeded random weights through the port's engine --
 continuous batching, slot KV cache with prefix reuse (or rwkv's recurrent
 state), greedy decode.  The counterpart of ``examples/serve_model.py``.
-An encoder (e5-base-v2, reranker-minilm) has no engine: each request is
+The MoE decoders (olmoe-1b-7b, granite-moe-3b-a800m) serve through the
+dense decoders' ``DenseLM`` and engine.  An encoder (e5-base-v2, reranker-minilm) has no engine: each request is
 one ``prefill`` call that returns its pooled embedding.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch llama-3.1-8b
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch granite-moe-3b-a800m
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch e5-base-v2
     PYTHONPATH=src python -m repro_torch.launch.serve_model --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch olmoe-1b-7b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch reranker-minilm --reduced --device cpu
 
 Runs on the card unless ``--device cpu`` is given.

@@ -1,9 +1,11 @@
-"""Dense decoder-only LM and encoder (PyTorch), counterparts of
+"""Dense and MoE decoder-only LM and encoder (PyTorch), counterparts of
 ``make_dense_lm`` and ``make_encoder``.
 
 :class:`DenseLM` holds the weights of ``repro.models.transformer.dense_lm_defs``
 in the same ``(d_in, d_out)`` layout, one :class:`DecoderLayer` per layer
-(a Python loop over layers replaces ``lax.scan``), and serves:
+(a Python loop over layers replaces ``lax.scan``); an MoE config (olmoe,
+granite-moe) gives each layer the routed experts of ``models/moe.py`` in
+place of the dense MLP.  It serves:
 
     prefill(tokens[, lengths])         -> (last logits, (k, v))
     decode_step(cache, tokens, pos)    -> (logits, cache)
@@ -35,6 +37,7 @@ from repro_torch.models.layers import (attention_block_decode,
                                        bidirectional_attention, embed_lookup,
                                        lm_head_logits, matmul, mlp_block,
                                        rms_norm)
+from repro_torch.models.moe import moe_block, moe_shapes
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -47,9 +50,10 @@ def _param(shape, device, dtype) -> nn.Parameter:
 @torch.no_grad()
 def init_like_reference(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight as the reference's ``ParamDef.instantiate`` does:
-    normal * 1/sqrt(fan_in) with fan_in = shape[-2] (the embedding at
-    scale 1.0), norms and biases zeros.  Each tensor is drawn on the
-    device in f32 and cast to the weights' dtype, one at a time."""
+    normal * 1/sqrt(fan_in) with fan_in = shape[-2] (d for an MoE router
+    and its (E, d, f) experts, f for (E, f, d); the embedding at scale
+    1.0), norms and biases zeros.  Each tensor is drawn on the device in
+    f32 and cast to its own dtype, one at a time."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if p.ndim == 1:  # ln1/ln2/final_norm/bq/bk/bv
@@ -64,7 +68,8 @@ def init_like_reference(model: nn.Module, generator: torch.Generator) -> None:
 
 class _Block(nn.Module):
     """One layer's weights, named as the reference names them: ``ln1``,
-    ``attn`` (wq, wk, wv, wo and the optional biases), ``ln2``, ``mlp``."""
+    ``attn`` (wq, wk, wv, wo and the optional biases), ``ln2``, ``mlp``
+    (the dense MLP, or an MoE model's router and experts)."""
 
     def __init__(self, cfg: ArchConfig, device, dtype):
         super().__init__()
@@ -76,12 +81,23 @@ class _Block(nn.Module):
         self.attn = nn.ParameterDict(
             {k: _param(s, device, dtype) for k, s in attn.items()})
         self.ln2 = _param((d,), device, dtype)
-        if cfg.activation in ("swiglu", "geglu"):
-            mlp = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+        if cfg.is_moe:  # the router stays f32 whatever the model's dtype
+            mlp = {k: _param(s, device, torch.float32 if f32 else dtype)
+                   for k, (s, f32) in moe_shapes(cfg).items()}
         else:
-            mlp = {"w_up": (d, f), "w_down": (f, d)}
-        self.mlp = nn.ParameterDict(
-            {k: _param(s, device, dtype) for k, s in mlp.items()})
+            shapes = {"w_up": (d, f), "w_down": (f, d)}
+            if cfg.activation in ("swiglu", "geglu"):
+                shapes = {"w_gate": (d, f), **shapes}
+            mlp = {k: _param(s, device, dtype) for k, s in shapes.items()}
+        self.mlp = nn.ParameterDict(mlp)
+
+    def _ffn(self, x, cfg):
+        """The reference's ``_ffn``: the routed experts of an MoE model,
+        else the dense MLP."""
+        x = rms_norm(x, self.ln2, cfg.norm_eps)
+        if cfg.is_moe:
+            return moe_block(self.mlp, x, cfg)
+        return mlp_block(self.mlp, x, cfg.activation)
 
 
 class DecoderLayer(_Block):
@@ -89,22 +105,18 @@ class DecoderLayer(_Block):
         h, kv = attention_block_prefill(
             self.attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg, plain=plain)
         x = x + h
-        x = x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
-                          cfg.activation)
-        return x, kv
+        return x + self._ffn(x, cfg), kv
 
     def decode(self, x, kv, pos, cfg, plain):
         h, kv = attention_block_decode(
             self.attn, rms_norm(x, self.ln1, cfg.norm_eps), kv, pos, cfg,
             plain=plain)
         x = x + h
-        x = x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
-                          cfg.activation)
-        return x, kv
+        return x + self._ffn(x, cfg), kv
 
 
 class DenseLM(nn.Module):
-    """A dense GQA/RoPE decoder on one device.
+    """A GQA/RoPE decoder, dense or MoE, on one device.
 
     The weights start at zero; ``init_params`` draws them from a generator,
     and ``repro_torch.bridge.load_reference_params`` copies them from the
@@ -200,8 +212,7 @@ class EncoderLayer(_Block):
                                 positions, cfg)
         h = bidirectional_attention(q, k, v, plain=plain)
         x = x + matmul(h.reshape(B, S, cfg.q_dim), self.attn["wo"])
-        return x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
-                             cfg.activation)
+        return x + self._ffn(x, cfg)
 
 
 class EncoderLM(nn.Module):

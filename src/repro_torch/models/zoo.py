@@ -9,7 +9,6 @@ from repro_torch.models.transformer import DenseLM, EncoderLM
 
 # family -> the ROADMAP.md queue-A item that ports it
 _LATER = {
-    "moe": "A8 (models/moe.py::moe_block)",
     "hybrid": "A10 (models/hymba.py)",
     "vlm": "A11 (models/vision.py)",
     "audio": "A11 (models/encdec.py)",
@@ -18,7 +17,7 @@ _LATER = {
 
 def build_model(cfg: ArchConfig, *, device="cuda",
                 dtype: torch.dtype = torch.bfloat16):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DenseLM(cfg, device=device, dtype=dtype)
     if cfg.family == "ssm":
         return RWKVLM(cfg, device=device, dtype=dtype)

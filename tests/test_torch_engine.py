@@ -114,7 +114,11 @@ def _serve(eng, prompts, max_new, req_cls):
     return {r.req_id: r for r in eng.run_to_completion()}
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "llama-3.2-1b", "gemma-7b"])
+MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "llama-3.2-1b", "gemma-7b"]
+                         + MOE_ARCHS)
 def test_engine_matches_reference_step_by_step(arch):
     cfg, bundle, params, model = _pair(arch)
     rng = np.random.default_rng(0)
@@ -132,7 +136,7 @@ def test_engine_matches_reference_step_by_step(arch):
     assert eng.stats == jeng.stats
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2.5-3b-agent"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2.5-3b-agent"] + MOE_ARCHS)
 def test_engine_batched_equals_solo(arch):
     cfg, _, _, model = _pair(arch)
     rng = np.random.default_rng(1)
@@ -178,6 +182,32 @@ def test_engine_prefix_reuse_warm_equals_cold(qwen):
     assert warm.generated == cold.generated
     _assert_close_to_scale(log[len(ext) - warm.cached_tokens - 1][1],
                            cold_log[0][1], BF16_TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_prefix_hit_matches_the_reference_step_by_step(arch):
+    """A prompt that extends a finished one hits the prefix cache in both
+    engines (the reference matches whole cached sequences), so both run
+    its suffix token at a time over the copied KV.  Capacity depends on S,
+    so that warm run need not equal a cold prefill of the same prompt; it
+    equals the reference's warm run, call by call."""
+    cfg, bundle, params, model = _pair(arch)
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, cfg.vocab_size, size=20).astype(np.int32)
+    ext = np.concatenate(
+        [base, rng.integers(0, cfg.vocab_size, size=9).astype(np.int32)])
+
+    jeng = JaxServingEngine(bundle, params, slots=2, max_len=64)
+    jlog = _record_jax(jeng)
+    ref = [_serve(jeng, [p], 4, JaxServeRequest)[0] for p in (base, ext)]
+    eng = _engine(model, slots=2, max_len=64)
+    log = _record_port(eng)
+    ours = [_serve(eng, [p], 4, ServeRequest)[0] for p in (base, ext)]
+    assert ref[1].cached_tokens == ours[1].cached_tokens == len(base)
+    assert [r.generated for r in ours] == [r.generated for r in ref]
+    # the same calls in the same order: ext's suffix is 9 batch-1 decodes
+    _assert_logs_match(log, jlog)
+    assert eng.stats == jeng.stats
 
 
 def test_engine_slot_reuse_invalidates_stale_entries(qwen):

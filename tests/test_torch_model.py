@@ -1,9 +1,11 @@
-"""The port's dense LM against the JAX bundle on the same weights.
+"""The port's dense and MoE LM against the JAX bundle on the same weights.
 
 Weights come from ``build_model(cfg).init(jax.random.key(0))`` and cross
 through ``repro_torch.bridge`` as numpy arrays.  Logits are compared in f32
 params with the bf16 KV cache (the reference upcasts every dot on the CPU,
 so f32 params are where the two compute the same function) within 1e-4.
+The MoE models (olmoe-1b-7b, granite-moe-3b-a800m) route every token as
+the reference does, so their logits meet the same bound.
 """
 import jax
 import jax.numpy as jnp
@@ -19,14 +21,19 @@ from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import build_model
 
 TOL = 1e-4
-ARCHS = ["llama-3.2-1b", "qwen2.5-3b-agent", "qwen2.5-3b", "gemma-7b"]
+MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
+ARCHS = ["llama-3.2-1b", "qwen2.5-3b-agent", "qwen2.5-3b", "gemma-7b"] + MOE_ARCHS
 
 
 def _pair(arch, jax_dtype=jnp.float32, torch_dtype=torch.float32):
+    """The reference bundle and params and the port's model with those
+    params.  f32 casts every leaf; bf16 keeps the reference's own dtypes
+    (bf16, and f32 where a ``ParamDef`` names it, as the MoE router)."""
     jcfg = jax_reduced_config(jax_get_config(arch))
     bundle = jax_build_model(jcfg)
-    params = jax.tree.map(lambda a: a.astype(jax_dtype),
-                          bundle.init(jax.random.key(0)))
+    params = bundle.init(jax.random.key(0))
+    if jax_dtype != jnp.bfloat16:
+        params = jax.tree.map(lambda a: a.astype(jax_dtype), params)
     cfg = reduced_config(get_config(arch))
     assert cfg.to_dict() == jcfg.to_dict()
     model = build_model(cfg, device="cpu", dtype=torch_dtype)
@@ -46,14 +53,18 @@ def test_bridge_is_bit_exact_on_bf16_params(arch):
     assert ref["embed"].dtype.name == "bfloat16"
 
     def bits(t):
-        return t.view(torch.int16).numpy()
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32).numpy()
+
+    def ref_bits(a):
+        return a.view(np.int16 if a.itemsize == 2 else np.int32)
 
     np.testing.assert_array_equal(bits(model.embed), ref["embed"].view(np.int16))
     for i, layer in enumerate(model.layers):
         for group in ("attn", "mlp"):
             for key, leaf in ref["layers"][group].items():
-                np.testing.assert_array_equal(
-                    bits(getattr(layer, group)[key]), leaf[i].view(np.int16))
+                mine = getattr(layer, group)[key]
+                assert mine.element_size() == leaf.itemsize, key
+                np.testing.assert_array_equal(bits(mine), ref_bits(leaf[i]))
         np.testing.assert_array_equal(bits(layer.ln1),
                                       ref["layers"]["ln1"][i].view(np.int16))
 
@@ -106,8 +117,26 @@ def test_decode_with_scalar_position_matches_reference():
         _close(tl, jl)
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-1b", "qwen2.5-3b"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_with_scalar_position_matches_reference(arch):
+    cfg, bundle, params, model = _pair(arch)
+    rng = np.random.default_rng(1)
+    B, Smax = 3, 16
+    jcache = bundle.init_cache(B, Smax)
+    tcache = model.init_cache(B, Smax)
+    for pos in range(5):
+        tok = rng.integers(0, cfg.vocab_size, size=B).astype(np.int32)
+        jl, jcache = bundle.decode_step(params, jcache, jnp.asarray(tok),
+                                        jnp.asarray(pos, jnp.int32))
+        tl, tcache = model.decode_step(tcache, torch.from_numpy(tok), pos)
+        _close(tl, jl)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-1b", "qwen2.5-3b"] + MOE_ARCHS)
 def test_prefill_with_lengths_matches_reference(arch):
+    """The pad tokens are routed too, and an MoE layer's capacity comes
+    from the padded S, as in the reference; the gathered row is the last
+    valid token's."""
     cfg, bundle, params, model = _pair(arch)
     rng = np.random.default_rng(2)
     tokens = rng.integers(0, cfg.vocab_size, size=(3, 9)).astype(np.int32)
@@ -116,6 +145,8 @@ def test_prefill_with_lengths_matches_reference(arch):
                                     "lengths": jnp.asarray(lengths)})
     tl, _ = model.prefill(torch.from_numpy(tokens), torch.from_numpy(lengths))
     _close(tl, jl)
+    if cfg.is_moe:  # a shorter S has another capacity
+        return
     # the gathered row is the last valid token's: a shorter prompt alone
     # gives the same logits
     solo, _ = model.prefill(torch.from_numpy(tokens[1:2, :4]))
@@ -155,11 +186,22 @@ def test_registry_serves_every_llm_of_the_paper_workflows():
         assert hasattr(model, "prefill"), name
 
 
+def test_registry_entries_equal_the_reference():
+    """Every config the port registers, the MoE decoders included, is the
+    reference's field for field."""
+    from repro.configs.registry import REGISTRY as JAX_REGISTRY
+    from repro_torch.configs.registry import ASSIGNED, REGISTRY
+
+    assert set(MOE_ARCHS) <= set(ASSIGNED)
+    for name, cfg in REGISTRY.items():
+        assert cfg.to_dict() == JAX_REGISTRY[name].to_dict(), name
+
+
 def test_other_families_name_their_roadmap_item():
     from repro_torch.configs.base import ArchConfig
 
-    moe = ArchConfig(name="m", family="moe", num_layers=1, d_model=8,
-                     num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
-                     num_experts=2, experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_model(moe, device="cpu")
+    hybrid = ArchConfig(name="h", family="hybrid", num_layers=1, d_model=8,
+                        num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
+                        ssm_state=4)
+    with pytest.raises(NotImplementedError, match="A10"):
+        build_model(hybrid, device="cpu")
