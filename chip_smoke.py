@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
-``src/repro_torch``.  It drives four serving paths, llama-3.1-8b through
+``src/repro_torch``.  It drives five serving paths, llama-3.1-8b through
 the two attention kernels, rwkv6-7b through the two WKV6 kernels (the chunked
 tensor-core kernel for bf16 prefill, the scan for decode and f32), the MoE
 decoders olmoe-1b-7b and granite-moe-3b-a800m through the attention
-kernels and the routed experts of ``models/moe.py``, and rag_reranker's two
-encoders through the flash kernel's non-causal mode, and prints one JSON
-object per phase:
+kernels and the routed experts of ``models/moe.py``, hymba-1.5b through the
+attention kernels' sliding-window mode and ring decode beside its Mamba
+heads, and rag_reranker's two encoders through the flash kernel's
+non-causal mode, and prints one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
 2. ``build``: the four kernels compiled from ``src/repro_torch/csrc`` for
@@ -51,7 +52,16 @@ object per phase:
    its ``engine`` run (the llama traffic, exact launch counts), and
    ``model_check`` and a short ``engine`` run (8 requests of 16 tokens)
    for granite-moe-3b-a800m;
-8. with the MoE models freed, ``encoder_check`` for e5-base-v2 and
+8. with the MoE models freed, ``kernel_checks`` of the attention kernels at
+   hymba-1.5b's heads (H = 25, KV = 5, D = 64: flash at window 1024 over
+   S = 2048 and S = 1500, at window 0, and in f32; decode over a
+   1024-entry ring and a 4096-entry cache), then ``model_check`` for
+   hymba-1.5b at full width and depth over a 1500-token prompt (past the
+   window and not a multiple of it, so the decode steps write into a
+   wrapped ring) and its ``engine`` run: the rwkv traffic, no prefix reuse,
+   exactly 32 flash launches per prefill and 32 decode launches per model
+   decode call;
+9. with hymba freed, ``encoder_check`` for e5-base-v2 and
    reranker-minilm (full width and depth, seeded weights, f32 and bf16,
    a 512- and a 137-token prompt; the pooled embeddings through the
    kernel and through the plain version), then ``encode``: rag_reranker's
@@ -60,16 +70,16 @@ object per phase:
    tokens/s, mean and p99 ms per call, peak memory, the flash launch
    count (one per layer and call) and a ``torch.profiler`` breakdown of
    one query's calls;
-9. with the encoders freed, ``plan``: Scepsy's planner
+10. with the encoders freed, ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
    its allocations, predicted latency and throughput and its placement,
    which must validate, keep every TP group inside one NVLink domain and
    fit every model in the h100 class's HBM (itself within the card's
-   memory); the host's Hopper tile plan of every flash shape of phase 3
-   against the plan the kernel library reports (``flash_attention_plan``)
+   memory); the host's Hopper tile plan of every flash shape the kernel
+   checks ran against the plan the kernel library reports (``flash_attention_plan``)
    with the card's SM count; and the cost model's decode-step and prefill
-   times (h100, tp=1) at the llama, rwkv and olmoe engine phases'
+   times (h100, tp=1) at the llama, rwkv, olmoe and hymba engine phases'
    batches, contexts and prompts beside those phases' measured times
    (printed, not checked);
 
@@ -114,6 +124,10 @@ BF16_ERR_RATIO = 1.25
 ARCH = "llama-3.1-8b"
 RWKV_ARCH = "rwkv6-7b"
 MOE_ARCHS = ("olmoe-1b-7b", "granite-moe-3b-a800m")
+HYMBA_ARCH = "hymba-1.5b"
+# past hymba's 1024-token window and not a multiple of it: prefill masks by
+# the window and the decode steps write into a wrapped ring
+HYMBA_PROMPT = 1500
 ENCODER_ARCHS = ("e5-base-v2", "reranker-minilm")
 SEED = 0
 
@@ -547,6 +561,17 @@ MOE_FLASH_CASES = [(1, 1000, 16, 16, 128, 0, "bfloat16"),
                    (1, 1000, 24, 8, 64, 0, "bfloat16")]
 MOE_DECODE_CASES = [(16, 16, 128, 4096, DECODE_LENS, "bfloat16"),
                     (24, 8, 64, 4096, DECODE_LENS, "bfloat16")]
+# hymba-1.5b's heads (H = 25 over KV = 5, G = 5, D = 64): prefill at window
+# 1024 over S > W (a multiple of W and not), its 3 full-attention layers at
+# window 0, and f32; decode over the engine's 8 slots on a 1024-entry ring
+# (lengths min(pos + 1, W)) and on a full 4096-entry cache
+HYMBA_FLASH_CASES = [(1, 2048, 25, 5, 64, 1024, "bfloat16"),
+                     (1, 1500, 25, 5, 64, 1024, "bfloat16"),
+                     (1, 2048, 25, 5, 64, 0, "bfloat16"),
+                     (1, 1500, 25, 5, 64, 1024, "float32")]
+RING_LENS = [0, 1, 77, 1000, 1024, 1024, 1024, 1024]
+HYMBA_DECODE_CASES = [(25, 5, 64, 1024, RING_LENS, "bfloat16"),
+                      (25, 5, 64, 4096, DECODE_LENS, "bfloat16")]
 # rwkv6-7b: H=64, D=64; prompts of the engine phase are 256-2048 tokens,
 # decode runs S=1 over its 8 slots.  bf16 prompts (S >= 2) go to the
 # chunked kernel, decode and f32 to the scan.
@@ -581,16 +606,20 @@ SOURCES = {
 
 
 def _logits_run(torch, model, prompt, steps):
-    """Logits (9, 1, vocab) of a 1000-token prefill and 8 decode steps."""
-    logits, cache = model.prefill(prompt)
-    if isinstance(cache, tuple):  # dense KV: into a 1024-position cache
-        k, v = cache
-        cache = model.init_cache(1, 1024)
-        cache[0][:, :, :, :1000] = k
-        cache[1][:, :, :, :1000] = v
+    """Logits (1 + steps, 1, vocab) of a prefill of the S-token prompt and
+    the decode steps after it.  The prefill's cache goes into a decode
+    cache of S + steps rounded up to 512 positions through the engine's
+    ``_merge_slot`` (for llama's 1000 tokens, 1024 positions)."""
+    from repro_torch.serving.engine import _merge_slot
+
+    S = prompt.shape[1]
+    logits, small = model.prefill(prompt)
+    cache = model.init_cache(1, -(-(S + len(steps)) // 512) * 512)
+    _merge_slot(cache, small, 0)
+    del small
     out = [logits]
     for i, tok in enumerate(steps):
-        logits, cache = model.decode_step(cache, tok, [1000 + i])
+        logits, cache = model.decode_step(cache, tok, [S + i])
         out.append(logits)
     return torch.stack(out).float()
 
@@ -663,10 +692,11 @@ def moe_stats(torch, moe, cfg, calls, router, x_shape, dev):
             "router_f32_under_tf32": bool(torch.equal(ieee, under_tf32))}
 
 
-def model_check(torch, np, cfg, dev, build_model, plain_attr):
-    """Full-width prefill + decode through the kernels and through the
-    plain versions (``model.<plain_attr> = True``), in f32 and in bf16
-    weights drawn from one seed.
+def model_check(torch, np, cfg, dev, build_model, plain_attr,
+                prompt_tokens=1000):
+    """Full-width prefill of ``prompt_tokens`` + 8 decode steps through the
+    kernels and through the plain versions (``model.<plain_attr> = True``),
+    in f32 and in bf16 weights drawn from one seed.
 
     In f32 the two differ only by the kernels' arithmetic, and that
     difference is held to MODEL_REL_TOL_F32: on llama-3.1-8b the sound
@@ -686,7 +716,7 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr):
     from repro_torch.models import moe
 
     rng = np.random.default_rng(SEED)
-    prompt = rng.integers(0, cfg.vocab_size, size=(1, 1000))
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, prompt_tokens))
     steps = rng.integers(0, cfg.vocab_size, size=(8, 1))
     runs, free, extra = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
@@ -726,7 +756,8 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr):
     plain_err = _rel(torch, runs["bfloat16", True], ref)
     same_argmax = int((runs["bfloat16", False].argmax(-1)
                        == runs["bfloat16", True].argmax(-1)).sum())
-    result = {"phase": "model_check", "arch": cfg.name, "prompt_tokens": 1000,
+    result = {"phase": "model_check", "arch": cfg.name,
+              "prompt_tokens": prompt_tokens,
               "decode_steps": 8, "max_rel_logit_diff_f32": f32_rel,
               "tol_f32": MODEL_REL_TOL_F32, "max_rel_logit_diff_bf16": bf16_rel,
               "bf16_kernel_vs_f32_plain": kernel_err,
@@ -1359,7 +1390,41 @@ def run():
         gc.collect()
         torch.cuda.empty_cache()
 
-    # rag_reranker's encoders, on a card free of the MoE decoders
+    # hymba-1.5b, on a card free of the MoE decoders: the attention kernels
+    # at its heads, window and ring, the model over a prompt past the
+    # window, and its engine (full-layer KV, window rings and Mamba states
+    # in one cache, no prefix reuse)
+    with torch.no_grad():
+        hymba_checks = [check_flash(torch, F, flash_ops, dev, gen, *c)
+                        for c in HYMBA_FLASH_CASES]
+        hymba_checks += [check_decode(torch, F, decode_ops, dev, gen, *c)
+                         for c in HYMBA_DECODE_CASES]
+    emit({"phase": "kernel_checks", "checks": hymba_checks})
+    bad = [c for c in hymba_checks if not c["ok"]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} hymba-shape kernel check(s) out of tolerance")
+    checks += hymba_checks
+    cfg = get_config(HYMBA_ARCH)
+    result, model = model_check(torch, np, cfg, dev, build_model,
+                                "plain_attention", prompt_tokens=HYMBA_PROMPT)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure(f"full-width {HYMBA_ARCH} model check failed")
+    torch.cuda.empty_cache()
+    result, steps[cfg.name] = engine_run(
+        torch, np, model, common, rwkv_prompts(np, cfg),
+        ("flash_attention", "decode_attention"), cached=False)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure(f"{HYMBA_ARCH} engine run failed")
+    hymba_launches = {k: result["launches"][k]
+                      for k in ("flash_attention", "decode_attention")}
+    predicted.append(result)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # rag_reranker's encoders, on a card free of hymba
     encoders = {}
     for arch in ENCODER_ARCHS:
         result, encoders[arch] = encoder_check(torch, np, get_config(arch), dev,
@@ -1396,12 +1461,13 @@ def run():
             "graph_ms": row["kernel_graph_ms"],
             "library_graph_ms": row.get("library_graph_ms"),
             "shape": row["shape"], "dtype": row["dtype"]})
-    # the attention kernels' launches on the MoE and encoder paths (their
-    # rows' ``launches`` stay the llama engine's)
+    # the attention kernels' launches on the MoE, hymba and encoder paths
+    # (their rows' ``launches`` stay the llama engine's)
     for row in summary:
         if row["name"] in ("flash_attention", "decode_attention"):
             row["launches_moe"] = {arch: n[row["name"]]
                                    for arch, n in moe_launches.items()}
+            row["launches_hymba"] = hymba_launches[row["name"]]
     next(r for r in summary if r["name"] == "flash_attention")[
         "launches_encode"] = encode_launches
     emit({"kernels": summary})

@@ -14,6 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.models.hymba import HymbaLM, layer_groups
 from repro_torch.models.rwkv import RWKVLM
 from repro_torch.models.transformer import DenseLM, EncoderLM
 
@@ -40,24 +41,75 @@ def _check_keys(have: Mapping, want, where: str) -> None:
                          f"model keys {sorted(want)}")
 
 
+def _copy_layer(layer, tree: Mapping, pick, where: str) -> None:
+    """Copy one layer's leaves from ``tree``, each through ``pick`` (the
+    layer's row of a stacked leaf, or the leaf itself): the layer's own
+    tensors (``ln1``, ``ln2``, ...) and its groups of tensors (``attn``,
+    ``mlp``, ``mamba``, ``tm``/``cm``), by the reference's names."""
+    tensors = [name for name, _ in layer.named_parameters(recurse=False)]
+    groups = [name for name, _ in layer.named_children()]
+    _check_keys(tree, tensors + groups, where)
+    for name in tensors:
+        _copy(getattr(layer, name), pick(tree[name]), f"{where}.{name}")
+    for group in groups:
+        mine = getattr(layer, group)
+        _check_keys(tree[group], mine.keys(), f"{where}.{group}")
+        for key, leaf in tree[group].items():
+            _copy(mine[key], pick(leaf), f"{where}.{group}.{key}")
+
+
+def _layer_trees(model, params: Mapping):
+    """(layer, tree, pick, where) for every layer of ``model``.  The dense,
+    rwkv and encoder trees stack all layers under ``layers``; hymba's
+    ``groups`` follow ``layer_groups(cfg)``: a full-attention group is one
+    unstacked layer, a sliding-window group ``count`` layers stacked along
+    a leading dim."""
+    if not isinstance(model, HymbaLM):
+        stack = params["layers"]
+        n_layers = len(model.layers)
+        for name, leaf in stack.items():
+            if not isinstance(leaf, Mapping) and np.shape(leaf)[0] != n_layers:
+                raise ValueError(f"layers.{name}: {np.shape(leaf)[0]} "
+                                 f"layers, model has {n_layers}")
+        return [(layer, stack, lambda a, i=i: a[i], f"layers[{i}]")
+                for i, layer in enumerate(model.layers)]
+    plan = layer_groups(model.cfg)
+    groups = params["groups"]
+    if len(groups) != len(plan):
+        raise ValueError(f"groups: {len(groups)} in the reference, model has "
+                         f"{len(plan)} {plan}")
+    out, first = [], 0
+    for g, ((kind, count), tree) in enumerate(zip(plan, groups)):
+        if kind == "swa" and np.shape(tree["ln1"])[0] != count:
+            raise ValueError(f"groups[{g}]: {np.shape(tree['ln1'])[0]} "
+                             f"layers, model has {count}")
+        for j in range(count):
+            pick = (lambda a: a) if kind == "full" else (lambda a, j=j: a[j])
+            out.append((model.layers[first + j], tree, pick,
+                        f"groups[{g}][{j}]"))
+        first += count
+    return out
+
+
 @torch.no_grad()
 def load_reference_params(model, params: Mapping):
-    """Copy a reference parameter tree into a ``DenseLM``, ``RWKVLM`` or
-    ``EncoderLM``.
+    """Copy a reference parameter tree into a ``DenseLM``, ``RWKVLM``,
+    ``EncoderLM`` or ``HymbaLM``.
 
     ``params`` is the tree of ``build_model(cfg).init(key)`` with numpy
-    leaves.  The stacked layer leaves are split along their leading ``L``:
-    a layer's own tensors (``ln1``, ``ln2``) and its groups of tensors
-    (``attn``/``mlp`` or ``tm``/``cm``) take the reference's names; an MoE
-    model's ``mlp`` group is its router and (E, ...) experts.  Values are
-    cast to each weight's dtype (the model's, or f32 for the rwkv ``w0``
-    and ``u`` and the MoE ``router``); with equal dtypes the copy is
-    bit-exact.
+    leaves.  Each layer's leaves are taken from the layer stack (its row of
+    every stacked leaf) or, for hymba, from its group (``_layer_trees``); a
+    layer's own tensors and its groups of tensors take the reference's
+    names; an MoE model's ``mlp`` group is its router and (E, ...) experts.
+    Values are cast to each weight's dtype (the model's, or f32 for the
+    rwkv ``w0`` and ``u``, the MoE ``router`` and hymba's ``a_log``); with
+    equal dtypes the copy is bit-exact.
     """
-    if not isinstance(model, (DenseLM, RWKVLM, EncoderLM)):
+    if not isinstance(model, (DenseLM, RWKVLM, EncoderLM, HymbaLM)):
         raise TypeError(f"no bridge for {type(model).__name__}")
     lm_head = getattr(model, "lm_head", None)  # an encoder has none
-    top = {"embed", "layers", "final_norm"}
+    top = {"embed", "final_norm",
+           "groups" if isinstance(model, HymbaLM) else "layers"}
     if lm_head is not None:
         top.add("lm_head")
     _check_keys(params, top, "params")
@@ -65,22 +117,6 @@ def load_reference_params(model, params: Mapping):
     _copy(model.final_norm, params["final_norm"], "final_norm")
     if lm_head is not None:
         _copy(lm_head, params["lm_head"], "lm_head")
-    stack = params["layers"]
-    first = model.layers[0]
-    tensors = [name for name, _ in first.named_parameters(recurse=False)]
-    groups = [name for name, _ in first.named_children()]
-    _check_keys(stack, tensors + groups, "layers")
-    n_layers = len(model.layers)
-    for name in tensors:
-        if np.shape(stack[name])[0] != n_layers:
-            raise ValueError(f"layers.{name}: {np.shape(stack[name])[0]} "
-                             f"layers, model has {n_layers}")
-    for i, layer in enumerate(model.layers):
-        for name in tensors:
-            _copy(getattr(layer, name), stack[name][i], f"layers.{name}[{i}]")
-        for group in groups:
-            mine = getattr(layer, group)
-            _check_keys(stack[group], mine.keys(), f"layers.{group}")
-            for key, leaf in stack[group].items():
-                _copy(mine[key], leaf[i], f"layers.{group}.{key}[{i}]")
+    for layer, tree, pick, where in _layer_trees(model, params):
+        _copy_layer(layer, tree, pick, where)
     return model

@@ -1,9 +1,9 @@
 """Registry of the architectures the port serves (``--arch <id>``).
 
 The port registers the dense decoders, the MoE decoders olmoe-1b-7b and
-granite-moe-3b-a800m, rwkv6-7b and the two encoders of rag_reranker; the
-other families of the reference registry join with the slices that port
-their models.
+granite-moe-3b-a800m, rwkv6-7b, the hybrid hymba-1.5b and the two encoders
+of rag_reranker; the other families of the reference registry join with
+the slices that port their models.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
 from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE
+from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA
 from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
 from repro_torch.configs.paper_workloads import PAPER_LLMS
 from repro_torch.configs.qwen2_5_3b import CONFIG as QWEN2_5_3B
@@ -22,7 +23,7 @@ from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6
 
 ASSIGNED: Dict[str, ArchConfig] = {
     c.name: c for c in (GEMMA_7B, GLM4_9B, QWEN2_7B, QWEN2_5_3B, RWKV6, OLMOE,
-                        GRANITE_MOE)
+                        GRANITE_MOE, HYMBA)
 }
 
 REGISTRY: Dict[str, ArchConfig] = {**ASSIGNED, **PAPER_LLMS}

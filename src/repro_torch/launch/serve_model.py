@@ -1,6 +1,7 @@
 """Serve a model with seeded random weights through the port's engine --
 continuous batching, slot KV cache with prefix reuse (or rwkv's recurrent
-state), greedy decode.  The counterpart of ``examples/serve_model.py``.
+state, or hymba's cache of full-layer KV, window rings and Mamba states),
+greedy decode.  The counterpart of ``examples/serve_model.py``.
 The MoE decoders (olmoe-1b-7b, granite-moe-3b-a800m) serve through the
 dense decoders' ``DenseLM`` and engine.  An encoder (e5-base-v2, reranker-minilm) has no engine: each request is
 one ``prefill`` call that returns its pooled embedding.
@@ -9,10 +10,12 @@ one ``prefill`` call that returns its pooled embedding.
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch olmoe-1b-7b
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch hymba-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch e5-base-v2
     PYTHONPATH=src python -m repro_torch.launch.serve_model --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch rwkv6-7b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch olmoe-1b-7b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_model --arch hymba-1.5b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch reranker-minilm --reduced --device cpu
 
 Runs on the card unless ``--device cpu`` is given.

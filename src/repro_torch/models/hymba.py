@@ -1,0 +1,404 @@
+"""Hymba (hymba-1.5b) in PyTorch, counterpart of ``repro.models.hymba``.
+
+Each layer runs, on the same normed input, GQA attention heads (a sliding
+window on most layers; ``cfg.full_attn_layers`` attend over the whole
+prefix) and Mamba-style selective-scan heads (state ``cfg.ssm_state``),
+fuses them as ``x + (norm(attn) + norm(ssm)) / 2`` and ends with a SwiGLU
+MLP.  Attention goes through ``layers.attention_block_prefill`` and
+``attention_block_decode``, so through the port's flash and decode
+kernels; the Mamba heads are plain PyTorch, as the reference's are jnp
+(no Pallas kernel backs them).
+
+:class:`HymbaLM` holds one :class:`HymbaLayer` per layer in a flat list
+(the reference groups them only for ``lax.scan``) and serves:
+
+    prefill(tokens)                   -> (last logits, prefill cache)
+    decode_step(cache, tokens, pos)   -> (logits, cache)
+    init_cache(batch, max_len)        -> cache
+
+The cache is a dict of stacked leaves:
+
+    k_full, v_full  (F, B, KV, max_len, D)       bf16, the F full layers
+    k_swa, v_swa    (W_n, B, KV, min(W, max_len), D)  bf16, ring of the
+                                                 sliding-window layers
+    conv            (L, B, h, CONV_K - 1)        the weights' dtype
+    ssm             (L, B, h, ssm_state)         f32
+
+A prefill cache has the same keys, with S positions in ``k_full`` and
+min(S, W) in ``k_swa``.  ``decode_step`` updates the cache in place.
+
+Deliberate divergences from the reference:
+
+* position p of a sliding-window layer sits at ring index ``p % W`` after
+  a prefill, as decode writes it; the reference keeps the last W rows at
+  0..W-1, which breaks the ring once S > W and S % W != 0;
+* the Mamba prefill takes any S >= 1 (a shorter last chunk); the
+  reference asserts S % 128 == 0 once S > 128.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (ACC_DTYPE, attention_block_decode,
+                                       attention_block_prefill, embed_lookup,
+                                       lm_head_logits, matmul, mlp_block,
+                                       rms_norm)
+from repro_torch.models.rwkv import ParamDef, _param, instantiate_all, model_defs
+from repro_torch.models.transformer import CACHE_DTYPE
+
+SSM_CHUNK = 128
+# tokens whose chunks one step of the prefill scan takes at once: 16
+# chunks, (B, 2048, h, n) f32 tensors, 210 MB each at hymba-1.5b's widths
+SCAN_BLOCK = 16 * SSM_CHUNK
+CONV_K = 4
+DT_RANK = 48
+
+
+# ---------------------------------------------------------------------------
+# Mamba head block
+# ---------------------------------------------------------------------------
+
+
+def mamba_defs(cfg: ArchConfig) -> dict:
+    d, h, n = cfg.d_model, cfg.q_dim, cfg.ssm_state
+    return {
+        "w_in": ParamDef((d, 2 * h)),
+        "conv_w": ParamDef((h, CONV_K), scale=0.5),
+        "w_xdbc": ParamDef((h, DT_RANK + 2 * n)),
+        "w_dt": ParamDef((DT_RANK, h), scale=0.1),
+        "dt_bias": ParamDef((h,), "zeros"),
+        "a_log": ParamDef((h, n), "decay_init", f32=True),
+        "d_skip": ParamDef((h,), "ones"),
+        "w_out": ParamDef((h, d)),
+    }
+
+
+def _ssm_inputs(p, x: torch.Tensor, n: int):
+    """dt (softplus, f32), B, C (f32) and A = -exp(a_log) of the conv
+    output ``x`` (..., h)."""
+    dbc = matmul(x, p["w_xdbc"])
+    dt = F.softplus(matmul(dbc[..., :DT_RANK], p["w_dt"]).to(ACC_DTYPE)
+                    + p["dt_bias"].to(ACC_DTYPE))
+    Bc = dbc[..., DT_RANK:DT_RANK + n].to(ACC_DTYPE)
+    Cc = dbc[..., DT_RANK + n:].to(ACC_DTYPE)
+    return dt, Bc, Cc, -torch.exp(p["a_log"].to(ACC_DTYPE))
+
+
+def _scan_chunks(decay: torch.Tensor, add: torch.Tensor):
+    """Inclusive scan of s_t = decay_t * s_{t-1} + add_t along dim 1 of
+    (N, C, h, n) f32 tensors, each of the N chunks from s = 0: returns (the
+    product of decays up to t, s_t).  Log-depth doubling: at shift k each
+    t >= k takes in the combined element k steps back, ceil(log2 C) steps
+    in all.  Decays are multiplied, never divided, so nothing grows past 1
+    (a factoring through exp(-cumsum(dt * A)) would overflow f32 at strong
+    decays)."""
+    C = decay.shape[1]
+    k = 1
+    while k < C:
+        add = torch.cat([add[:, :k], decay[:, k:] * add[:, :-k] + add[:, k:]],
+                        dim=1)
+        decay = torch.cat([decay[:, :k], decay[:, k:] * decay[:, :-k]], dim=1)
+        k *= 2
+    return decay, add
+
+
+def _ssm_scan(x, dt, Bc, Cc, A, d_skip, s0):
+    """y_t = C_t . s_t + d_skip * x_t over s_t = exp(dt_t A) s_{t-1} +
+    dt_t x_t B_t, all f32: x, dt (B, S, h), Bc, Cc (B, S, n), A (h, n),
+    s0 (B, h, n).  Returns y (B, S, h) and the state after the last token.
+
+    Chunks of SSM_CHUNK tokens (min(SSM_CHUNK, S) when shorter), as the
+    reference's; a block of up to SCAN_BLOCK tokens scans all its chunks
+    at once from zero (``_scan_chunks``) and then carries the state from
+    chunk to chunk, so the launches per block do not grow with its chunks.
+    The last chunk is padded with dt = 0 (decay 1, nothing added), which
+    leaves every real token's state as it is."""
+    Bsz, S, h = x.shape
+    n = Bc.shape[-1]
+    C = min(SSM_CHUNK, S)
+    ys = []
+    for b0 in range(0, S, SCAN_BLOCK):
+        T = min(SCAN_BLOCK, S - b0)
+        chunks = -(-T // C)
+        pad = (0, 0, 0, chunks * C - T)
+        dt_b, x_b, B_b, C_b = (F.pad(a[:, b0:b0 + T], pad)
+                               for a in (dt, x, Bc, Cc))
+        decay = torch.exp(dt_b[..., None] * A)  # (B, T', h, n)
+        add = (dt_b * x_b)[..., None] * B_b[:, :, None, :]
+        cum, s_in = _scan_chunks(decay.view(Bsz * chunks, C, h, n),
+                                 add.view(Bsz * chunks, C, h, n))
+        cum = cum.view(Bsz, chunks, C, h, n)
+        s_in = s_in.view(Bsz, chunks, C, h, n)
+        starts = []
+        for c in range(chunks):
+            starts.append(s0)
+            s0 = s_in[:, c, -1] + cum[:, c, -1] * s0
+        s_all = s_in + cum * torch.stack(starts, dim=1)[:, :, None]
+        y = torch.einsum("bkchn,bkcn->bkch", s_all,
+                         C_b.view(Bsz, chunks, C, n))
+        ys.append(y.reshape(Bsz, chunks * C, h)[:, :T])
+    return torch.cat(ys, dim=1) + d_skip * x, s0
+
+
+def mamba_prefill(p, xin: torch.Tensor, conv_state: torch.Tensor,
+                  ssm_state: torch.Tensor):
+    """xin: (B, S, d), any S >= 1; conv_state: (B, h, K-1) in the weights'
+    dtype; ssm_state: (B, h, n) f32.  Returns (out (B, S, d), new conv
+    state (the last K-1 pre-conv inputs), new ssm state f32)."""
+    _, S, _ = xin.shape
+    n = ssm_state.shape[-1]
+    xz = matmul(xin, p["w_in"])
+    h = xz.shape[-1] // 2
+    x, z = xz[..., :h], xz[..., h:]
+    # causal depthwise conv over time, in the weights' dtype
+    x_pad = torch.cat([conv_state.to(x.dtype), x.transpose(1, 2)], dim=-1)
+    w = p["conv_w"]
+    conv = x_pad[:, :, 0:S] * w[None, :, 0:1]
+    for i in range(1, CONV_K):
+        conv = conv + x_pad[:, :, i:i + S] * w[None, :, i:i + 1]
+    new_conv_state = x_pad[:, :, -(CONV_K - 1):]
+    x = F.silu(conv.transpose(1, 2))  # (B, S, h)
+    dt, Bc, Cc, A = _ssm_inputs(p, x, n)
+    y, ssm_state = _ssm_scan(x.to(ACC_DTYPE), dt, Bc, Cc, A,
+                             p["d_skip"].to(ACC_DTYPE),
+                             ssm_state.to(ACC_DTYPE))
+    y = y.to(xin.dtype) * F.silu(z)
+    return matmul(y, p["w_out"]), new_conv_state, ssm_state
+
+
+def mamba_decode(p, xin: torch.Tensor, conv_state: torch.Tensor,
+                 ssm_state: torch.Tensor):
+    """xin: (B, d), one token per row.  Returns (out (B, d), new conv
+    state, new ssm state f32)."""
+    n = ssm_state.shape[-1]
+    xz = matmul(xin, p["w_in"])
+    h = xz.shape[-1] // 2
+    x, z = xz[..., :h], xz[..., h:]
+    x_hist = torch.cat([conv_state.to(x.dtype), x[..., None]], dim=-1)
+    conv = (x_hist * p["conv_w"][None]).sum(dim=-1)
+    x = F.silu(conv)
+    dt, Bc, Cc, A = _ssm_inputs(p, x, n)
+    xf = x.to(ACC_DTYPE)
+    ssm_state = (ssm_state.to(ACC_DTYPE) * torch.exp(dt[..., None] * A)
+                 + (dt * xf)[..., None] * Bc[:, None, :])
+    y = torch.einsum("bhn,bn->bh", ssm_state, Cc)
+    y = y + p["d_skip"].to(ACC_DTYPE) * xf
+    y = y.to(xin.dtype) * F.silu(z)
+    return matmul(y, p["w_out"]), x_hist[:, :, 1:], ssm_state
+
+
+# ---------------------------------------------------------------------------
+# Hymba layer (parallel attention + mamba, mean fusion)
+# ---------------------------------------------------------------------------
+
+
+def hymba_layer_defs(cfg: ArchConfig) -> dict:
+    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    attn = {"wq": ParamDef((d, qd)), "wk": ParamDef((d, kvd)),
+            "wv": ParamDef((d, kvd)), "wo": ParamDef((qd, d))}
+    if cfg.qkv_bias:
+        attn.update(bq=ParamDef((qd,), "zeros"), bk=ParamDef((kvd,), "zeros"),
+                    bv=ParamDef((kvd,), "zeros"))
+    return {
+        "ln1": ParamDef((d,), "zeros"),
+        "attn": attn,
+        "mamba": mamba_defs(cfg),
+        "fuse_na": ParamDef((d,), "zeros"),
+        "fuse_ns": ParamDef((d,), "zeros"),
+        "ln2": ParamDef((d,), "zeros"),
+        "mlp": {"w_gate": ParamDef((d, f)), "w_up": ParamDef((d, f)),
+                "w_down": ParamDef((f, d))},
+    }
+
+
+def layer_groups(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """The reference's ``_groups``: layer indices split into alternating
+    ("full", 1) singletons and ("swa", count) runs, in layer order."""
+    full = set(cfg.full_attn_layers)
+    groups = []
+    i = 0
+    while i < cfg.num_layers:
+        if i in full:
+            groups.append(("full", 1))
+            i += 1
+        else:
+            j = i
+            while j < cfg.num_layers and j not in full:
+                j += 1
+            groups.append(("swa", j - i))
+            i = j
+    return groups
+
+
+class HymbaLayer(nn.Module):
+    """One layer's weights, named as the reference names them, and its
+    attention ``window`` (0 on a full-attention layer)."""
+
+    def __init__(self, cfg: ArchConfig, device, dtype, window: int):
+        super().__init__()
+        self.window = window
+        for name, pdef in hymba_layer_defs(cfg).items():
+            if isinstance(pdef, dict):
+                setattr(self, name, nn.ParameterDict(
+                    {k: _param(sub, device, dtype) for k, sub in pdef.items()}))
+            else:
+                setattr(self, name, _param(pdef, device, dtype))
+
+    def _fuse_and_mlp(self, x, attn_out, ssm_out, cfg):
+        fused = 0.5 * (rms_norm(attn_out, self.fuse_na, cfg.norm_eps)
+                       + rms_norm(ssm_out, self.fuse_ns, cfg.norm_eps))
+        x = x + fused
+        return x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
+                             cfg.activation)
+
+    def prefill(self, x, cfg, plain, conv_state, ssm_state):
+        """x: (B, S, d).  Returns (x, (k, v) (B, KV, S, D), conv, ssm)."""
+        h_in = rms_norm(x, self.ln1, cfg.norm_eps)
+        attn_out, kv = attention_block_prefill(self.attn, h_in, cfg,
+                                               window=self.window, plain=plain)
+        ssm_out, conv_state, ssm_state = mamba_prefill(self.mamba, h_in,
+                                                       conv_state, ssm_state)
+        return self._fuse_and_mlp(x, attn_out, ssm_out, cfg), kv, conv_state, \
+            ssm_state
+
+    def decode(self, x, kv, pos, cfg, plain, conv_state, ssm_state):
+        """x: (B, d).  Writes K/V into ``kv`` in place (at ``pos``, or at
+        ``pos % W`` on a ring); returns (x, conv, ssm)."""
+        h_in = rms_norm(x, self.ln1, cfg.norm_eps)
+        attn_out, _ = attention_block_decode(self.attn, h_in, kv, pos, cfg,
+                                             window=self.window, plain=plain)
+        ssm_out, conv_state, ssm_state = mamba_decode(self.mamba, h_in,
+                                                      conv_state, ssm_state)
+        return self._fuse_and_mlp(x, attn_out, ssm_out, cfg), conv_state, \
+            ssm_state
+
+
+def _ring(kv: torch.Tensor, window: int) -> torch.Tensor:
+    """The last min(S, W) positions of (B, KV, S, D) with position p at
+    index p % W: positions S-W..S-1 rolled by S % W."""
+    S = kv.shape[2]
+    if S <= window:
+        return kv
+    return torch.roll(kv[:, :, S - window:], shifts=S % window, dims=2)
+
+
+class HymbaLM(nn.Module):
+    """hymba on one device.
+
+    The weights start at zero; ``init_params`` draws them by the
+    reference's rules (``a_log`` stays f32 in a bf16 model), and
+    ``repro_torch.bridge.load_reference_params`` copies them from the
+    reference's parameter tree.  Setting ``plain_attention`` to True runs
+    the plain PyTorch versions of the attention kernels (for comparisons
+    only).
+    """
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.device = dev
+        self.dtype = dtype
+        self.plain_attention = False
+        full = set(cfg.full_attn_layers)
+        defs = model_defs(cfg)  # embed, final_norm, lm_head: as rwkv's
+        self.embed = _param(defs["embed"], dev, dtype)
+        self.layers = nn.ModuleList(
+            HymbaLayer(cfg, dev, dtype, 0 if i in full else cfg.sliding_window)
+            for i in range(cfg.num_layers))
+        self.final_norm = _param(defs["final_norm"], dev, dtype)
+        self.lm_head = _param(defs["lm_head"], dev, dtype)
+        # each layer's KV leaf and its index there
+        counts = {"full": 0, "swa": 0}
+        self._kv_slot = []
+        for i in range(cfg.num_layers):
+            kind = "full" if i in full else "swa"
+            self._kv_slot.append((kind, counts[kind]))
+            counts[kind] += 1
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "HymbaLM":
+        """Draw every weight by its ``ParamDef`` rule, one at a time."""
+        instantiate_all(self, model_defs(self.cfg), generator)
+        layer_defs = hymba_layer_defs(self.cfg)
+        for layer in self.layers:
+            instantiate_all(layer, layer_defs, generator)
+        return self
+
+    def _logits_out(self, x):
+        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
+                                self.lm_head, valid_vocab=self.cfg.vocab_size)
+        return logits[..., :self.cfg.vocab_size]
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _cache(self, batch: int, length: int, kv_dtype: torch.dtype):
+        """Zero cache leaves for ``batch`` sequences of ``length`` positions:
+        full-layer KV of ``length``, ring KV of min(W, length)."""
+        cfg = self.cfg
+        n_full = sum(kind == "full" for kind, _ in self._kv_slot)
+        L, h, n = cfg.num_layers, cfg.q_dim, cfg.ssm_state
+
+        def kv(layers, positions):
+            return torch.zeros((layers, batch, cfg.num_kv_heads, positions,
+                                cfg.head_dim), device=self.device,
+                               dtype=kv_dtype)
+
+        ring = min(cfg.sliding_window, length)
+        return {
+            "k_full": kv(n_full, length), "v_full": kv(n_full, length),
+            "k_swa": kv(L - n_full, ring), "v_swa": kv(L - n_full, ring),
+            "conv": torch.zeros((L, batch, h, CONV_K - 1), device=self.device,
+                                dtype=self.dtype),
+            "ssm": torch.zeros((L, batch, h, n), device=self.device,
+                               dtype=torch.float32),
+        }
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """tokens: (B, S), any S >= 1.  Returns the logits (B, vocab) of the
+        last token and the prefill cache: the prompt's KV in the weights'
+        dtype (S positions in a full layer, the ring of min(S, W) positions
+        at p % W in a window layer) and the Mamba states after it."""
+        tokens = self._tokens(tokens)
+        x = embed_lookup(self.embed, tokens)
+        cache = self._cache(tokens.shape[0], tokens.shape[1], self.dtype)
+        for i, (layer, (kind, j)) in enumerate(zip(self.layers, self._kv_slot)):
+            x, (k, v), conv, ssm = layer.prefill(
+                x, self.cfg, self.plain_attention, cache["conv"][i],
+                cache["ssm"][i])
+            if kind == "swa":
+                k, v = _ring(k, layer.window), _ring(v, layer.window)
+            cache[f"k_{kind}"][j] = k
+            cache[f"v_{kind}"][j] = v
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+        return self._logits_out(x[:, -1]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos):
+        """One token per row.  cache: the dict of ``init_cache``; tokens:
+        (B,); pos: scalar or (B,) positions, negative for an idle row (no
+        KV write, output discarded; its Mamba state still steps).  Updates
+        ``cache`` in place and returns (logits (B, vocab) f32, cache)."""
+        x = embed_lookup(self.embed, self._tokens(tokens))
+        pos = torch.as_tensor(pos, device=self.device)
+        for i, (layer, (kind, j)) in enumerate(zip(self.layers, self._kv_slot)):
+            kv = (cache[f"k_{kind}"][j], cache[f"v_{kind}"][j])
+            x, conv, ssm = layer.decode(x, kv, pos, self.cfg,
+                                        self.plain_attention,
+                                        cache["conv"][i], cache["ssm"][i])
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+        return self._logits_out(x), cache
+
+    def init_cache(self, batch: int, max_len: int):
+        return self._cache(batch, max_len, CACHE_DTYPE)

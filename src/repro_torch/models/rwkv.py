@@ -116,6 +116,21 @@ def instantiate(p: torch.Tensor, pdef: ParamDef,
         p.copy_(draw.mul_(scale))
 
 
+@torch.no_grad()
+def instantiate_all(module: nn.Module, defs: dict,
+                    generator: torch.Generator) -> None:
+    """``instantiate`` every weight of ``module`` named in ``defs``: a
+    ``ParamDef`` names a tensor attribute, a dict of them a
+    ``ParameterDict``."""
+    for name, pdef in defs.items():
+        if isinstance(pdef, dict):
+            group = getattr(module, name)
+            for key, sub in pdef.items():
+                instantiate(group[key], sub, generator)
+        else:
+            instantiate(getattr(module, name), pdef, generator)
+
+
 def _param(pdef: ParamDef, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.zeros(pdef.shape, device=device,
                                     dtype=torch.float32 if pdef.f32 else dtype),
@@ -277,18 +292,10 @@ class RWKVLM(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "RWKVLM":
         """Draw every weight by its ``ParamDef`` rule, one at a time."""
-        defs = model_defs(self.cfg)
-        for name in defs:
-            instantiate(getattr(self, name), defs[name], generator)
+        instantiate_all(self, model_defs(self.cfg), generator)
         layer_defs = rwkv_layer_defs(self.cfg)
         for layer in self.layers:
-            for name, pdef in layer_defs.items():
-                if isinstance(pdef, dict):
-                    group = getattr(layer, name)
-                    for key, sub in pdef.items():
-                        instantiate(group[key], sub, generator)
-                else:
-                    instantiate(getattr(layer, name), pdef, generator)
+            instantiate_all(layer, layer_defs, generator)
         return self
 
     def _logits_out(self, x):

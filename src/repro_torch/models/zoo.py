@@ -4,12 +4,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.hymba import HymbaLM
 from repro_torch.models.rwkv import RWKVLM
 from repro_torch.models.transformer import DenseLM, EncoderLM
 
 # family -> the ROADMAP.md queue-A item that ports it
 _LATER = {
-    "hybrid": "A10 (models/hymba.py)",
     "vlm": "A11 (models/vision.py)",
     "audio": "A11 (models/encdec.py)",
 }
@@ -21,6 +21,8 @@ def build_model(cfg: ArchConfig, *, device="cuda",
         return DenseLM(cfg, device=device, dtype=dtype)
     if cfg.family == "ssm":
         return RWKVLM(cfg, device=device, dtype=dtype)
+    if cfg.family == "hybrid":
+        return HymbaLM(cfg, device=device, dtype=dtype)
     if cfg.family == "encoder":
         return EncoderLM(cfg, device=device, dtype=dtype)
     if cfg.family in _LATER:

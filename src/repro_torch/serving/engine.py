@@ -1,15 +1,18 @@
 """Serving engine for the port's models, counterpart of ``repro.serving.engine``.
 
-Slot-based continuous batching on a :class:`DenseLM` or an :class:`RWKVLM`:
+Slot-based continuous batching on a :class:`DenseLM`, an :class:`RWKVLM`
+or a :class:`HymbaLM`:
 
   * prefill admits a waiting request into a free slot (logits for its
     last token seed decoding); for a dense KV cache, exact-prefix cache
     reuse via :class:`PrefixCache` + :meth:`SlotKVCache.copy_prefix` -- the
     longest cached prefix of the prompt is copied from the slot that
     already holds its KV and only the suffix is computed.  A recurrent
-    state (rwkv) has no per-token prefix to copy, so, as in the reference,
-    it gets no prefix cache and ``cached_tokens`` stays 0; admission
-    writes every leaf of the slot's state;
+    state (rwkv) has no per-token prefix to copy, and neither has hymba's
+    cache, whose Mamba states hold the whole prompt (beside full-layer KV
+    and a window ring); so, as in the reference, they get no prefix cache
+    and ``cached_tokens`` stays 0, and admission writes every leaf of the
+    slot's cache;
   * decode runs one step for all slots with per-slot positions (ragged
     continuous batching);
   * greedy sampling; requests complete when their token budget is spent.
@@ -22,7 +25,8 @@ idle slot decodes at position -1, which writes no KV and attends over
 nothing; its logits are thrown away as in the reference.  An idle slot
 of a recurrent state is decoded as in the reference (token 0; the model
 ignores positions), which changes that slot's state, but admission
-overwrites all of it.
+overwrites all of it.  The same holds for hymba's Mamba states: an idle
+slot writes no KV, but its conv and ssm states drift until admission.
 """
 from __future__ import annotations
 
@@ -68,7 +72,8 @@ class ServingEngine:
         self.lengths = np.zeros(slots, np.int32)
         cache = model.init_cache(slots, max_len)
         # prefix reuse needs the positional (k, v) layout; a recurrent
-        # state (a dict of (L, slots, ...) leaves) has no prefix to copy
+        # state or hymba's cache (a dict of (L, slots, ...) leaves) has no
+        # prefix to copy
         if isinstance(cache, tuple):
             self.kv = SlotKVCache(k=cache[0], v=cache[1], lengths=self.lengths)
             self.state = None
@@ -88,8 +93,8 @@ class ServingEngine:
 
     @property
     def cache(self):
-        """(k, v), each (L, slots, KV, max_len, D), or the recurrent state
-        dict of (L, slots, ...) leaves."""
+        """(k, v), each (L, slots, KV, max_len, D), or the dict of
+        (L, slots, ...) leaves of a recurrent state or hymba's cache."""
         return (self.kv.k, self.kv.v) if self.state is None else self.state
 
     def submit(self, req: ServeRequest) -> None:
@@ -201,16 +206,23 @@ class ServingEngine:
 def _merge_slot(cache, prefill_cache, slot: int) -> None:
     """Write one sequence's prefill cache into slot ``slot``, in place.
 
-    A recurrent state dict gets every (L, 1, ...) leaf written at
-    ``[:, slot]``.  A dense (k, v) cache, (L, slots, KV, max_len, D), gets
-    the prompt's (L, 1, KV, S, D) KV at its positions (cast to the cache's
-    dtype) and zeros in the rest of the slot, as the reference's padded
-    update leaves it."""
+    Leaf by leaf (the (k, v) pair of a dense cache, the dict of a recurrent
+    state or of hymba's cache), the prefill's (L, 1, ...) leaf goes to
+    ``[:, slot]``, cast to the cache's dtype.  A leaf as long as the slot's
+    is written whole: a recurrent state, hymba's conv and ssm states, and
+    its window ring once the prompt fills it (the prefill placed position
+    p at p % W).  A shorter leaf is a KV of (L, 1, KV, S, D): it fills
+    positions 0..S-1 (ring indices, for a ring of S < W) and the rest of
+    the slot is zeroed, as the reference's padded update leaves it."""
     if isinstance(cache, dict):
-        for name, big in cache.items():
-            big[:, slot] = prefill_cache[name][:, 0].to(big.dtype)
-        return
-    for big, small in zip(cache, prefill_cache):
-        S = small.shape[3]
-        big[:, slot, :, :S] = small[:, 0].to(big.dtype)
-        big[:, slot, :, S:] = 0
+        pairs = [(big, prefill_cache[name]) for name, big in cache.items()]
+    else:
+        pairs = zip(cache, prefill_cache)
+    for big, small in pairs:
+        small, dst = small[:, 0], big[:, slot]
+        if small.shape == dst.shape:
+            dst.copy_(small)
+            continue
+        S = small.shape[2]
+        dst[:, :, :S] = small
+        dst[:, :, S:] = 0

@@ -45,7 +45,7 @@ def test_scan_finds_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "transformer.py", "layers.py", "ops.py",
             "chip_smoke.py", "bridge.py", "hw.py", "scheduler.py",
-            "profiler.py", "tile_plan.py"} <= names
+            "profiler.py", "tile_plan.py", "hymba.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):

@@ -200,8 +200,8 @@ def test_registry_entries_equal_the_reference():
 def test_other_families_name_their_roadmap_item():
     from repro_torch.configs.base import ArchConfig
 
-    hybrid = ArchConfig(name="h", family="hybrid", num_layers=1, d_model=8,
-                        num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
-                        ssm_state=4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_model(hybrid, device="cpu")
+    vlm = ArchConfig(name="v", family="vlm", num_layers=2, d_model=8,
+                     num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
+                     cross_attn_every=2, num_image_tokens=4)
+    with pytest.raises(NotImplementedError, match="A11"):
+        build_model(vlm, device="cpu")
