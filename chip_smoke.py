@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit's ``nvcc`` and this checkout's
-``src/repro_torch``.  It drives five serving paths, llama-3.1-8b through
+``src/repro_torch``.  It drives six serving paths, llama-3.1-8b through
 the two attention kernels, rwkv6-7b through the two WKV6 kernels (the chunked
 tensor-core kernel for bf16 prefill, the scan for decode and f32), the MoE
 decoders olmoe-1b-7b and granite-moe-3b-a800m through the attention
 kernels and the routed experts of ``models/moe.py``, hymba-1.5b through the
 attention kernels' sliding-window mode and ring decode beside its Mamba
-heads, and rag_reranker's two encoders through the flash kernel's
+heads, the cross-attention decoders llama-3.2-vision-11b and
+seamless-m4t-large-v2 through both attention kernels over their image and
+audio caches, and rag_reranker's two encoders through the flash kernel's
 non-causal mode, and prints one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
@@ -61,7 +63,22 @@ non-causal mode, and prints one JSON object per phase:
    wrapped ring) and its ``engine`` run: the rwkv traffic, no prefix reuse,
    exactly 32 flash launches per prefill and 32 decode launches per model
    decode call;
-9. with hymba freed, ``encoder_check`` for e5-base-v2 and
+9. with hymba freed, ``kernel_checks`` of the attention kernels at the
+   cross-attention decoders' shapes (the VLM's cross prefill over 1601
+   image entries and decode over them; seamless-m4t's encoder over 1024
+   frames, causal self-attention and cross-attention over the frames at
+   H = KV = 16, D = 64, and decode over both its caches; one f32 cross
+   case), then, one model at a time, ``model_check`` for
+   llama-3.2-vision-11b (every cross-layer gate set to a seeded nonzero
+   value, printed: the reference's zero gates would hide the
+   cross-attention) and seamless-m4t-large-v2 at full width and depth, with
+   seeded stub image or audio inputs, and ``generate``: 8 requests of 512
+   prompt tokens through ``launch.serve_model.generate`` (one prefill, 64
+   greedy decode steps of the batch), with prefill and decode step ms,
+   tokens/s, peak memory, exact launch counts (flash 48 per VLM prefill, 72
+   per seamless prefill; decode 48 per step on both) and a
+   ``torch.profiler`` window of three decode steps;
+10. with those freed, ``encoder_check`` for e5-base-v2 and
    reranker-minilm (full width and depth, seeded weights, f32 and bf16,
    a 512- and a 137-token prompt; the pooled embeddings through the
    kernel and through the plain version), then ``encode``: rag_reranker's
@@ -70,7 +87,7 @@ non-causal mode, and prints one JSON object per phase:
    tokens/s, mean and p99 ms per call, peak memory, the flash launch
    count (one per layer and call) and a ``torch.profiler`` breakdown of
    one query's calls;
-10. with the encoders freed, ``plan``: Scepsy's planner
+11. with the encoders freed, ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
    its allocations, predicted latency and throughput and its placement,
@@ -128,6 +145,10 @@ HYMBA_ARCH = "hymba-1.5b"
 # past hymba's 1024-token window and not a multiple of it: prefill masks by
 # the window and the decode steps write into a wrapped ring
 HYMBA_PROMPT = 1500
+CROSS_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")
+# generate: requests, prompt tokens and new tokens of the cross-attention
+# decoders' batch
+GENERATE = (8, 512, 64)
 ENCODER_ARCHS = ("e5-base-v2", "reranker-minilm")
 SEED = 0
 
@@ -572,6 +593,27 @@ HYMBA_FLASH_CASES = [(1, 2048, 25, 5, 64, 1024, "bfloat16"),
 RING_LENS = [0, 1, 77, 1000, 1024, 1024, 1024, 1024]
 HYMBA_DECODE_CASES = [(25, 5, 64, 1024, RING_LENS, "bfloat16"),
                       (25, 5, 64, 4096, DECODE_LENS, "bfloat16")]
+# the cross-attention decoders: llama-3.2-vision-11b's cross prefill of the
+# generate batch over 1601 image entries (H = 32, KV = 8, D = 128), and in
+# f32 at the model check's 1000 tokens; seamless-m4t-large-v2 (H = KV = 16,
+# D = 64): its encoder over 1024 frames, causal self-attention and
+# cross-attention over the frames; decode over the full image and frame
+# caches (every row's length the cache's) and over a self cache; the
+# generate phase's own shapes: the VLM's causal self-attention prefill of
+# 8 x 512 tokens, and both models' self decode over its cache of 512 + 64
+# positions at the lengths its steps reach (513..576)
+GEN_LENS = [513, 514, 520, 533, 548, 563, 575, 576]
+CROSS_FLASH_CASES = [(8, 512, 32, 8, 128, 0, "bfloat16", 1601, False),
+                     (8, 512, 32, 8, 128, 0, "bfloat16"),
+                     (8, 1024, 16, 16, 64, 0, "bfloat16", 1024, False),
+                     (8, 512, 16, 16, 64, 0, "bfloat16"),
+                     (8, 512, 16, 16, 64, 0, "bfloat16", 1024, False),
+                     (1, 1000, 32, 8, 128, 0, "float32", 1601, False)]
+CROSS_DECODE_CASES = [(32, 8, 128, 1601, [1601] * 8, "bfloat16"),
+                      (16, 16, 64, 1024, [1024] * 8, "bfloat16"),
+                      (16, 16, 64, 4096, DECODE_LENS, "bfloat16"),
+                      (32, 8, 128, 576, GEN_LENS, "bfloat16"),
+                      (16, 16, 64, 576, GEN_LENS, "bfloat16")]
 # rwkv6-7b: H=64, D=64; prompts of the engine phase are 256-2048 tokens,
 # decode runs S=1 over its 8 slots.  bf16 prompts (S >= 2) go to the
 # chunked kernel, decode and f32 to the scan.
@@ -605,15 +647,17 @@ SOURCES = {
 # ---------------------------------------------------------------------------
 
 
-def _logits_run(torch, model, prompt, steps):
-    """Logits (1 + steps, 1, vocab) of a prefill of the S-token prompt and
-    the decode steps after it.  The prefill's cache goes into a decode
+def _logits_run(torch, model, prompt, steps, extra=()):
+    """Logits (1 + steps, 1, vocab) of a prefill of the S-token prompt (with
+    ``extra``, the stub image or audio input of a cross-attention decoder)
+    and the decode steps after it.  The prefill's cache goes into a decode
     cache of S + steps rounded up to 512 positions through the engine's
-    ``_merge_slot`` (for llama's 1000 tokens, 1024 positions)."""
+    ``_merge_slot`` (for llama's 1000 tokens, 1024 positions; a
+    cross-attention cache's image or frame leaves are written whole)."""
     from repro_torch.serving.engine import _merge_slot
 
     S = prompt.shape[1]
-    logits, small = model.prefill(prompt)
+    logits, small = model.prefill(prompt, *extra)
     cache = model.init_cache(1, -(-(S + len(steps)) // 512) * 512)
     _merge_slot(cache, small, 0)
     del small
@@ -692,6 +736,14 @@ def moe_stats(torch, moe, cfg, calls, router, x_shape, dev):
             "router_f32_under_tf32": bool(torch.equal(ieee, under_tf32))}
 
 
+def vlm_gates(np, groups: int):
+    """Seeded nonzero (gate, gate_mlp) of each cross layer, a different
+    value per group: |g| in [0.4, 1.2], either sign."""
+    rng = np.random.default_rng(SEED + 5)
+    mag = rng.uniform(0.4, 1.2, size=(2, groups))
+    return (mag * rng.choice([-1.0, 1.0], size=(2, groups))).tolist()
+
+
 def model_check(torch, np, cfg, dev, build_model, plain_attr,
                 prompt_tokens=1000):
     """Full-width prefill of ``prompt_tokens`` + 8 decode steps through the
@@ -712,24 +764,41 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr,
     flips, not the kernels.  There the f32 plain run's experts are
     recorded and replayed in the other three runs (``routed_run``), which
     are held as above; the free runs' routing agreement is printed.
+    A cross-attention decoder prefills with a seeded stub input (the VLM's
+    image embeddings, the enc-dec's audio frames), the same in every run;
+    the VLM's gates, zero under the reference's init (which would leave
+    its cross layers out of the logits), are set to ``vlm_gates`` in all
+    four runs.
+
     Returns the result and the bf16 model, for the engine phase."""
+    from repro_torch.launch.serve_model import stub_inputs
     from repro_torch.models import moe
 
     rng = np.random.default_rng(SEED)
     prompt = rng.integers(0, cfg.vocab_size, size=(1, prompt_tokens))
     steps = rng.integers(0, cfg.vocab_size, size=(8, 1))
-    runs, free, extra = {}, {}, {}
+    extra, gates = (), None
+    if cfg.family in ("vlm", "audio"):
+        extra = (torch.from_numpy(stub_inputs(cfg, 1, rng)).to(dev),)
+    if cfg.family == "vlm":
+        gates = vlm_gates(np, cfg.num_layers // cfg.cross_attn_every)
+    runs, free, stats = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         t0 = time.perf_counter()
         model = build_model(cfg, device=dev, dtype=getattr(torch, dtype))
         model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+        if gates is not None:
+            with torch.no_grad():
+                for cross, g, g_mlp in zip(model.cross_layers, *gates):
+                    cross.gate.fill_(g)
+                    cross.gate_mlp.fill_(g_mlp)
         torch.cuda.synchronize()
         weights_s = time.perf_counter() - t0
         for plain in (True, False):  # the f32 plain run first: the reference
             setattr(model, plain_attr, plain)
 
             def run(model=model):
-                return _logits_run(torch, model, prompt, steps)
+                return _logits_run(torch, model, prompt, steps, extra)
 
             if not cfg.is_moe:
                 runs[dtype, plain] = run()
@@ -740,11 +809,14 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr,
                     moe, run, replay=free["float32", True])
         setattr(model, plain_attr, False)
         if cfg.is_moe and dtype == "float32":
-            extra = moe_stats(torch, moe, cfg, free["float32", True],
+            stats = moe_stats(torch, moe, cfg, free["float32", True],
                               model.layers[0].mlp["router"], (1, 1000, cfg.d_model),
                               dev)
         if dtype == "float32":
-            del model
+            # ``run`` holds the model too: the f32 VLM (46 GB) and the bf16
+            # one (23 GB) would not fit side by side with their work
+            del model, run
+            gc.collect()
             torch.cuda.empty_cache()
     ref = runs["float32", True]
     finite = all(bool(torch.isfinite(r).all()) for r in runs.values())
@@ -784,8 +856,13 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr,
                 free["bfloat16", False], free["bfloat16", True]),
             "routing_agreement_bf16_vs_f32": routing_agreement(
                 free["bfloat16", True], free["float32", True]),
-            **extra})
-        result["ok"] = result["ok"] and extra["router_f32_under_tf32"]
+            **stats})
+        result["ok"] = result["ok"] and stats["router_f32_under_tf32"]
+    if extra:
+        result["stub_input_shape"] = list(extra[0].shape)
+        result["params"] = sum(p.numel() for p in model.parameters())
+    if gates is not None:
+        result["gates"] = {"gate": gates[0], "gate_mlp": gates[1]}
     return result, model
 
 
@@ -913,8 +990,71 @@ def engine_run(torch, np, model, common, reqs, kernels, cached, max_new=64):
     return result, {"decode": decode_shapes, "prefill": prefills}
 
 
+def generate_run(torch, np, model, common):
+    """GENERATE's batch through ``launch.serve_model.generate``: one
+    prefill of 8 prompts of 512 tokens over seeded stub inputs, then 64
+    greedy decode steps of the batch.  ``ok`` needs every row's tokens in
+    the vocabulary and exactly the launches of the path: one flash launch
+    per attention of the prefill (the VLM's self and cross layers; the
+    enc-dec's encoder, self and cross layers) and one decode launch per
+    attention of each step (self and cross), nothing else.  After the run,
+    three decode steps of the batch at position 1000 are profiled
+    (``device_breakdown``)."""
+    from repro_torch.launch.serve_model import generate, stub_inputs
+
+    cfg = model.cfg
+    requests, prompt, max_new = GENERATE
+    rng = np.random.default_rng(SEED + 6)
+    tokens = rng.integers(0, cfg.vocab_size, size=(requests, prompt))
+    inputs = torch.from_numpy(stub_inputs(cfg, requests, rng)).to(model.device)
+    generate(model, tokens, inputs, 1)  # warm-up, not counted
+    if cfg.family == "vlm":
+        groups = cfg.num_layers // cfg.cross_attn_every
+        flash, decode = cfg.num_layers + groups, cfg.num_layers + groups
+    else:
+        flash = cfg.encoder_layers + 2 * cfg.num_layers
+        decode = 2 * cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launch_counts()
+    out, times = generate(model, tokens, inputs, max_new)
+    launches = dict(common.launch_counts)
+    expected = {name: 0 for name in launches}
+    expected.update(flash_attention=flash, decode_attention=decode * max_new)
+    wall = times["prefill_s"] + times["decode_s"]
+    result = {
+        "phase": "generate", "arch": cfg.name, "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+        "requests": requests, "prompt_tokens": prompt, "decode_steps": max_new,
+        "stub_input_shape": list(inputs.shape),
+        "requests_done": int(out.shape[0]),
+        "generated_tokens": int(out.numel()),
+        "prefill_ms": 1e3 * times["prefill_s"],
+        "decode_step_ms": 1e3 * times["decode_s"] / max_new,
+        "tokens_per_s": out.numel() / wall,
+        "decode_tokens_per_s": requests * max_new / times["decode_s"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "weights_read_ms": 1e3 * sum(p.numel() * p.element_size()
+                                     for p in model.parameters()) / BYTES_PER_S,
+        "launches": launches, "launches_expected": expected,
+        "launches_per_prefill": {"flash_attention": flash},
+        "launches_per_step": {"decode_attention": decode},
+    }
+    result["ok"] = (tuple(out.shape) == (requests, 1 + max_new)
+                    and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+                    and launches == expected)
+    cache = model.init_cache(requests, 1024)
+    step = torch.zeros(requests, dtype=torch.long, device=model.device)
+    pos = torch.full((requests,), 1000, dtype=torch.long, device=model.device)
+    model.decode_step(cache, step, pos)  # warm-up
+    result["profile_decode_steps"] = device_breakdown(
+        torch, [lambda: model.decode_step(cache, step, pos)] * 3)
+    del cache
+    return result
+
+
 # ---------------------------------------------------------------------------
-# phase 7: rag_reranker's encoders
+# phase 10: rag_reranker's encoders
 # ---------------------------------------------------------------------------
 
 
@@ -1098,7 +1238,7 @@ def encode_run(torch, np, models, common):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the planner on H100 hosts
+# phase 11: the planner on H100 hosts
 # ---------------------------------------------------------------------------
 
 PLAN_RATE = 0.4  # req/s, the launcher's default target
@@ -1424,6 +1564,38 @@ def run():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the cross-attention decoders, on a card free of hymba: the attention
+    # kernels at their shapes, then each model checked and generating, one
+    # at a time
+    with torch.no_grad():
+        cross_checks = [check_flash(torch, F, flash_ops, dev, gen, *c)
+                        for c in CROSS_FLASH_CASES]
+        cross_checks += [check_decode(torch, F, decode_ops, dev, gen, *c)
+                         for c in CROSS_DECODE_CASES]
+    emit({"phase": "kernel_checks", "checks": cross_checks})
+    bad = [c for c in cross_checks if not c["ok"]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} cross-attention kernel check(s) out "
+                           "of tolerance")
+    checks += cross_checks
+    cross_launches = {}
+    for arch in CROSS_ARCHS:
+        cfg = get_config(arch)
+        result, model = model_check(torch, np, cfg, dev, build_model,
+                                    "plain_attention")
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"full-width {arch} model check failed")
+        torch.cuda.empty_cache()
+        result = generate_run(torch, np, model, common)
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"{arch} generate run failed")
+        cross_launches[cfg.family] = result["launches"]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # rag_reranker's encoders, on a card free of hymba
     encoders = {}
     for arch in ENCODER_ARCHS:
@@ -1461,13 +1633,15 @@ def run():
             "graph_ms": row["kernel_graph_ms"],
             "library_graph_ms": row.get("library_graph_ms"),
             "shape": row["shape"], "dtype": row["dtype"]})
-    # the attention kernels' launches on the MoE, hymba and encoder paths
-    # (their rows' ``launches`` stay the llama engine's)
+    # the attention kernels' launches on the MoE, hymba, cross-attention
+    # and encoder paths (their rows' ``launches`` stay the llama engine's)
     for row in summary:
         if row["name"] in ("flash_attention", "decode_attention"):
             row["launches_moe"] = {arch: n[row["name"]]
                                    for arch, n in moe_launches.items()}
             row["launches_hymba"] = hymba_launches[row["name"]]
+            row["launches_vlm"] = cross_launches["vlm"][row["name"]]
+            row["launches_encdec"] = cross_launches["audio"][row["name"]]
     next(r for r in summary if r["name"] == "flash_attention")[
         "launches_encode"] = encode_launches
     emit({"kernels": summary})

@@ -14,14 +14,17 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hymba import HymbaLM, layer_groups
 from repro_torch.models.rwkv import RWKVLM
 from repro_torch.models.transformer import DenseLM, EncoderLM
+from repro_torch.models.vision import VisionLM
 
 
 def to_torch(arr) -> torch.Tensor:
-    """A CPU tensor with the same bits as the numpy array ``arr``."""
-    arr = np.ascontiguousarray(arr)
+    """A CPU tensor with the same bits and shape as the numpy array ``arr``
+    (a 0-dim array, as the VLM's gates, stays 0-dim)."""
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(arr.copy())
@@ -58,21 +61,50 @@ def _copy_layer(layer, tree: Mapping, pick, where: str) -> None:
             _copy(mine[key], pick(leaf), f"{where}.{group}.{key}")
 
 
+def _stack(layers, tree: Mapping, name: str, lead: tuple, pick):
+    """(layer, tree, pick, where) for ``layers`` stacked in ``tree`` along
+    the leading dims ``lead``: layer i takes ``pick(a, i)`` of each leaf.
+    Every leaf's leading dims must be ``lead``."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            for sub, a in leaf.items():
+                _check_lead(a, lead, f"{name}.{key}.{sub}")
+        else:
+            _check_lead(leaf, lead, f"{name}.{key}")
+    return [(layer, tree, lambda a, i=i: pick(a, i), f"{name}[{i}]")
+            for i, layer in enumerate(layers)]
+
+
+def _check_lead(a, lead: tuple, where: str) -> None:
+    if tuple(np.shape(a)[:len(lead)]) != lead:
+        raise ValueError(f"{where}: leading dims {np.shape(a)[:len(lead)]}, "
+                         f"model has {lead} layers")
+
+
 def _layer_trees(model, params: Mapping):
     """(layer, tree, pick, where) for every layer of ``model``.  The dense,
-    rwkv and encoder trees stack all layers under ``layers``; hymba's
-    ``groups`` follow ``layer_groups(cfg)``: a full-attention group is one
-    unstacked layer, a sliding-window group ``count`` layers stacked along
-    a leading dim."""
+    rwkv and encoder trees stack all layers under ``layers``; the VLM
+    stacks its self layers twice, (G, per, ...), under ``self_layers``
+    (layer g * per + j takes [g][j]) and its cross layers once under
+    ``cross_layers``; the enc-dec stacks ``enc_layers`` and ``dec_layers``;
+    hymba's ``groups`` follow ``layer_groups(cfg)``: a full-attention group
+    is one unstacked layer, a sliding-window group ``count`` layers stacked
+    along a leading dim."""
+    if isinstance(model, VisionLM):
+        per = model.per
+        groups = len(model.cross_layers)
+        return (_stack(model.self_layers, params["self_layers"], "self_layers",
+                       (groups, per), lambda a, i: a[i // per][i % per])
+                + _stack(model.cross_layers, params["cross_layers"],
+                         "cross_layers", (groups,), lambda a, i: a[i]))
+    if isinstance(model, EncDecLM):
+        return [entry for name in ("enc_layers", "dec_layers")
+                for entry in _stack(getattr(model, name), params[name], name,
+                                    (len(getattr(model, name)),),
+                                    lambda a, i: a[i])]
     if not isinstance(model, HymbaLM):
-        stack = params["layers"]
-        n_layers = len(model.layers)
-        for name, leaf in stack.items():
-            if not isinstance(leaf, Mapping) and np.shape(leaf)[0] != n_layers:
-                raise ValueError(f"layers.{name}: {np.shape(leaf)[0]} "
-                                 f"layers, model has {n_layers}")
-        return [(layer, stack, lambda a, i=i: a[i], f"layers[{i}]")
-                for i, layer in enumerate(model.layers)]
+        return _stack(model.layers, params["layers"], "layers",
+                      (len(model.layers),), lambda a, i: a[i])
     plan = layer_groups(model.cfg)
     groups = params["groups"]
     if len(groups) != len(plan):
@@ -94,29 +126,28 @@ def _layer_trees(model, params: Mapping):
 @torch.no_grad()
 def load_reference_params(model, params: Mapping):
     """Copy a reference parameter tree into a ``DenseLM``, ``RWKVLM``,
-    ``EncoderLM`` or ``HymbaLM``.
+    ``EncoderLM``, ``HymbaLM``, ``VisionLM`` or ``EncDecLM``.
 
     ``params`` is the tree of ``build_model(cfg).init(key)`` with numpy
-    leaves.  Each layer's leaves are taken from the layer stack (its row of
-    every stacked leaf) or, for hymba, from its group (``_layer_trees``); a
+    leaves.  The model's own tensors (``embed``, ``final_norm``,
+    ``lm_head``, the enc-dec's ``enc_norm``) take the leaves of their name;
+    each layer's leaves are taken from its layer stack (its row of every
+    stacked leaf) or, for hymba, from its group (``_layer_trees``); a
     layer's own tensors and its groups of tensors take the reference's
     names; an MoE model's ``mlp`` group is its router and (E, ...) experts.
     Values are cast to each weight's dtype (the model's, or f32 for the
-    rwkv ``w0`` and ``u``, the MoE ``router`` and hymba's ``a_log``); with
-    equal dtypes the copy is bit-exact.
+    rwkv ``w0`` and ``u``, the MoE ``router``, hymba's ``a_log`` and the
+    VLM's gates); with equal dtypes the copy is bit-exact.
     """
-    if not isinstance(model, (DenseLM, RWKVLM, EncoderLM, HymbaLM)):
+    if not isinstance(model, (DenseLM, RWKVLM, EncoderLM, HymbaLM, VisionLM,
+                              EncDecLM)):
         raise TypeError(f"no bridge for {type(model).__name__}")
-    lm_head = getattr(model, "lm_head", None)  # an encoder has none
-    top = {"embed", "final_norm",
-           "groups" if isinstance(model, HymbaLM) else "layers"}
-    if lm_head is not None:
-        top.add("lm_head")
-    _check_keys(params, top, "params")
-    _copy(model.embed, params["embed"], "embed")
-    _copy(model.final_norm, params["final_norm"], "final_norm")
-    if lm_head is not None:
-        _copy(lm_head, params["lm_head"], "lm_head")
+    own = [name for name, _ in model.named_parameters(recurse=False)]
+    stacks = (["groups"] if isinstance(model, HymbaLM)
+              else [name for name, _ in model.named_children()])
+    _check_keys(params, own + stacks, "params")
+    for name in own:
+        _copy(getattr(model, name), params[name], name)
     for layer, tree, pick, where in _layer_trees(model, params):
         _copy_layer(layer, tree, pick, where)
     return model

@@ -1,9 +1,9 @@
 """Registry of the architectures the port serves (``--arch <id>``).
 
-The port registers the dense decoders, the MoE decoders olmoe-1b-7b and
-granite-moe-3b-a800m, rwkv6-7b, the hybrid hymba-1.5b and the two encoders
-of rag_reranker; the other families of the reference registry join with
-the slices that port their models.
+The port registers every architecture of the reference registry: the dense
+decoders, the MoE decoders olmoe-1b-7b and granite-moe-3b-a800m, rwkv6-7b,
+the hybrid hymba-1.5b, the cross-attention decoders llama-3.2-vision-11b
+and seamless-m4t-large-v2, and the two encoders of rag_reranker.
 """
 from __future__ import annotations
 
@@ -15,15 +15,17 @@ from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
 from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE
 from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA
+from repro_torch.configs.llama_3_2_vision_11b import CONFIG as LLAMA_VISION
 from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
 from repro_torch.configs.paper_workloads import PAPER_LLMS
 from repro_torch.configs.qwen2_5_3b import CONFIG as QWEN2_5_3B
 from repro_torch.configs.qwen2_7b import CONFIG as QWEN2_7B
 from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6
+from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as SEAMLESS
 
 ASSIGNED: Dict[str, ArchConfig] = {
-    c.name: c for c in (GEMMA_7B, GLM4_9B, QWEN2_7B, QWEN2_5_3B, RWKV6, OLMOE,
-                        GRANITE_MOE, HYMBA)
+    c.name: c for c in (GEMMA_7B, GLM4_9B, QWEN2_7B, QWEN2_5_3B, GRANITE_MOE,
+                        OLMOE, LLAMA_VISION, SEAMLESS, HYMBA, RWKV6)
 }
 
 REGISTRY: Dict[str, ArchConfig] = {**ASSIGNED, **PAPER_LLMS}

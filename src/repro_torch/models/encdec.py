@@ -1,0 +1,188 @@
+"""seamless-m4t-large-v2's encoder-decoder in PyTorch, counterpart of
+``repro.models.encdec.make_encdec``.
+
+The speech frontend is a stub, as in the reference: ``audio_frames``, (B,
+num_audio_frames, d_model) precomputed frame embeddings, go straight into
+``encoder_layers`` :class:`EncoderLayer` s (rope at frame positions,
+non-causal attention, the MLP) and ``enc_norm``.  Each of the
+``num_layers`` :class:`EncDecLayer` s of the decoder runs causal
+self-attention, cross-attention over the encoder's output (ungated, no
+rope) and the MLP.  :class:`EncDecLM` serves:
+
+    encode(audio_frames)                 -> (B, F, d) encoder output
+    prefill(tokens, audio_frames)        -> (last logits, prefill cache)
+    decode_step(cache, tokens, pos)      -> (logits, cache)
+    init_cache(batch, max_len)           -> cache
+
+The cache is a dict of stacked bf16 leaves, each contiguous:
+
+    k, v    (num_layers, B, KV, max_len, D)           self-attention KV
+    ck, cv  (num_layers, B, KV, num_audio_frames, D)  each layer's cross K/V
+
+A prefill cache has the same keys, with S positions in ``k``/``v``, in
+the weights' dtype.  Prefill runs the encoder and every attention through
+the flash kernel (non-causal for the encoder and the cross-attention,
+Sq != Sk there); decode attends over the self cache's prefix and over all
+``num_audio_frames`` cross entries through the decode kernel, and updates
+``k``/``v`` in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (attention_block_decode,
+                                       attention_block_prefill,
+                                       bidirectional_attention,
+                                       decode_attention, embed_lookup,
+                                       full_lengths, matmul, model_logits,
+                                       mlp_block, rms_norm)
+from repro_torch.models.transformer import (CACHE_DTYPE, EncoderLayer, _param,
+                                            attention_params, dense_mlp,
+                                            init_like_reference)
+
+
+class EncDecLayer(nn.Module):
+    """``dec_layer_defs``: ``ln1``, ``self_attn`` (wq, wk, wv, wo), ``ln_x``,
+    the cross projections ``wq_x``, ``wk_x``, ``wv_x`` and ``wo_x``, ``ln2``
+    and ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+        self.ln1 = _param((d,), device, dtype)
+        self.self_attn = attention_params(cfg, device, dtype)
+        self.ln_x = _param((d,), device, dtype)
+        self.wq_x = _param((d, qd), device, dtype)
+        self.wk_x = _param((d, kvd), device, dtype)
+        self.wv_x = _param((d, kvd), device, dtype)
+        self.wo_x = _param((qd, d), device, dtype)
+        self.ln2 = _param((d,), device, dtype)
+        self.mlp = dense_mlp(cfg, device, dtype)
+
+    def cross_kv(self, enc_out, cfg):
+        """(B, F, d) encoder output -> k, v (B, F, KV, D)."""
+        B, F, _ = enc_out.shape
+        shape = (B, F, cfg.num_kv_heads, cfg.head_dim)
+        return (matmul(enc_out, self.wk_x).reshape(shape),
+                matmul(enc_out, self.wv_x).reshape(shape))
+
+    def _mlp(self, x, cfg):
+        return x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
+                             cfg.activation)
+
+    def prefill(self, x, ck, cv, cfg, plain):
+        """``dec_layer_prefill`` over this layer's cross k/v (B, F, KV, D);
+        returns x and the self-attention's (k, v), each (B, KV, S, D)."""
+        B, S, _ = x.shape
+        h, kv = attention_block_prefill(
+            self.self_attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg,
+            plain=plain)
+        x = x + h
+        q = matmul(rms_norm(x, self.ln_x, cfg.norm_eps), self.wq_x)
+        attn = bidirectional_attention(
+            q.reshape(B, S, cfg.num_heads, cfg.head_dim), ck, cv, plain=plain)
+        x = x + matmul(attn.reshape(B, S, cfg.q_dim), self.wo_x)
+        return self._mlp(x, cfg), kv
+
+    def decode(self, x, kv, ck, cv, pos, lengths, cfg, plain):
+        """One token per row, x (B, d): the self-attention writes its K/V
+        at ``pos`` into ``kv`` in place; the cross-attention reads ck/cv
+        (B, KV, F, D) over ``lengths`` entries."""
+        B = x.shape[0]
+        h, _ = attention_block_decode(
+            self.self_attn, rms_norm(x, self.ln1, cfg.norm_eps), kv, pos, cfg,
+            plain=plain)
+        x = x + h
+        q = matmul(rms_norm(x, self.ln_x, cfg.norm_eps), self.wq_x)
+        attn = decode_attention(q.reshape(B, cfg.num_heads, cfg.head_dim),
+                                ck, cv, lengths, plain=plain)
+        x = x + matmul(attn.reshape(B, cfg.q_dim), self.wo_x)
+        return self._mlp(x, cfg)
+
+
+class EncDecLM(nn.Module):
+    """The encoder-decoder on one device: ``embed``, ``enc_layers``,
+    ``enc_norm``, ``dec_layers``, ``final_norm`` and ``lm_head``, named as
+    the reference names them.  Weights start at zero, as in ``DenseLM``;
+    ``plain_attention`` runs the plain versions of the attention kernels
+    (for comparisons only)."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.device = dev
+        self.dtype = dtype
+        self.plain_attention = False
+        d, v = cfg.d_model, cfg.padded_vocab
+        self.embed = _param((v, d), dev, dtype)
+        self.enc_layers = nn.ModuleList(
+            EncoderLayer(cfg, dev, dtype) for _ in range(cfg.encoder_layers))
+        self.enc_norm = _param((d,), dev, dtype)
+        self.dec_layers = nn.ModuleList(
+            EncDecLayer(cfg, dev, dtype) for _ in range(cfg.num_layers))
+        self.final_norm = _param((d,), dev, dtype)
+        self.lm_head = _param((v, d), dev, dtype)
+
+    def init_params(self, generator: torch.Generator) -> "EncDecLM":
+        """Seeded weights by the reference's rules (``init_like_reference``)."""
+        init_like_reference(self, generator)
+        return self
+
+    @torch.no_grad()
+    def encode(self, audio_frames):
+        """(B, F, d) frames, taken in the weights' dtype -> the normed
+        encoder output (B, F, d)."""
+        x = torch.as_tensor(audio_frames, device=self.device).to(self.dtype)
+        for layer in self.enc_layers:
+            x = layer(x, self.cfg, self.plain_attention)
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
+    @torch.no_grad()
+    def prefill(self, tokens, audio_frames):
+        """tokens: (B, S), every row S tokens long; audio_frames: (B,
+        num_audio_frames, d_model).  Returns the logits (B, vocab) of the
+        last token and the prefill cache."""
+        cfg, plain = self.cfg, self.plain_attention
+        enc_out = self.encode(audio_frames)
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = embed_lookup(self.embed, tokens)
+        ks, vs, cks, cvs = [], [], [], []
+        for layer in self.dec_layers:
+            ck, cv = layer.cross_kv(enc_out, cfg)
+            x, (k, v) = layer.prefill(x, ck, cv, cfg, plain)
+            ks.append(k)
+            vs.append(v)
+            cks.append(ck.transpose(1, 2))
+            cvs.append(cv.transpose(1, 2))
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "ck": torch.stack(cks), "cv": torch.stack(cvs)}
+        return model_logits(self, x[:, -1]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos):
+        """One token per row.  cache: the dict of ``init_cache``; tokens:
+        (B,); pos: scalar or (B,) positions.  Returns (logits (B, vocab)
+        f32, cache), the self K/V written in place."""
+        cfg, plain = self.cfg, self.plain_attention
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = embed_lookup(self.embed, tokens)
+        pos = torch.as_tensor(pos, device=self.device)
+        lengths = full_lengths(cache["ck"][0])
+        for i, layer in enumerate(self.dec_layers):
+            x = layer.decode(x, (cache["k"][i], cache["v"][i]), cache["ck"][i],
+                             cache["cv"][i], pos, lengths, cfg, plain)
+        return model_logits(self, x), cache
+
+    def init_cache(self, batch: int, max_len: int):
+        cfg = self.cfg
+        kv = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        frames = (cfg.num_layers, batch, cfg.num_kv_heads,
+                  cfg.num_audio_frames, cfg.head_dim)
+        return {name: torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE)
+                for name, shape in (("k", kv), ("v", kv), ("ck", frames),
+                                    ("cv", frames))}

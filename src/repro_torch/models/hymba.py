@@ -47,7 +47,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (ACC_DTYPE, attention_block_decode,
                                        attention_block_prefill, embed_lookup,
-                                       lm_head_logits, matmul, mlp_block,
+                                       matmul, mlp_block, model_logits,
                                        rms_norm)
 from repro_torch.models.rwkv import ParamDef, _param, instantiate_all, model_defs
 from repro_torch.models.transformer import CACHE_DTYPE
@@ -332,11 +332,6 @@ class HymbaLM(nn.Module):
             instantiate_all(layer, layer_defs, generator)
         return self
 
-    def _logits_out(self, x):
-        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
-                                self.lm_head, valid_vocab=self.cfg.vocab_size)
-        return logits[..., :self.cfg.vocab_size]
-
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
@@ -381,7 +376,7 @@ class HymbaLM(nn.Module):
             cache[f"v_{kind}"][j] = v
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
-        return self._logits_out(x[:, -1]), cache
+        return model_logits(self, x[:, -1]), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
@@ -398,7 +393,7 @@ class HymbaLM(nn.Module):
                                         cache["conv"][i], cache["ssm"][i])
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
-        return self._logits_out(x), cache
+        return model_logits(self, x), cache
 
     def init_cache(self, batch: int, max_len: int):
         return self._cache(batch, max_len, CACHE_DTYPE)

@@ -11,9 +11,10 @@ Conventions kept from the reference:
 
 Unlike the reference, whose model path uses a jnp chunked attention, the
 attention here calls the port's kernels directly: ``causal_flash_attention``
-and the encoders' ``bidirectional_attention`` go to the flash kernel
-(causal and non-causal modes) and ``decode_attention`` to the decode
-kernel.  ``plain=True`` takes their plain PyTorch versions instead; only
+and the encoders' and cross-attention's ``bidirectional_attention`` go to
+the flash kernel (causal and non-causal modes, Sq != Sk for
+cross-attention) and ``decode_attention`` to the decode kernel (over a
+full cross-attention cache with ``full_lengths``).  ``plain=True`` takes their plain PyTorch versions instead; only
 the models' ``plain_attention``, which the chip smoke check sets to
 compare the two, passes it.
 """
@@ -88,6 +89,17 @@ def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
     return logits
 
 
+def model_logits(model, x: torch.Tensor) -> torch.Tensor:
+    """A decoder's output: its ``final_norm``, then f32 logits against its
+    ``lm_head`` (its ``embed`` where it ties the two), cut to the real
+    vocabulary."""
+    cfg = model.cfg
+    table = model.embed if model.lm_head is None else model.lm_head
+    logits = lm_head_logits(rms_norm(x, model.final_norm, cfg.norm_eps), table,
+                            valid_vocab=cfg.vocab_size)
+    return logits[..., :cfg.vocab_size]
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -154,6 +166,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_ref(q.reshape(B, KV, H // KV, D), k_cache,
                                     v_cache, cache_len).reshape(B, H, D)
     return decode_attention_op(q, k_cache, v_cache, cache_len)
+
+
+def full_lengths(cache: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 lengths that make every row of ``decode_attention``
+    attend over all Smax entries of a (B, KV, Smax, D) cache (the
+    cross-attention caches of the VLM and the enc-dec), made on the
+    cache's device, with no copy from the host."""
+    return torch.full((cache.shape[0],), cache.shape[2], dtype=torch.int32,
+                      device=cache.device)
 
 
 def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg

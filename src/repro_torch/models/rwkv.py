@@ -35,7 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
 from repro_torch.models.layers import (ACC_DTYPE, activate, embed_lookup,
-                                       lm_head_logits, matmul, rms_norm)
+                                       matmul, model_logits, rms_norm)
 
 LORA_R = 64  # decay lora rank
 DDLERP_R = 32  # data-dependent lerp rank
@@ -298,11 +298,6 @@ class RWKVLM(nn.Module):
             instantiate_all(layer, layer_defs, generator)
         return self
 
-    def _logits_out(self, x):
-        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
-                                self.lm_head, valid_vocab=self.cfg.vocab_size)
-        return logits[..., :self.cfg.vocab_size]
-
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
@@ -314,7 +309,7 @@ class RWKVLM(nn.Module):
         x = embed_lookup(self.embed, tokens)
         state = self.init_cache(tokens.shape[0], 0)
         x = self._run(x, state, prefill=True)
-        return self._logits_out(x[:, -1]), state
+        return model_logits(self, x[:, -1]), state
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
@@ -323,7 +318,7 @@ class RWKVLM(nn.Module):
         place and returns (logits (B, vocab) f32, cache)."""
         del pos
         x = embed_lookup(self.embed, self._tokens(tokens))
-        return self._logits_out(self._run(x, cache, prefill=False)), cache
+        return model_logits(self, self._run(x, cache, prefill=False)), cache
 
     def _run(self, x, state, prefill: bool):
         """Every layer over ``x``, updating the state dict in place."""

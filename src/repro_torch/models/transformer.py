@@ -35,7 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import (attention_block_decode,
                                        attention_block_prefill, attention_qkv,
                                        bidirectional_attention, embed_lookup,
-                                       lm_head_logits, matmul, mlp_block,
+                                       matmul, mlp_block, model_logits,
                                        rms_norm)
 from repro_torch.models.moe import moe_block, moe_shapes
 
@@ -52,11 +52,12 @@ def init_like_reference(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight as the reference's ``ParamDef.instantiate`` does:
     normal * 1/sqrt(fan_in) with fan_in = shape[-2] (d for an MoE router
     and its (E, d, f) experts, f for (E, f, d); the embedding at scale
-    1.0), norms and biases zeros.  Each tensor is drawn on the device in
-    f32 and cast to its own dtype, one at a time."""
+    1.0), norms, biases and the VLM's 0-dim gates zeros.  Each tensor is
+    drawn on the device in f32 and cast to its own dtype (the gates' f32
+    whatever the model's), one at a time."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if p.ndim == 1:  # ln1/ln2/final_norm/bq/bk/bv
+        if p.ndim <= 1:  # ln1/ln2/final_norm/bq/bk/bv, gate/gate_mlp
             p.zero_()
             continue
         scale = 1.0 if leaf == "embed" else 1.0 / math.sqrt(p.shape[-2])
@@ -66,6 +67,28 @@ def init_like_reference(model: nn.Module, generator: torch.Generator) -> None:
         del draw
 
 
+def attention_params(cfg: ArchConfig, device, dtype) -> nn.ParameterDict:
+    """The reference's ``attention_defs``: wq, wk, wv, wo and, with
+    ``qkv_bias``, bq, bk, bv."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    shapes = {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd), "wo": (qd, d)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(qd,), bk=(kvd,), bv=(kvd,))
+    return nn.ParameterDict({k: _param(s, device, dtype)
+                             for k, s in shapes.items()})
+
+
+def dense_mlp(cfg: ArchConfig, device, dtype) -> nn.ParameterDict:
+    """The reference's ``mlp_defs``: w_gate (gated activations only), w_up
+    and w_down."""
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = {"w_up": (d, f), "w_down": (f, d)}
+    if cfg.activation in ("swiglu", "geglu"):
+        shapes = {"w_gate": (d, f), **shapes}
+    return nn.ParameterDict({k: _param(s, device, dtype)
+                             for k, s in shapes.items()})
+
+
 class _Block(nn.Module):
     """One layer's weights, named as the reference names them: ``ln1``,
     ``attn`` (wq, wk, wv, wo and the optional biases), ``ln2``, ``mlp``
@@ -73,23 +96,16 @@ class _Block(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device, dtype):
         super().__init__()
-        d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+        d = cfg.d_model
         self.ln1 = _param((d,), device, dtype)
-        attn = {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd), "wo": (qd, d)}
-        if cfg.qkv_bias:
-            attn.update(bq=(qd,), bk=(kvd,), bv=(kvd,))
-        self.attn = nn.ParameterDict(
-            {k: _param(s, device, dtype) for k, s in attn.items()})
+        self.attn = attention_params(cfg, device, dtype)
         self.ln2 = _param((d,), device, dtype)
         if cfg.is_moe:  # the router stays f32 whatever the model's dtype
-            mlp = {k: _param(s, device, torch.float32 if f32 else dtype)
-                   for k, (s, f32) in moe_shapes(cfg).items()}
+            self.mlp = nn.ParameterDict(
+                {k: _param(s, device, torch.float32 if f32 else dtype)
+                 for k, (s, f32) in moe_shapes(cfg).items()})
         else:
-            shapes = {"w_up": (d, f), "w_down": (f, d)}
-            if cfg.activation in ("swiglu", "geglu"):
-                shapes = {"w_gate": (d, f), **shapes}
-            mlp = {k: _param(s, device, dtype) for k, s in shapes.items()}
-        self.mlp = nn.ParameterDict(mlp)
+            self.mlp = dense_mlp(cfg, device, dtype)
 
     def _ffn(self, x, cfg):
         """The reference's ``_ffn``: the routed experts of an MoE model,
@@ -152,12 +168,6 @@ class DenseLM(nn.Module):
             x = x * math.sqrt(self.cfg.d_model)
         return x
 
-    def _logits_out(self, x):
-        table = self.embed if self.lm_head is None else self.lm_head
-        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
-                                table, valid_vocab=self.cfg.vocab_size)
-        return logits[..., :self.cfg.vocab_size]
-
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
@@ -178,7 +188,7 @@ class DenseLM(nn.Module):
         else:
             lengths = torch.as_tensor(lengths, device=self.device).long()
             last = x[torch.arange(x.shape[0], device=self.device), lengths - 1]
-        return self._logits_out(last), (torch.stack(ks), torch.stack(vs))
+        return model_logits(self, last), (torch.stack(ks), torch.stack(vs))
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
@@ -192,7 +202,7 @@ class DenseLM(nn.Module):
         for i, layer in enumerate(self.layers):
             x, _ = layer.decode(x, (k_all[i], v_all[i]), pos, self.cfg,
                                 self.plain_attention)
-        return self._logits_out(x), cache
+        return model_logits(self, x), cache
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg

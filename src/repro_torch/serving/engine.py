@@ -1,7 +1,9 @@
 """Serving engine for the port's models, counterpart of ``repro.serving.engine``.
 
 Slot-based continuous batching on a :class:`DenseLM`, an :class:`RWKVLM`
-or a :class:`HymbaLM`:
+or a :class:`HymbaLM` (an encoder, the VLM and the enc-dec are refused:
+the first has no decode step, the other two prefill with image or audio
+inputs, which the reference's engine does not pass either):
 
   * prefill admits a waiting request into a free slot (logits for its
     last token seed decoding); for a dense KV cache, exact-prefix cache
@@ -37,7 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import EncoderLM
+from repro_torch.models.vision import VisionLM
 from repro_torch.serving.kv_cache import SlotKVCache
 from repro_torch.serving.prefix_cache import PrefixCache
 
@@ -60,6 +64,11 @@ class ServingEngine:
         if isinstance(model, EncoderLM):
             raise ValueError(f"{model.cfg.name} is an encoder: it has no decode "
                              "step or cache to serve from; call its prefill")
+        if isinstance(model, (VisionLM, EncDecLM)):
+            # the reference's engine prefills {"tokens"} alone, as this one
+            raise ValueError(f"{model.cfg.name} prefills with per-request "
+                             "image or audio inputs, which the engine does "
+                             "not take; use launch.serve_model.generate")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "

@@ -10,7 +10,9 @@ import torch
 
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import build_model
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DenseLM
+from repro_torch.models.vision import VisionLM
 from repro_torch.serving.engine import ServingEngine
 
 REPO = Path(__file__).resolve().parent.parent
@@ -45,7 +47,8 @@ def test_scan_finds_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "transformer.py", "layers.py", "ops.py",
             "chip_smoke.py", "bridge.py", "hw.py", "scheduler.py",
-            "profiler.py", "tile_plan.py", "hymba.py"} <= names
+            "profiler.py", "tile_plan.py", "hymba.py", "vision.py",
+            "encdec.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):
@@ -67,3 +70,11 @@ def test_entry_points_without_a_device_raise_here():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
     ServingEngine(model, device="cpu")  # the explicit CPU is taken
+    for arch, cls in (("llama-3.2-vision-11b", VisionLM),
+                      ("seamless-m4t-large-v2", EncDecLM)):
+        cfg = reduced_config(get_config(arch))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg)
+        cls(cfg, device="cpu")

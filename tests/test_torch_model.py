@@ -197,11 +197,16 @@ def test_registry_entries_equal_the_reference():
         assert cfg.to_dict() == JAX_REGISTRY[name].to_dict(), name
 
 
-def test_other_families_name_their_roadmap_item():
-    from repro_torch.configs.base import ArchConfig
+@pytest.mark.parametrize("arch,cls", [("llama-3.2-vision-11b", "VisionLM"),
+                                      ("seamless-m4t-large-v2", "EncDecLM")])
+def test_zoo_builds_the_cross_attention_decoders(arch, cls):
+    """The VLM and the enc-dec families build (no zoo family is left to a
+    later slice), and the port's ASSIGNED holds the reference's names."""
+    from repro.configs.registry import ASSIGNED as JAX_ASSIGNED
+    from repro_torch.configs.registry import ASSIGNED
 
-    vlm = ArchConfig(name="v", family="vlm", num_layers=2, d_model=8,
-                     num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=16,
-                     cross_attn_every=2, num_image_tokens=4)
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_model(vlm, device="cpu")
+    assert set(ASSIGNED) == set(JAX_ASSIGNED)
+    model = build_model(reduced_config(get_config(arch)), device="cpu",
+                        dtype=torch.float32)
+    assert type(model).__name__ == cls
+    assert hasattr(model, "prefill") and hasattr(model, "decode_step")
