@@ -13,15 +13,16 @@ attention kernels' sliding-window mode and ring decode beside its Mamba
 heads, the cross-attention decoders llama-3.2-vision-11b and
 seamless-m4t-large-v2 through both attention kernels over their image and
 audio caches, and rag_reranker's two encoders through the flash kernel's
-non-causal mode, and prints one JSON object per phase:
+non-causal mode, then trains qwen2.5-3b through the flash forward and
+its backward kernel, and prints one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
-2. ``build``: the four kernels compiled from ``src/repro_torch/csrc`` for
+2. ``build``: the five kernels compiled from ``src/repro_torch/csrc`` for
    sm_90a, in parallel, with nvcc's register/spill report; then one
    ``sass`` line per kernel library with its HGMMA, HMMA and FFMA
    instructions per entry (``cuobjdump -sass``), which fails the run if a
-   bf16 attention entry or the chunked WKV6 entry has no tensor-core
-   instruction;
+   bf16 attention entry, the chunked WKV6 entry or a dQ or dK/dV entry of
+   the attention backward has no tensor-core instruction;
 3. ``kernel_checks``: the attention kernels against their plain PyTorch
    versions on the card at the llama path's shapes, then the encoders'
    non-causal and head-dim-32 shapes (within TOL, and each
@@ -87,7 +88,23 @@ non-causal mode, and prints one JSON object per phase:
    tokens/s, mean and p99 ms per call, peak memory, the flash launch
    count (one per layer and call) and a ``torch.profiler`` breakdown of
    one query's calls;
-11. with the encoders freed, ``plan``: Scepsy's planner
+11. with the encoders freed, ``kernel_checks`` of the attention backward
+   (``flash_attention_bwd``: dq, dk, dv and the forward's lse against the
+   plain versions in f32, within TOL and ROW_REL_TOL, at the train shape
+   B=2, S=2048, H=16, KV=2, D=128, a ragged S=1000, hymba's window, the
+   encoders' non-causal D=64 and D=32 and the VLM's cross shape, each with
+   its graph ms, bound and SDPA's backward ms); ``train_parity``: one
+   train step of qwen2.5-3b at full width and 2 layers through the
+   kernels and through the plain attention, held against an f32 plain
+   run (loss within TOL, each gradient's RMS error within BF16_ERR_RATIO
+   of the plain bf16 run's); then ``train``: qwen2.5-3b at full width and
+   depth (bf16, seeded) for 30 AdamW steps on the reference's synthetic
+   corpus, 8 x 2048 tokens in 4 microbatches, one ``train_step`` line per
+   step (loss, ms, tokens/s, grad norm, model FLOPs share), peak memory, a
+   ``torch.profiler`` window of one step; the run fails unless every loss
+   is finite, the last 5 losses' mean is under 0.75x the first 5's, and
+   every step launches exactly 288 flash forwards and 144 backwards;
+12. ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
    its allocations, predicted latency and throughput and its placement,
@@ -213,13 +230,18 @@ def graph_ms(torch, fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / (5 * calls)
 
 
-def row_rel_err(torch, out, truth) -> float:
-    """Largest over rows (the last dim) of max |out - truth| / rms(truth)."""
+def row_rel_err(torch, out, truth, rows=None) -> float:
+    """Largest over rows (the last dim) of max |out - truth| / rms(truth);
+    a row whose truth is all zeros must be exactly zero.  ``rows``, a mask
+    broadcast over the leading dims, picks the rows held (all by
+    default)."""
     err = (out.float() - truth).abs().amax(-1)
     rms = truth.square().mean(-1).sqrt()
     rel = torch.where(rms > 0, err / rms.clamp_min(1e-30),
                       torch.where(err > 0, float("inf"), 0.0))
-    return float(rel.max())
+    if rows is not None:
+        rel = rel[rows.expand_as(rel)]
+    return float(rel.max()) if rel.numel() else 0.0
 
 
 def bound(ops: float, nbytes: float, dtype: str):
@@ -253,11 +275,13 @@ def ptxas_summary(text: str):
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
-# entries that must run on the tensor cores: the bf16 attention kernels and
-# the chunked WKV6 kernel
-TENSOR_CORE_ENTRIES = {"flash_attention": "flash_fwd_tc",
-                       "decode_attention": "decode_split",
-                       "wkv6_chunk": "wkv6_chunk_kernel"}
+# entries that must run on the tensor cores (names they contain): the bf16
+# attention kernels, the chunked WKV6 kernel and the attention backward's
+# dQ and dK/dV kernels
+TENSOR_CORE_ENTRIES = {"flash_attention": ("flash_fwd_tc",),
+                       "decode_attention": ("decode_split",),
+                       "wkv6_chunk": ("wkv6_chunk_kernel",),
+                       "flash_attention_bwd": ("bwd_dqI", "bwd_dkdvI")}
 
 
 def sass_counts(common, name: str) -> dict:
@@ -280,9 +304,9 @@ def sass_counts(common, name: str) -> dict:
                 if f" {op}." in line or f" {op} " in line:
                     counts[entry][op] += 1
     result = {"phase": "sass", "library": name, "entries": counts}
-    marker = TENSOR_CORE_ENTRIES.get(name)
-    if marker:
-        mine = [c for e, c in counts.items() if marker in e]
+    markers = TENSOR_CORE_ENTRIES.get(name)
+    if markers:
+        mine = [c for e, c in counts.items() if any(m in e for m in markers)]
         result["tensor_core_entries"] = len(mine)
         result["ok"] = bool(mine) and all(c["HGMMA"] + c["HMMA"] > 0 for c in mine)
     return result
@@ -536,6 +560,144 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
     return result
 
 
+def sdpa_calls(torch, F, qt, kt, vt, do_t, window, causal):
+    """SDPA on leaves that require grad, under the fused backends only
+    (never its plain math), as two zero-argument calls: the forward, and
+    the forward followed by its backward (``torch.autograd.grad``).  The
+    backward alone is their difference: autograd runs a backward on its
+    forward's stream, so a graph captures the two together.  Returns
+    (forward, forward_backward, None), or (None, None, the error) where no
+    fused backend takes the inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    S = qt.shape[2]
+    kwargs = {"is_causal": causal}
+    if causal and window > 0:
+        pos = torch.arange(S, device=qt.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        kwargs = {"attn_mask": mask}
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+
+    def forward():
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(*leaves, enable_gqa=True, **kwargs)
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), leaves, do_t)
+
+    try:
+        forward_backward()
+    except RuntimeError as exc:
+        return None, None, f"{type(exc).__name__}: {str(exc)[:200]}"
+    return forward, forward_backward, None
+
+
+def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
+                    Sk=None, causal=True):
+    """The backward kernel against its plain version: the forward with LSE
+    (kernel) on bf16 q, k, v, then dq, dk, dv from the backward kernel and
+    from ``flash_attention_bwd_ref`` in f32 on the same q, k, v, output,
+    dO and lse, held to TOL and, row by row, to ROW_REL_TOL; the kernel's
+    lse against the plain forward's logsumexp the same way.  The dq of a
+    query that sees one key (a causal call's first) is zero analytically
+    (P = 1, so dS = dP - D = 0), and so is the dk of a key that only such
+    queries see, which both sides reach only up to rounding: those rows
+    are held by TOL alone.  Times: the backward by CUDA events over
+    back-to-back calls and through a CUDA graph, its plain version, SDPA's
+    backward on the same inputs both ways (``sdpa_calls``: its forward
+    and backward less its forward), and the forward with and without the
+    LSE (graph)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_lse_ref)
+
+    dt = getattr(torch, dtype)
+    Sk = S if Sk is None else Sk
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(dt)
+
+    q, k, v, do = rnd(B, S, H, D), rnd(B, Sk, KV, D), rnd(B, Sk, KV, D), rnd(B, S, H, D)
+    out, lse = ops_mod.flash_attention_fwd_lse(q, k, v, window=window, causal=causal)
+
+    def kernel():
+        return ops_mod.flash_attention_bwd_op(q, k, v, out, do, lse, window=window,
+                                              causal=causal)
+
+    t = [x.transpose(1, 2) for x in (q, k, v, out, do)]
+
+    def plain():
+        return flash_attention_bwd_ref(*t, lse, window=window, causal=causal)
+
+    grads = kernel()
+    torch.cuda.synchronize()
+    truth = flash_attention_bwd_ref(*[x.float() for x in t], lse, window=window,
+                                    causal=causal)
+    tol = TOL[dtype]
+    mask = torch.ones(S, Sk, dtype=torch.bool, device=dev)
+    if causal:
+        pos = torch.arange(S, device=dev)
+        mask = pos[None, :] <= pos[:, None]
+        if window > 0:
+            mask &= pos[None, :] > pos[:, None] - window
+    pairs = int(mask.sum())
+    # the dq rows of queries that see more than one key, the dk rows of
+    # keys that such a query sees: the rows held row by row
+    multi_q = mask.sum(1) > 1
+    multi_k = (mask & multi_q[:, None]).any(0)
+    del mask
+    errs, row_errs, ok_abs = [], [], True
+    for g, ref, rows in zip(grads, truth, (multi_q[None, :, None],
+                                           multi_k[None, :, None], None)):
+        ref = ref.transpose(1, 2)
+        err = (g.float() - ref).abs()
+        ok_abs = ok_abs and bool((err <= tol + tol * ref.abs()).all()) \
+            and bool(torch.isfinite(g).all())
+        errs.append(float(err.max()))
+        row_errs.append(row_rel_err(torch, g, ref, rows))
+    del truth
+    _, lse_ref = flash_attention_fwd_lse_ref(*[x.float() for x in t[:3]],
+                                             window=window, causal=causal)
+    lse_err = (lse - lse_ref).abs()
+    lse_ok = bool((lse_err <= tol + tol * lse_ref.abs()).all())
+    esize = q.element_size()
+    # read q, k, v, o, dO and lse; write dq, dk and dv
+    nbytes = (esize * (3 * B * S * H * D + 2 * B * Sk * KV * D) + 4 * B * H * S
+              + esize * (B * S * H * D + 2 * B * Sk * KV * D))
+    flops = 10.0 * B * H * D * pairs
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    sdpa_fwd, sdpa_fwd_bwd, library_error = sdpa_calls(torch, F, *t[:3], t[4],
+                                                       window, causal)
+    kernel_graph_ms = graph_ms(torch, kernel)
+    row_err = max(row_errs)
+    result = {"kernel": "flash_attention_bwd", "dtype": dtype,
+              "shape": {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
+                        "window": window, "causal": causal},
+              "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs, "tol": tol,
+              "max_row_rel_err": row_err, "row_rel_err_dq_dk_dv": row_errs,
+              "row_rel_tol": ROW_REL_TOL,
+              "lse_max_abs_err": float(lse_err.max()),
+              "lse_max_row_rel_err": row_rel_err(torch, lse[..., None], lse_ref[..., None]),
+              "ok_abs": ok_abs and lse_ok, "ok_rows": row_err <= ROW_REL_TOL,
+              "kernel_ms": cuda_ms(torch, kernel), "kernel_graph_ms": kernel_graph_ms,
+              "tflops_graph": flops / kernel_graph_ms * 1e-9,
+              "plain_ms": cuda_ms(torch, plain),
+              "fwd_graph_ms": graph_ms(torch, lambda: ops_mod.flash_attention_op(
+                  q, k, v, window=window, causal=causal)),
+              "fwd_lse_graph_ms": graph_ms(torch, lambda: ops_mod.flash_attention_fwd_lse(
+                  q, k, v, window=window, causal=causal)),
+              "library": "SDPA backward (flash, efficient or cuDNN backend)",
+              "library_ms": (cuda_ms(torch, sdpa_fwd_bwd) - cuda_ms(torch, sdpa_fwd)
+                             if sdpa_fwd else None),
+              "library_graph_ms": (graph_ms(torch, sdpa_fwd_bwd) - graph_ms(torch, sdpa_fwd)
+                                   if sdpa_fwd else None),
+              "library_error": library_error,
+              "bound_ms": b_ms, "bound_by": b_by}
+    result["ok"] = result["ok_abs"] and result["ok_rows"]
+    return result
+
+
 # the main path's shapes: llama-3.1-8b (H=32, KV=8, D=128) first, then one
 # size each of the other head dims and group sizes the registry serves
 FLASH_CASES = [
@@ -625,11 +787,21 @@ WKV6_CASES += [(B, 1, 64, 64, "bfloat16", 0, "mild") for B in (1, 8)]
 WKV6_CASES += [(B, S, 64, 64, "float32", split, "mild")
                for B, S, split in ((1, 1, 0), (1, 77, 0), (1, 1000, 0),
                                    (1, 2048, 0), (8, 1, 0), (1, 1000, 500))]
+# the backward kernel at the train phase's shape (qwen2.5-3b: H=16, KV=2,
+# D=128, B=2 per microbatch, S=2048), a ragged S, hymba's window, and the
+# next losses' modes: the encoders' non-causal attention at D=64 and D=32
+# and the VLM's cross-attention (512 over 1601)
+FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
+                   (1, 1000, 32, 8, 128, 0, "bfloat16"),
+                   (1, 2048, 25, 5, 64, 1024, "bfloat16"),
+                   (8, 512, 12, 12, 64, 0, "bfloat16", 512, False),
+                   (8, 512, 12, 12, 32, 0, "bfloat16", 512, False),
+                   (8, 512, 32, 8, 128, 0, "bfloat16", 1601, False)]
 # the row of each kernel in the summary line: its index among the kernel's
 # checks (flash: S=1000; decode: the engine's 8 slots; wkv6_chunk: B=1,
 # S=1000; wkv6_scan: the engine's decode step, B=8 at S=1, bf16)
 SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0, "wkv6_chunk": 3,
-                 "wkv6_scan": 1}
+                 "wkv6_scan": 1, "flash_attention_bwd": 0}
 SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:90"),
@@ -639,6 +811,10 @@ SOURCES = {
                   "src/repro/kernels/rwkv6_scan/kernel.py:77"),
     "wkv6_chunk": ("src/repro_torch/csrc/wkv6_chunk.cu",
                    "src/repro/kernels/rwkv6_scan/kernel.py:77"),
+    # the TPU kernel flash_attention (kernel.py:90) has no backward: the
+    # reference's training differentiates its jnp causal_flash_attention
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:308"),
 }
 
 
@@ -1146,8 +1322,9 @@ def device_breakdown(torch, calls):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        groups = {"flash_attention": 0.0, "decode_attention": 0.0,
-                  "wkv6": 0.0, "matmul": 0.0, "other": 0.0}
+        groups = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+                  "decode_attention": 0.0, "wkv6": 0.0, "matmul": 0.0,
+                  "other": 0.0}
         kernels = []
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
@@ -1158,6 +1335,8 @@ def device_breakdown(torch, calls):
             name = e.key.lower()
             if "flash_fwd" in name:
                 group = "flash_attention"
+            elif any(w in name for w in ("bwd_delta", "bwd_dq", "bwd_dkdv")):
+                group = "flash_attention_bwd"
             elif any(w in name for w in ("decode_split", "decode_merge",
                                          "decode_fwd")):
                 group = "decode_attention"
@@ -1238,7 +1417,197 @@ def encode_run(torch, np, models, common):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the planner on H100 hosts
+# phase 11: training qwen2.5-3b
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2.5-3b"
+# SyntheticCorpus(vocab, seq, global batch), microbatches, steps, AdamW
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_STEPS = 2048, 8, 4, 30
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 10
+# the reference's bar for a falling loss (tests/test_training.py)
+TRAIN_LOSS_RATIO = 0.75
+PARITY_LAYERS = 2
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (the recompute not counted): 6 N per
+    token for the weights, and 3 x 4 D per unmasked (query, key) pair and
+    head of every layer's causal attention (forward, and a backward of
+    twice its products)."""
+    pairs = seq * (seq + 1) // 2
+    attn = 12.0 * cfg.head_dim * cfg.num_heads * cfg.num_layers * batch * pairs
+    return 6.0 * n_params * batch * seq + attn
+
+
+def train_run(torch, np, cfg, dev, build_model, common):
+    """``cfg`` at full width and depth, bf16 weights from the seed, trained
+    for TRAIN_STEPS steps on ``SyntheticCorpus`` batches of TRAIN_BATCH x
+    TRAIN_SEQ tokens in TRAIN_MICROBATCHES microbatches through
+    ``make_train_step``.  Each step's launch counts are set to 0 just
+    before it and read just after.  ``ok`` needs every loss finite, the
+    mean of the last 5 below TRAIN_LOSS_RATIO of the first 5's, and, in
+    every step, exactly 2 flash forwards per layer and microbatch (the
+    forward and the checkpoint's recompute) and one backward, nothing
+    else.  An extra step is profiled (``device_breakdown``)."""
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import (AdamWConfig, global_norm,
+                                                init_state)
+    from repro_torch.training.train_loop import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP),
+                              num_microbatches=TRAIN_MICROBATCHES)
+    state = init_state(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    data = SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                      seed=SEED))
+    per_mb = {"flash_attention": 2 * cfg.num_layers * TRAIN_MICROBATCHES,
+              "flash_attention_bwd": cfg.num_layers * TRAIN_MICROBATCHES}
+    expected = {name: per_mb.get(name, 0) for name in common.KERNELS}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    steps, launches_ok, totals = [], True, Counter()
+    for step in range(TRAIN_STEPS):
+        batch = data.batch_at(step)
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = dict(common.launch_counts)
+        totals.update(launches)
+        launches_ok = launches_ok and launches == expected
+        row = {"phase": "train_step", "arch": cfg.name, "step": int(metrics["step"]),
+               "loss": loss, "ms": seconds * 1e3, "tokens_per_s": tokens / seconds,
+               "grad_norm": float(global_norm(p.grad for p in params.values())),
+               "model_flops_share": flops / seconds / PEAK_OPS["bfloat16"],
+               "launches": {k: n for k, n in launches.items() if n}}
+        emit(row)
+        steps.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_breakdown(torch, [lambda: step_fn(state, data.batch_at(TRAIN_STEPS))])
+    losses = [r["loss"] for r in steps]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    ms = [r["ms"] for r in steps[1:]]  # the first step pays the allocator's warm-up
+    result = {
+        "phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "params": n_params,
+        "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICROBATCHES,
+        "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+        "setup_s": setup_s, "first5_mean_loss": first, "last5_mean_loss": last,
+        "loss_ratio": last / first, "loss_ratio_bar": TRAIN_LOSS_RATIO,
+        "step_ms_mean": float(np.mean(ms)), "step_ms_min": float(np.min(ms)),
+        "tokens_per_s": tokens / (float(np.mean(ms)) / 1e3),
+        "model_flops_per_step": flops,
+        "model_flops_share": flops / (float(np.mean(ms)) / 1e3) / PEAK_OPS["bfloat16"],
+        "max_memory_allocated_bytes": peak,
+        "launches_per_step_expected": {k: n for k, n in expected.items() if n},
+        "launches": dict(totals), "profile_one_step": profile,
+        "finite": all(np.isfinite(losses))}
+    result["ok"] = (result["finite"] and last < TRAIN_LOSS_RATIO * first
+                    and launches_ok)
+    del model, params, state, step_fn
+    return result
+
+
+def train_parity(torch, np, cfg, dev, build_model, common):
+    """One train step (one microbatch of 2 x TRAIN_SEQ tokens) of ``cfg`` at
+    full width and PARITY_LAYERS layers, from weights drawn from one seed:
+    in f32 with the plain attention (the reference run), in bf16 with the
+    plain attention and in bf16 through the kernels.  The kernels' loss
+    must be within bf16 TOL of the plain bf16 loss's scale, and each
+    gradient's RMS error against the f32 run at most BF16_ERR_RATIO times
+    the plain bf16 run's, as ``model_check`` holds logits.  The kernel run
+    launches exactly 2 flash forwards and one backward per layer, the
+    plain runs none."""
+    import dataclasses
+
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+    batch = SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_SEQ, 2,
+                                       seed=SEED + 7)).batch_at(0)
+    runs = {}
+    for dtype, plain in (("float32", True), ("bfloat16", True), ("bfloat16", False)):
+        model = build_model(small, device=dev, dtype=getattr(torch, dtype))
+        model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+        model.plain_attention = plain
+        step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+        state = init_state(dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        _, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        launches = {k: n for k, n in common.launch_counts.items() if n}
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        runs[dtype, plain] = (loss, grads, launches)
+        del model, step_fn, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_loss, ref, _ = runs["float32", True]
+    plain_loss, plain_g, plain_launches = runs["bfloat16", True]
+    kern_loss, kern_g, kern_launches = runs["bfloat16", False]
+    ratios = {}
+    for name, g in ref.items():
+        p_err = _rms(torch, plain_g[name], g)
+        k_err = _rms(torch, kern_g[name], g)
+        ratios[name] = k_err / p_err if p_err > 0 else (0.0 if k_err == 0 else float("inf"))
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])
+    tol = TOL["bfloat16"]
+    want = {"flash_attention": 2 * PARITY_LAYERS, "flash_attention_bwd": PARITY_LAYERS}
+    result = {"phase": "train_parity", "arch": cfg.name, "layers": PARITY_LAYERS,
+              "d_model": cfg.d_model, "tokens": 2 * TRAIN_SEQ,
+              "loss_f32_plain": ref_loss, "loss_bf16_plain": plain_loss,
+              "loss_bf16_kernel": kern_loss,
+              "loss_rel_diff": abs(kern_loss - plain_loss) / abs(plain_loss),
+              "loss_tol": tol, "grads": len(ratios),
+              "grad_rms_err_ratio_max": worst[0][1],
+              "grad_rms_err_ratio_worst5": dict(worst[:5]),
+              "grad_rms_err_ratio_tol": BF16_ERR_RATIO,
+              "launches_kernel_run": kern_launches, "launches_kernel_expected": want,
+              "launches_plain_run": plain_launches}
+    result["ok"] = (abs(kern_loss - plain_loss) <= tol * abs(plain_loss)
+                    and all(np.isfinite([ref_loss, plain_loss, kern_loss]))
+                    and worst[0][1] <= BF16_ERR_RATIO
+                    and kern_launches == want and not plain_launches)
+    return result
+
+
+def train_phase(torch, np, F, flash_ops, dev, gen, build_model, common, get_config):
+    """The backward kernel's checks, the step parity check and the
+    30-step training run; returns the checks and the train result."""
+    bwd = [check_flash_bwd(torch, F, flash_ops, dev, gen, *c) for c in FLASH_BWD_CASES]
+    emit({"phase": "kernel_checks", "checks": bwd})
+    bad = [c for c in bwd if not c["ok"]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} flash backward check(s) out of tolerance")
+    cfg = get_config(TRAIN_ARCH)
+    result = train_parity(torch, np, cfg, dev, build_model, common)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("train step parity (kernels vs plain) failed")
+    result = train_run(torch, np, cfg, dev, build_model, common)
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure(f"{TRAIN_ARCH} training run failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bwd, result
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the planner on H100 hosts
 # ---------------------------------------------------------------------------
 
 PLAN_RATE = 0.4  # req/s, the launcher's default target
@@ -1614,6 +1983,14 @@ def run():
     del encoders
     gc.collect()
     torch.cuda.empty_cache()
+
+    # training, on a card free of the encoders: the backward kernel's
+    # checks, the step parity and qwen2.5-3b at full width and depth
+    bwd_checks, train = train_phase(torch, np, F, flash_ops, dev, gen,
+                                    build_model, common, get_config)
+    checks += bwd_checks
+    engines["flash_attention_bwd"] = train
+
     plan_phase(torch, flash_ops, checks, predicted, steps)
 
     summary = []
@@ -1642,8 +2019,11 @@ def run():
             row["launches_hymba"] = hymba_launches[row["name"]]
             row["launches_vlm"] = cross_launches["vlm"][row["name"]]
             row["launches_encdec"] = cross_launches["audio"][row["name"]]
-    next(r for r in summary if r["name"] == "flash_attention")[
-        "launches_encode"] = encode_launches
+    flash_row = next(r for r in summary if r["name"] == "flash_attention")
+    flash_row["launches_encode"] = encode_launches
+    flash_row["launches_train"] = train["launches"]["flash_attention"]
+    next(r for r in summary if r["name"] == "flash_attention_bwd")[
+        "launches_per_step"] = train["launches_per_step_expected"]["flash_attention_bwd"]
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -31,7 +31,11 @@
 // sequential grid axis).  Ragged S: TMA reads rows past S as zeros, the
 // mask drops them, and rows past S are not stored.  Query rows per block
 // (128, or 64 where 128 would leave SMs idle) are chosen by S so that short
-// prompts still spread over the card's SMs.
+// prompts still spread over the card's SMs.  Given an lse pointer (the
+// training forward; serving passes none), a block also stores each row's
+// log-sum-exp, (m + log2 l) ln 2 with m in log2 units, from the registers that
+// already hold m and l: the backward (flash_attention_bwd.cu) recomputes
+// the probabilities from it.
 //
 // Non-causal (the encoders): every query tile walks all ceil(Sk / BKV) kv
 // tiles, and only keys at or past Sk are masked.  Head dim 32 (the MiniLM
@@ -612,7 +616,8 @@ template <int D, int NWG, int BKV>
 __global__ void __launch_bounds__(Cfg<D, NWG, BKV>::THREADS, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
              const __grid_constant__ CUtensorMap tmk,
-             const __grid_constant__ CUtensorMap tmv, bf16* __restrict__ o, int Sq,
+             const __grid_constant__ CUtensorMap tmv, bf16* __restrict__ o,
+             float* __restrict__ lse, int Sq,
              int Sk, int G, int window, int causal, float scale_log2, long long osb,
              long long osh, long long oss) {
   using C = Cfg<D, NWG, BKV>;
@@ -802,6 +807,17 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmq,
       *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[j] * inv[r], acc[j + 1] * inv[r]);
     }
   }
+  // each row's log-sum-exp of the scaled scores, natural log, for the
+  // backward (training only; serving passes no lse): m is in log2 units
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = q_lo + wg * 64 + r0 + 8 * r;
+      if (qpos < Sq)
+        lse[((long long)b * gridDim.y + h) * Sq + qpos] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : INFINITY;
+    }
+  }
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime so that
@@ -849,9 +865,9 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
 }
 
 template <int D, int NWG, int BKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-           int Sq, int Sk, int window, int causal, Strides qs, Strides ks, Strides vs,
-           Strides os, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int KV, int Sq, int Sk, int window, int causal, Strides qs, Strides ks,
+           Strides vs, Strides os, cudaStream_t stream) {
   using C = Cfg<D, NWG, BKV>;
   static bool configured = false;
   if (!configured) {
@@ -867,7 +883,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const dim3 grid((Sq + C::ROWS - 1) / C::ROWS, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   flash_fwd_tc<D, NWG, BKV><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), Sq, Sk, H / KV, window, causal, scale_log2,
+      tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Sk, H / KV, window, causal, scale_log2,
       os.b, os.h, os.s);
   return (int)cudaGetLastError();
 }
@@ -911,13 +927,13 @@ int with_tile(int D, int nwg, F f) {
   }
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int Sq, int Sk, int D, int window, int causal, Strides qs, Strides ks,
-             Strides vs, Strides os, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int H, int KV, int Sq, int Sk, int D, int window, int causal, Strides qs,
+             Strides ks, Strides vs, Strides os, cudaStream_t st) {
   return with_tile(D, pick_warpgroups(B, H, Sq, D, device_sms()), [&](auto tile) {
     using T = decltype(tile);
-    return launch<T::D, T::NWG, T::BKV>(q, k, v, o, B, H, KV, Sq, Sk, window, causal, qs,
-                                        ks, vs, os, st);
+    return launch<T::D, T::NWG, T::BKV>(q, k, v, o, lse, B, H, KV, Sq, Sk, window, causal,
+                                        qs, ks, vs, os, st);
   });
 }
 
@@ -944,9 +960,12 @@ extern "C" {
 // q: (B, H, Sq, D) and k/v: (B, KV, Sk, D) addressed through element
 // strides (batch, head, position); the last dim is contiguous.  out has q's
 // shape.  causal = 1 (Sq == Sk, optional window) or 0 (no mask, window 0).
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  lse, when
+// not null (bf16 only), receives each row's log-sum-exp of the scaled,
+// masked scores, natural log, as a contiguous (B, H, Sq) f32 tensor; the
+// backward (flash_attention_bwd.cu) recomputes the probabilities from it.
 // Returns cudaGetLastError().
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int B, int H, int KV, int Sq, int Sk, int D, int window,
                         int causal, int dtype,
                         long long qsb, long long qsh, long long qss,
@@ -957,12 +976,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 && lse == nullptr)
     return f32::dispatch<float>(q, k, v, o, B, H, KV, Sq, Sk, D, window, causal, qs, ks,
                                 vs, os, st);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, o, B, H, KV, Sq, Sk, D, window, causal, qs, ks, vs, os,
-                        st);
+    return tc::dispatch(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, D, window,
+                        causal, qs, ks, vs, os, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,7 +33,8 @@ BUILD_DIR = REPO_ROOT / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("flash_attention", "decode_attention", "wkv6_scan", "wkv6_chunk")
+KERNELS = ("flash_attention", "decode_attention", "wkv6_scan", "wkv6_chunk",
+           "flash_attention_bwd")
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -47,6 +48,16 @@ def reset_launch_counts() -> None:
 
 def count_launch(name: str) -> None:
     launch_counts[name] += 1
+
+
+def refuse_grad(wrapper: str, *tensors: torch.Tensor) -> None:
+    """Raise where a wrapper whose kernel has no backward is called on the
+    card for a result that needs a gradient: the launch would write its
+    output through ctypes, and autograd would pass no gradient back."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{wrapper}: an input requires grad, and its "
+                           "kernel has no backward; call it under "
+                           "torch.no_grad()")
 
 
 def nvcc_path() -> str:

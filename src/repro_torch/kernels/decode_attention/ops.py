@@ -47,7 +47,9 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     (B,) integer tensor, the number of valid cache positions of each row
     (clamped to [0, Smax] by the kernel).  The caches may be of another
     float type than q (the engine's cache is bf16 whatever the weights').
-    Returns (B, H, D) in q's dtype; a row of length 0 is zeros.
+    Returns (B, H, D) in q's dtype; a row of length 0 is zeros.  On the
+    card it raises where an input requires grad (the kernel has no
+    backward); on the CPU the plain version is an autograd op.
     """
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
@@ -61,6 +63,7 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q.reshape(B, KV, G, D), k_cache, v_cache,
                                     lengths).reshape(B, H, D)
+    common.refuse_grad("decode_attention_op", q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     for t in (q, k_cache):

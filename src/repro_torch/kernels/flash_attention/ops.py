@@ -1,22 +1,42 @@
-"""Wrapper of the flash attention kernel, in the model's (B, S, H, D) layout.
+"""Wrappers of the flash attention kernels, in the model's (B, S, H, D) layout.
 
-A CPU tensor goes to the plain version in ``ref.py``.  A CUDA tensor goes
-to the kernel of ``csrc/flash_attention.cu``, or the wrapper raises.
+A CPU tensor goes to the plain versions in ``ref.py``.  A CUDA tensor goes
+to the kernels of ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (backward), or the wrapper raises.
+
+A call that needs a gradient (grad mode on and an input that requires
+grad) goes through ``FlashAttentionFn``: its forward also keeps each row's
+log-sum-exp, and its backward launches the backward kernel (on the CPU,
+the plain forward-with-LSE and the plain backward).  Every other call
+takes the forward alone, with no LSE.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import common
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_fwd_lse_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.tile_plan import HEAD_DIMS
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_bwd"
+# the backward kernel's head dims; it takes bf16 only
+BWD_HEAD_DIMS = (32, 64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P] + [_I] * 9 + [_L] * 12 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 9 + [_L] * 12 + [_P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [_L] * 24 + [_P]
+
+
+def _bhs_strides(*tensors):
+    """Element strides of (B, S, H, D) tensors in (batch, head, position)
+    order, the kernels' argument order."""
+    return [t.stride(i) for t in tensors for i in (0, 2, 1)]
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -26,8 +46,23 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, D); k/v: (B, Sk, KV, D), as produced by attention_qkv.
     Causal attention needs Sq == Sk; non-causal takes any Sk >= 1 and no
-    window.  Returns (B, Sq, H, D) in q's dtype.
+    window.  Returns (B, Sq, H, D) in q's dtype.  With grad mode on and an
+    input that requires grad the call goes through ``FlashAttentionFn``
+    (on the card: bf16 and a head dim of ``BWD_HEAD_DIMS`` only).
     """
+    check_shapes(q, k, v, window, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cuda":
+            check_backward_operands(q)
+        return FlashAttentionFn.apply(q, k, v, window, causal)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), window=window,
+                                   causal=causal).transpose(1, 2)
+    return _launch_forward(q, k, v, window, causal, with_lse=False)[0]
+
+
+def check_shapes(q, k, v, window: int, causal: bool) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -43,26 +78,125 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{NAME}: a sliding window needs causal attention")
     if Sk < 1 and Sq > 0:
         raise ValueError(f"{NAME}: no keys to attend over")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), window=window,
-                                   causal=causal).transpose(1, 2)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
+
+
+def _launch_forward(q, k, v, window: int, causal: bool, with_lse: bool):
+    """The forward kernel on CUDA tensors: (out (B, Sq, H, D), and with
+    ``with_lse`` each row's log-sum-exp (B, H, Sq) f32, else None)."""
     check_kernel_operands(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     fn = common.load_function(NAME, "flash_attention_fwd", _ARGTYPES)
-    # element strides in (batch, head, position) order
-    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
             B, H, KV, Sq, Sk, D, int(window), int(causal),
-            common.DTYPE_CODES[q.dtype], *strides,
+            common.DTYPE_CODES[q.dtype], *_bhs_strides(q, k, v, out),
             common.current_stream(q.device))
     common.check(NAME, rc)
     common.count_launch(NAME)
-    return out
+    return out, lse
+
+
+def flash_attention_fwd_lse(q, k, v, *, window: int = 0, causal: bool = True):
+    """The forward and each row's log-sum-exp of the scaled, masked scores
+    (natural log): (out (B, Sq, H, D), lse (B, H, Sq) f32).  The forward of
+    ``FlashAttentionFn``; on the card, bf16 only."""
+    check_shapes(q, k, v, window, causal)
+    if q.device.type == "cpu":
+        out, lse = flash_attention_fwd_lse_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=window, causal=causal)
+        return out.transpose(1, 2), lse
+    check_backward_operands(q)
+    return _launch_forward(q, k, v, window, causal, with_lse=True)
+
+
+def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
+                           causal: bool = True):
+    """(dq, dk, dv) of the flash forward, in the layouts and dtypes of q, k
+    and v: q/out/dout (B, Sq, H, D), k/v (B, Sk, KV, D), lse (B, H, Sq)
+    from ``flash_attention_fwd_lse``.  A CUDA call runs the backward
+    kernel (bf16, head dim of ``BWD_HEAD_DIMS``) and bumps its launch
+    count once."""
+    check_shapes(q, k, v, window, causal)
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            out.transpose(1, 2), dout.transpose(1, 2), lse, window=window,
+            causal=causal)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    check_backward_operands(q)
+    check_kernel_operands(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"{BWD_NAME}: out{tuple(out.shape)} / "
+                         f"dout{tuple(dout.shape)} != q{tuple(q.shape)}")
+    # the kernels read lse with plain loads: any Sq, no row alignment
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"{BWD_NAME}: lse must be contiguous f32 "
+                         f"{(B, H, Sq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    dout = dout.to(q.dtype).contiguous()
+    for t in (out, dout):
+        common.check_operand(BWD_NAME, t, q.device, q.dtype)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = common.load_function(BWD_NAME, "flash_attention_bwd", _BWD_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Sk, D, int(window),
+            int(causal), *_bhs_strides(q, k, v, out, dout, dq, dk, dv),
+            common.current_stream(q.device))
+    common.check(BWD_NAME, rc)
+    common.count_launch(BWD_NAME)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient.  The forward keeps q, k, v, the
+    output and each row's log-sum-exp; the backward recomputes the
+    probabilities from them (``flash_attention_bwd_op``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, causal: bool):
+        out, lse = flash_attention_fwd_lse(q, k, v, window=window,
+                                           causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, out, dout, lse,
+                                            window=ctx.window,
+                                            causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def check_backward_operands(q: torch.Tensor) -> None:
+    """What a CUDA call that needs a gradient takes: bf16 (the training
+    dtype) and a head dim of ``BWD_HEAD_DIMS``."""
+    if q.dtype != torch.bfloat16:
+        raise RuntimeError(f"{BWD_NAME}: the backward kernel takes bf16, got "
+                           f"{q.dtype}")
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise RuntimeError(f"{BWD_NAME}: head_dim {q.shape[-1]} not in "
+                           f"{BWD_HEAD_DIMS}")
 
 
 def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,

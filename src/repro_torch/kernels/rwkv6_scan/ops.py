@@ -47,7 +47,8 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     final state goes to ``out_state`` when it is given, which may be
     ``state`` itself (an update in place).  On the card the call runs
     the kernel ``kernel_for(r.dtype, S, D)`` names and bumps its launch
-    count.
+    count, and raises where an input requires grad (neither kernel has a
+    backward); on the CPU the plain version is an autograd op.
     """
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"{NAME}: r/k/v/logw must share one (B, H, S, D) "
@@ -66,6 +67,7 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if out_state is None:
             return out, s1
         return out, out_state.copy_(s1)
+    common.refuse_grad("wkv6_op", r, k, v, logw, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {r.device}")
     if r.dtype not in common.DTYPE_CODES:

@@ -1,0 +1,73 @@
+"""Train a decoder with seeded random weights on the reference's synthetic
+token stream: AdamW over the microbatched loss of ``DenseLM`` (dense or
+MoE).  The counterpart of the reference's ``launch/train.py``, with its
+flags and defaults but no checkpoints or gradient compression
+(``--ckpt-dir``, ``--ckpt-every``, ``--resume``, ``--compress``), which
+the port does not have yet.  Like the reference's, the CLI always trains
+a reduced config (``--reduced`` is on by default and cannot be turned
+off); full-width runs go through ``training.train_loop.make_train_step``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --steps 30
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+
+Runs on the card unless ``--device cpu`` is given.  The weights are bf16
+and the moments f32, as in the reference.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.training.data import DataConfig, SyntheticCorpus
+from repro_torch.training.optimizer import AdamWConfig, init_state
+from repro_torch.training.train_loop import make_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    model = build_model(cfg, device=device, dtype=torch.bfloat16)
+    if not hasattr(model, "forward_loss"):
+        raise SystemExit(f"{cfg.name}: the port trains the dense and MoE "
+                         "decoders only")
+    model.init_params(torch.Generator(device=device).manual_seed(args.seed))
+    train_step = make_train_step(model, AdamWConfig(lr=args.lr, warmup_steps=10))
+    opt_state = init_state(dict(model.named_parameters()))
+    data = SyntheticCorpus(DataConfig(cfg.vocab_size, args.seq, args.batch,
+                                      seed=args.seed))
+
+    losses = []
+    for step in range(args.steps):
+        t0 = time.time()
+        opt_state, metrics = train_step(opt_state, data.batch_at(step))
+        losses.append(float(metrics["loss"]))
+        print(f"step {step}: loss={losses[-1]:.4f} "
+              f"({time.time()-t0:.2f}s)", flush=True)
+    if len(losses) >= 10:
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        print(f"loss {first:.4f} -> {last:.4f} "
+              f"({'DECREASED' if last < first else 'no decrease'})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -68,6 +68,26 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, table)
 
 
+class _F32Logits(torch.autograd.Function):
+    """(N, d) x (V, d)^T of two bf16 CUDA tensors with f32 accumulation and
+    an f32 output, with no f32 copy of the table.  ``torch.mm`` with
+    ``out_dtype`` has no derivative, so the backward is written here: the
+    f32 gradient of the logits is rounded to the operands' dtype once
+    (an (N, V) copy, not a (V, d) one), and both products accumulate in
+    f32."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=ACC_DTYPE)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, table = ctx.saved_tensors
+        g = grad.to(x2.dtype)
+        return g @ table, g.t() @ x2
+
+
 def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
                    valid_vocab: Optional[int] = None) -> torch.Tensor:
     """f32 logits of x against the (V_padded, d) table (possibly tied).
@@ -80,13 +100,23 @@ def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
         # bf16 operands, f32 accumulation and f32 output, with no f32 copy
         # of the table
         x2 = x.reshape(-1, x.shape[-1])
-        logits = torch.mm(x2, table.t(), out_dtype=ACC_DTYPE)
+        logits = _F32Logits.apply(x2, table)
         logits = logits.reshape(*x.shape[:-1], table.shape[0])
     else:
         logits = torch.matmul(x.to(ACC_DTYPE), table.to(ACC_DTYPE).t())
     if valid_vocab is not None and valid_vocab < table.shape[0]:
         logits[..., valid_vocab:] = -1e30
     return logits
+
+
+def cross_entropy_from_logits(logits: torch.Tensor,
+                              labels: torch.Tensor) -> torch.Tensor:
+    """Mean over (B, S) of logsumexp(logits) - logits[label], in f32, with
+    no one-hot: the reference's ``cross_entropy_from_logits``."""
+    logits = logits.to(ACC_DTYPE)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - picked).mean()
 
 
 def model_logits(model, x: torch.Tensor) -> torch.Tensor:

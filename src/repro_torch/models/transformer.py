@@ -12,8 +12,15 @@ place of the dense MLP.  It serves:
     init_cache(batch, max_len)         -> (k, v), each (L, B, KV, Smax, D) bf16
 
 The KV cache is bf16 whatever the weights' dtype, as in the reference.
-``decode_step`` updates the cache in place and returns it.  Loss and
-training wait for a later slice.
+``decode_step`` updates the cache in place and returns it.  It trains
+through
+
+    forward_loss(tokens, labels)       -> mean cross entropy (f32)
+
+the reference's ``forward_loss``: logits at every position, each layer
+rematerialised in the backward (``torch.utils.checkpoint``, the
+counterpart of its ``remat_layer``).  ``make_microbatched_loss`` splits a
+batch into microbatches and runs each one's backward in turn.
 
 :class:`EncoderLM` holds the weights of ``make_encoder`` (e5-base-v2, the
 MiniLM reranker): :class:`EncoderLayer` runs non-causal attention, and
@@ -25,21 +32,51 @@ It has no cache and no decode step.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (attention_block_decode,
                                        attention_block_prefill, attention_qkv,
-                                       bidirectional_attention, embed_lookup,
-                                       matmul, mlp_block, model_logits,
-                                       rms_norm)
+                                       bidirectional_attention,
+                                       cross_entropy_from_logits, embed_lookup,
+                                       lm_head_logits, matmul, mlp_block,
+                                       model_logits, rms_norm)
 from repro_torch.models.moe import moe_block, moe_shapes
 
 CACHE_DTYPE = torch.bfloat16
+
+
+def make_microbatched_loss(forward_loss: Callable, num_microbatches: int
+                           ) -> Callable:
+    """The reference's ``make_microbatched_loss`` in PyTorch's idiom: the
+    returned ``loss_fn(batch)`` splits every (B, ...) tensor of ``batch``
+    into ``num_microbatches`` consecutive slices of B / num_microbatches
+    rows, runs ``forward_loss(**microbatch)`` and the backward of its loss
+    over num_microbatches on each in turn (so only one microbatch's
+    activations are alive at a time, and the reference's outer remat has
+    no counterpart), and returns the mean loss, detached.  The gradients
+    of the mean accumulate in each weight's ``.grad``, in the weight's
+    dtype, as its own backward leaves them."""
+    mu = max(1, num_microbatches)
+
+    def loss_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        rows = {name: t.shape[0] for name, t in batch.items()}
+        if any(n % mu for n in rows.values()):
+            raise ValueError(f"batch rows {rows} do not split into {mu} "
+                             "microbatches")
+        total = 0.0
+        for parts in zip(*(t.chunk(mu) for t in batch.values())):
+            loss = forward_loss(**dict(zip(batch, parts)))
+            (loss / mu).backward()
+            total = total + loss.detach()
+        return total / mu
+
+    return loss_fn
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -117,6 +154,12 @@ class _Block(nn.Module):
 
 
 class DecoderLayer(_Block):
+    def forward(self, x, cfg, plain=False):
+        """The training pass, ``decoder_layer_train``: the prefill's
+        function without its cache.  (It is ``forward`` and not ``train``,
+        which ``nn.Module`` keeps for the train/eval switch.)"""
+        return self.prefill(x, cfg, plain)[0]
+
     def prefill(self, x, cfg, plain):
         h, kv = attention_block_prefill(
             self.attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg, plain=plain)
@@ -203,6 +246,22 @@ class DenseLM(nn.Module):
             x, _ = layer.decode(x, (k_all[i], v_all[i]), pos, self.cfg,
                                 self.plain_attention)
         return model_logits(self, x), cache
+
+    def forward_loss(self, tokens, labels) -> torch.Tensor:
+        """The reference's ``forward_loss``: tokens and labels (B, S); the
+        mean cross entropy of the f32 logits at every position over the
+        padded vocabulary (padded rows at -1e30).  Each layer runs under
+        ``torch.utils.checkpoint`` (non-reentrant): its activations are
+        recomputed in the backward, as the reference's ``remat_layer``
+        does, so the flash forward runs twice per layer."""
+        x = self._embed_in(self._tokens(tokens))
+        for layer in self.layers:
+            x = checkpoint(layer, x, self.cfg, self.plain_attention,
+                           use_reentrant=False)
+        table = self.embed if self.lm_head is None else self.lm_head
+        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
+                                table, valid_vocab=self.cfg.vocab_size)
+        return cross_entropy_from_logits(logits, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg

@@ -48,7 +48,8 @@ def test_scan_finds_the_port():
     assert {"engine.py", "transformer.py", "layers.py", "ops.py",
             "chip_smoke.py", "bridge.py", "hw.py", "scheduler.py",
             "profiler.py", "tile_plan.py", "hymba.py", "vision.py",
-            "encdec.py"} <= names
+            "encdec.py", "optimizer.py", "train_loop.py", "train.py",
+            "data.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):
@@ -56,6 +57,30 @@ def test_scanner_sees_forbidden_imports(tmp_path):
     f.write_text("import jax.numpy as jnp\nfrom repro.models import layers\n"
                  "from repro_torch.models import layers as L\n")
     assert set(_imported_roots(f)) == {"jax", "repro", "repro_torch"}
+
+
+def test_training_entry_points_default_to_the_card():
+    """``launch.train.main`` runs on the card unless ``--device cpu`` is
+    given, and ``make_train_step`` trains a model where it lies: its state
+    and batches follow the model's device, which a ``DenseLM`` built with
+    no device names as ``cuda``."""
+    import inspect
+
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    assert inspect.signature(DenseLM).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where there is no card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--steps", "1"])
+    cfg = reduced_config(get_config("qwen2.5-3b"))
+    model = DenseLM(cfg, device="cpu")
+    step = make_train_step(model)
+    state = init_state(dict(model.named_parameters()))
+    state, metrics = step(state, {"tokens": [[1, 2, 3, 4]], "labels": [[2, 3, 4, 5]]})
+    assert metrics["loss"].device.type == "cpu" and int(metrics["step"]) == 1
 
 
 def test_entry_points_without_a_device_raise_here():
