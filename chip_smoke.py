@@ -92,8 +92,10 @@ its backward kernel, and prints one JSON object per phase:
    (``flash_attention_bwd``: dq, dk, dv and the forward's lse against the
    plain versions in f32, within TOL and ROW_REL_TOL, at the train shape
    B=2, S=2048, H=16, KV=2, D=128, a ragged S=1000, hymba's window, the
-   encoders' non-causal D=64 and D=32 and the VLM's cross shape, each with
-   its graph ms, bound and SDPA's backward ms); ``train_parity``: one
+   encoders' non-causal D=64 and D=32, the VLM's cross shape and the
+   train_4k length B=1, S=4096; two calls must give bit-equal gradients;
+   each with its dK/dV plan, graph ms, bound and SDPA's backward ms);
+   ``train_parity``: one
    train step of qwen2.5-3b at full width and 2 layers through the
    kernels and through the plain attention, held against an f32 plain
    run (loss within TOL, each gradient's RMS error within BF16_ERR_RATIO
@@ -275,13 +277,20 @@ def ptxas_summary(text: str):
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
-# entries that must run on the tensor cores (names they contain): the bf16
-# attention kernels, the chunked WKV6 kernel and the attention backward's
-# dQ and dK/dV kernels
-TENSOR_CORE_ENTRIES = {"flash_attention": ("flash_fwd_tc",),
-                       "decode_attention": ("decode_split",),
-                       "wkv6_chunk": ("wkv6_chunk_kernel",),
-                       "flash_attention_bwd": ("bwd_dqI", "bwd_dkdvI")}
+TENSOR_CORES = ("HGMMA", "HMMA")
+# entries that must run on the tensor cores: (a name they contain, the
+# instructions of which each such entry needs one): the bf16 attention
+# kernels, the chunked WKV6 kernel and the attention backward's dQ and dK/dV
+# kernels: one persistent wgmma kernel for both at D = 64 and 128, and
+# mma.sync at D = 32
+TENSOR_CORE_ENTRIES = {
+    "flash_attention": (("flash_fwd_tc", TENSOR_CORES),),
+    "decode_attention": (("decode_split", TENSOR_CORES),),
+    "wkv6_chunk": (("wkv6_chunk_kernel", TENSOR_CORES),),
+    "flash_attention_bwd": (("bwd_dq_dkdv_tcILi64E", ("HGMMA",)),
+                            ("bwd_dq_dkdv_tcILi128E", ("HGMMA",)),
+                            ("bwd_dq_mmaILi32E", ("HMMA",)),
+                            ("bwd_dkdv_mmaILi32E", ("HMMA",)))}
 
 
 def sass_counts(common, name: str) -> dict:
@@ -306,9 +315,13 @@ def sass_counts(common, name: str) -> dict:
     result = {"phase": "sass", "library": name, "entries": counts}
     markers = TENSOR_CORE_ENTRIES.get(name)
     if markers:
-        mine = [c for e, c in counts.items() if any(m in e for m in markers)]
-        result["tensor_core_entries"] = len(mine)
-        result["ok"] = bool(mine) and all(c["HGMMA"] + c["HMMA"] > 0 for c in mine)
+        ok, n = True, 0
+        for marker, ops in markers:
+            mine = [c for e, c in counts.items() if marker in e]
+            n += len(mine)
+            ok = ok and bool(mine) and all(any(c[op] > 0 for op in ops) for c in mine)
+        result["tensor_core_entries"] = n
+        result["ok"] = ok
     return result
 
 
@@ -599,7 +612,8 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
     """The backward kernel against its plain version: the forward with LSE
     (kernel) on bf16 q, k, v, then dq, dk, dv from the backward kernel and
     from ``flash_attention_bwd_ref`` in f32 on the same q, k, v, output,
-    dO and lse, held to TOL and, row by row, to ROW_REL_TOL; the kernel's
+    dO and lse, held to TOL and, row by row, to ROW_REL_TOL, and a second
+    call bit-equal to the first (no atomics on the data); the kernel's
     lse against the plain forward's logsumexp the same way.  The dq of a
     query that sees one key (a causal call's first) is zero analytically
     (P = 1, so dS = dP - D = 0), and so is the dk of a key that only such
@@ -631,7 +645,11 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
         return flash_attention_bwd_ref(*t, lse, window=window, causal=causal)
 
     grads = kernel()
+    again = kernel()
     torch.cuda.synchronize()
+    # no atomics on the data: two calls give the same bits
+    deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
     truth = flash_attention_bwd_ref(*[x.float() for x in t], lse, window=window,
                                     causal=causal)
     tol = TOL[dtype]
@@ -671,9 +689,15 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
                                                        window, causal)
     kernel_graph_ms = graph_ms(torch, kernel)
     row_err = max(row_errs)
+    plan = ops_mod.plan_bwd_units(B, KV, H // KV, S, Sk, window, causal,
+                                  torch.cuda.get_device_properties(dev).multi_processor_count)
     result = {"kernel": "flash_attention_bwd", "dtype": dtype,
               "shape": {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
                         "window": window, "causal": causal},
+              "plan": {"cap": plan.cap, "units": len(plan.units) * B * KV,
+                       "partial_tiles": plan.partials * B * KV,
+                       "merged_tiles": len(plan.merges) * B * KV},
+              "deterministic": deterministic,
               "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs, "tol": tol,
               "max_row_rel_err": row_err, "row_rel_err_dq_dk_dv": row_errs,
               "row_rel_tol": ROW_REL_TOL,
@@ -694,7 +718,7 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
                                    if sdpa_fwd else None),
               "library_error": library_error,
               "bound_ms": b_ms, "bound_by": b_by}
-    result["ok"] = result["ok_abs"] and result["ok_rows"]
+    result["ok"] = result["ok_abs"] and result["ok_rows"] and deterministic
     return result
 
 
@@ -790,13 +814,15 @@ WKV6_CASES += [(B, S, 64, 64, "float32", split, "mild")
 # the backward kernel at the train phase's shape (qwen2.5-3b: H=16, KV=2,
 # D=128, B=2 per microbatch, S=2048), a ragged S, hymba's window, and the
 # next losses' modes: the encoders' non-causal attention at D=64 and D=32
-# and the VLM's cross-attention (512 over 1601)
+# and the VLM's cross-attention (512 over 1601); last, the reference's
+# train_4k length (B=1, S=4096), the longest walk the dK/dV planner splits
 FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (1, 1000, 32, 8, 128, 0, "bfloat16"),
                    (1, 2048, 25, 5, 64, 1024, "bfloat16"),
                    (8, 512, 12, 12, 64, 0, "bfloat16", 512, False),
                    (8, 512, 12, 12, 32, 0, "bfloat16", 512, False),
-                   (8, 512, 32, 8, 128, 0, "bfloat16", 1601, False)]
+                   (8, 512, 32, 8, 128, 0, "bfloat16", 1601, False),
+                   (1, 4096, 16, 2, 128, 0, "bfloat16")]
 # the row of each kernel in the summary line: its index among the kernel's
 # checks (flash: S=1000; decode: the engine's 8 slots; wkv6_chunk: B=1,
 # S=1000; wkv6_scan: the engine's decode step, B=8 at S=1, bf16)
@@ -1335,7 +1361,7 @@ def device_breakdown(torch, calls):
             name = e.key.lower()
             if "flash_fwd" in name:
                 group = "flash_attention"
-            elif any(w in name for w in ("bwd_delta", "bwd_dq", "bwd_dkdv")):
+            elif any(w in name for w in ("bwd_prep", "bwd_dq", "bwd_dkdv", "bwd_merge")):
                 group = "flash_attention_bwd"
             elif any(w in name for w in ("decode_split", "decode_merge",
                                          "decode_fwd")):

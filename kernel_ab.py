@@ -14,8 +14,11 @@ device time per call through a CUDA graph (``chip_smoke.graph_ms``) of
 shapes of ``chip_smoke.py``, and of PyTorch's
 ``scaled_dot_product_attention`` on the same inputs; then of ``wkv6_op``
 at rwkv6-7b's prefill shapes (bf16, B=1, H=64, D=64, the model's mild
-decays), on whichever kernel that checkout routes them to.  Needs one
-CUDA card.
+decays), on whichever kernel that checkout routes them to; then of
+``flash_attention_bwd_op`` at each shape of ``chip_smoke.FLASH_BWD_CASES``
+(the first is the train shape) beside SDPA's backward on the same inputs,
+timed as ``chip_smoke.sdpa_calls`` does (its forward and backward less its
+forward).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -39,10 +42,12 @@ def worker(root: Path) -> dict:
     sys.path.insert(0, str(root / "src"))  # that checkout's kernels
     import torch
     import torch.nn.functional as F
-    from chip_smoke import graph_ms  # this checkout's device timing
+    # this checkout's device timing and backward shapes
+    from chip_smoke import FLASH_BWD_CASES, graph_ms, sdpa_calls
 
     from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6_scan import wkv6_op
 
     if not torch.cuda.is_available():
@@ -78,6 +83,17 @@ def worker(root: Path) -> dict:
             u = torch.randn(WKV6_H, WKV6_D, generator=gen, device=dev) * 0.2
             s0 = torch.randn(1, WKV6_H, WKV6_D, WKV6_D, generator=gen, device=dev) * 0.1
             out[f"wkv6_S{S}"] = graph_ms(torch, lambda: wkv6_op(r, k, v, logw, u, s0))
+    for B, S, Hb, KVb, Db, window, _dtype, *rest in FLASH_BWD_CASES:
+        Sk, causal = rest if rest else (S, True)
+        q, k, v, do = rnd(B, S, Hb, Db), rnd(B, Sk, KVb, Db), rnd(B, Sk, KVb, Db), rnd(B, S, Hb, Db)
+        o, lse = flash_ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal)
+        tag = f"bwd_B{B}_S{S}x{Sk}_H{Hb}_KV{KVb}_D{Db}_w{window}{'' if causal else '_full'}"
+        out[tag] = graph_ms(torch, lambda: flash_ops.flash_attention_bwd_op(
+            q, k, v, o, do, lse, window=window, causal=causal))
+        fwd, fwd_bwd, _ = sdpa_calls(torch, F, *(x.transpose(1, 2) for x in (q, k, v, do)),
+                                     window, causal)
+        out[f"sdpa_{tag}"] = (graph_ms(torch, fwd_bwd) - graph_ms(torch, fwd)) if fwd else None
+        del q, k, v, do, o, lse
     return out
 
 

@@ -6,13 +6,23 @@ to the kernels of ``csrc/flash_attention.cu`` (forward) and
 
 A call that needs a gradient (grad mode on and an input that requires
 grad) goes through ``FlashAttentionFn``: its forward also keeps each row's
-log-sum-exp, and its backward launches the backward kernel (on the CPU,
+log-sum-exp, and its backward launches the backward kernels (on the CPU,
 the plain forward-with-LSE and the plain backward).  Every other call
 takes the forward alone, with no LSE.
+
+The backward's dK/dV work is spread over the card by ``plan_bwd_units``, a
+pure host planner: each 64-key tile's walk over its (query head, query
+tile) iterations is cut into units of at most ``cap`` iterations, which
+launch heaviest first.  The kernel rebuilds the same order on the card
+from its scalar arguments, so a call copies nothing to the card and never
+waits for it.  The wrapper allocates one scratch (``bwd_work_bytes``) for
+the padded lse and D rows, the order and the f32 partials of split tiles.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -27,10 +37,14 @@ NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 # the backward kernel's head dims; it takes bf16 only
 BWD_HEAD_DIMS = (32, 64, 128)
+# rows of the backward's query and key tiles, and the dK/dV units the
+# planner counts on at once per SM (the kernel's two consumer warpgroups)
+BWD_TILE = 64
+BWD_SLOTS_PER_SM = 2
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 5 + [_I] * 9 + [_L] * 12 + [_P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [_L] * 24 + [_P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_L] * 25 + [_P]
 
 
 def _bhs_strides(*tensors):
@@ -118,13 +132,99 @@ def flash_attention_fwd_lse(q, k, v, *, window: int = 0, causal: bool = True):
     return _launch_forward(q, k, v, window, causal, with_lse=True)
 
 
+class BwdPlan(NamedTuple):
+    """The dK/dV schedule of one (batch, KV head); every one is the same.
+
+    ``units`` in launch order: (key tile, first iteration, end, partial
+    slot or -1 for a tile written whole).  Iteration ``it`` of tile t is
+    query head ``it // nq`` of the group and query tile ``qt0 + it % nq``,
+    with ``(qt0, nq) = walks[t]``.  ``merges``: (key tile, first slot,
+    units) of each split tile, whose units write their partials to
+    consecutive slots in chunk order."""
+    cap: int
+    units: Tuple[Tuple[int, int, int, int], ...]
+    merges: Tuple[Tuple[int, int, int], ...]
+    partials: int
+    walks: Tuple[Tuple[int, int], ...]
+    work: Tuple[int, ...]
+
+
+def _tile_walk(t: int, Sq: int, window: int, causal: bool) -> Tuple[int, int]:
+    """(first query tile, query tiles) that reach key tile ``t``: causal,
+    from its first key to its last key's window; non-causal, all."""
+    q_begin, q_end = 0, Sq
+    if causal:
+        q_begin = t * BWD_TILE
+        if window > 0:
+            q_end = min(Sq, t * BWD_TILE + BWD_TILE - 1 + window)
+    qt0 = q_begin // BWD_TILE
+    return qt0, ((q_end - 1) // BWD_TILE - qt0 + 1 if q_end > q_begin else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bwd_units(B: int, KV: int, G: int, Sq: int, Sk: int, window: int,
+                   causal: bool, sms: int, cap: int = 0) -> BwdPlan:
+    """The dK/dV units of the backward kernel, from the shape and the
+    card's SM count ``sms`` alone (no tensor is read).
+
+    Key tile t walks w(t) = G x nq(t) iterations.  The cap T is the
+    balanced share of the card's ``BWD_SLOTS_PER_SM * sms`` consumer
+    warpgroups, ceil(B KV sum w / slots), so no unit is longer than that
+    share plus one (``cap`` > 0 sets T instead, for tests).  Each walk is
+    cut into full units of T and a remainder; the full units launch
+    first in (tile, chunk) order, then the remainders, larger first and
+    ties by tile.  The kernel's ``plan_block`` builds the same order."""
+    walks = tuple(_tile_walk(t, Sq, window, causal)
+                  for t in range(-(-Sk // BWD_TILE)))
+    work = tuple(G * nq for _, nq in walks)
+    if cap <= 0:
+        cap = max(1, -(-B * KV * sum(work) // (BWD_SLOTS_PER_SM * sms)))
+    full, rest, merges, slot = [], [], [], 0
+    for t, w in enumerate(work):
+        f, r = divmod(w, cap)
+        nu = f + (r > 0)
+        first = slot if nu >= 2 else -1
+        full += [(t, c * cap, (c + 1) * cap, -1 if first < 0 else first + c)
+                 for c in range(f)]
+        if r:
+            rest.append((t, f * cap, w, -1 if first < 0 else first + f))
+        if nu >= 2:
+            merges.append((t, slot, nu))
+            slot += nu
+    rest.sort(key=lambda u: (u[1] - u[2], u[0]))
+    return BwdPlan(cap, tuple(full + rest), tuple(merges), slot, walks, work)
+
+
+def bwd_work_bytes(plan: BwdPlan, B: int, H: int, KV: int, Sq: int,
+                   D: int) -> int:
+    """Bytes of the backward's scratch, laid out as the kernel's ``layout``:
+    lse2 and D rows padded to whole tiles (f32), the order (one int4 per
+    unit and per merge), then the partials (f32 dK and dV of 64 keys per
+    slot and (batch, KV head)), 256-byte aligned."""
+    rows = B * H * -(-Sq // BWD_TILE) * BWD_TILE
+    off_table = -(-8 * rows // 16) * 16
+    off_part = -(-(off_table + 16 * (len(plan.units) + len(plan.merges))) // 256) * 256
+    return off_part + B * KV * plan.partials * 2 * BWD_TILE * D * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
                            causal: bool = True):
     """(dq, dk, dv) of the flash forward, in the layouts and dtypes of q, k
     and v: q/out/dout (B, Sq, H, D), k/v (B, Sk, KV, D), lse (B, H, Sq)
-    from ``flash_attention_fwd_lse``.  A CUDA call runs the backward
-    kernel (bf16, head dim of ``BWD_HEAD_DIMS``) and bumps its launch
-    count once."""
+    from ``flash_attention_fwd_lse``.
+
+    A CUDA call (bf16, head dim of ``BWD_HEAD_DIMS``) plans the dK/dV
+    units on the host (``plan_bwd_units``, cached by shape), allocates one
+    scratch of ``bwd_work_bytes`` and runs the backward's kernels on the
+    current stream: D and the schedule, dQ, dK/dV, and the merge of split
+    tiles.  It copies nothing to the card and does not wait for it, so it
+    can be captured in a CUDA graph, and it bumps the backward's launch
+    count once, whatever the number of kernels."""
     check_shapes(q, k, v, window, causal)
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_ref(
@@ -139,12 +239,14 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"{BWD_NAME}: out{tuple(out.shape)} / "
                          f"dout{tuple(dout.shape)} != q{tuple(q.shape)}")
-    # the kernels read lse with plain loads: any Sq, no row alignment
+    # the kernels read lse rows with plain loads: any Sq, no row alignment
     if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"{BWD_NAME}: lse must be contiguous f32 "
                          f"{(B, H, Sq)} on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
+    # a no-op for autograd's gradient of the attention output, which comes
+    # back contiguous in the training dtype; a broadcast cotangent is copied
     dout = dout.to(q.dtype).contiguous()
     for t in (out, dout):
         common.check_operand(BWD_NAME, t, q.device, q.dtype)
@@ -153,12 +255,16 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if Sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    plan = plan_bwd_units(B, KV, H // KV, Sq, Sk, int(window), bool(causal),
+                          _sm_count(q.device.index or 0))
+    nbytes = bwd_work_bytes(plan, B, H, KV, Sq, D)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     fn = common.load_function(BWD_NAME, "flash_attention_bwd", _BWD_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Sk, D, int(window),
-            int(causal), *_bhs_strides(q, k, v, out, dout, dq, dk, dv),
+            int(causal), plan.cap, nbytes,
+            *_bhs_strides(q, k, v, out, dout, dq, dk, dv),
             common.current_stream(q.device))
     common.check(BWD_NAME, rc)
     common.count_launch(BWD_NAME)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the flash attention kernels: the forward, the
-forward that also returns each row's log-sum-exp, and the backward."""
+forward that also returns each row's log-sum-exp, and the backward; and,
+for the tests, the backward split and merged as its kernel schedules it."""
 from __future__ import annotations
 
 import math
@@ -89,5 +90,60 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.to(acc)) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  dout: torch.Tensor, lse: torch.Tensor, plan,
+                                  *, window: int = 0, causal: bool = True):
+    """``flash_attention_bwd_ref`` computed as the backward kernel
+    schedules dK and dV (tests only): each unit of ``plan`` (an
+    ``ops.BwdPlan`` of these shapes) sums, over its (query head, query
+    tile) iterations, the 64-key blocks of dS^T Q and P^T dO of its key
+    tile; a tile with one unit takes that sum, and a split tile the sum of
+    its units' partials in unit order; dK is scaled last.
+
+    Same layouts, precision and dtypes as ``flash_attention_bwd_ref``."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    tile = 64
+    scale = 1.0 / math.sqrt(D)
+    scores = _masked_scores(q, k, window, causal)
+    acc = scores.dtype
+    p = torch.exp(scores - lse.reshape(B, KV, G, Sq, 1).to(acc))
+    qg = q.reshape(B, KV, G, Sq, D).to(acc)
+    dog = dout.reshape(B, KV, G, Sq, D).to(acc)
+    delta = (dog * out.reshape(B, KV, G, Sq, D).to(acc)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dog, v.to(acc)) - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.to(acc)) * scale
+    dk = torch.zeros(B, KV, Sk, D, dtype=acc)
+    dv = torch.zeros(B, KV, Sk, D, dtype=acc)
+    partials = {}
+    for t, it0, it1, slot in plan.units:
+        qt0, nq = plan.walks[t]
+        keys = slice(t * tile, min(Sk, (t + 1) * tile))
+        pk = torch.zeros(B, KV, keys.stop - keys.start, D, dtype=acc)
+        pv = torch.zeros_like(pk)
+        for it in range(it0, it1):
+            g, qi = it // nq, qt0 + it % nq
+            rows = slice(qi * tile, min(Sq, (qi + 1) * tile))
+            pk = pk + torch.einsum("bkqs,bkqd->bksd", ds[:, :, g, rows, keys],
+                                   qg[:, :, g, rows])
+            pv = pv + torch.einsum("bkqs,bkqd->bksd", p[:, :, g, rows, keys],
+                                   dog[:, :, g, rows])
+        if slot < 0:
+            dk[:, :, keys], dv[:, :, keys] = pk * scale, pv
+        else:
+            partials[slot] = (pk, pv)
+    for t, slot0, count in plan.merges:
+        keys = slice(t * tile, min(Sk, (t + 1) * tile))
+        sk = torch.zeros_like(partials[slot0][0])
+        sv = torch.zeros_like(sk)
+        for slot in range(slot0, slot0 + count):
+            sk, sv = sk + partials[slot][0], sv + partials[slot][1]
+        dk[:, :, keys], dv[:, :, keys] = sk * scale, sv
     return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
