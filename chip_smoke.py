@@ -13,8 +13,10 @@ attention kernels' sliding-window mode and ring decode beside its Mamba
 heads, the cross-attention decoders llama-3.2-vision-11b and
 seamless-m4t-large-v2 through both attention kernels over their image and
 audio caches, and rag_reranker's two encoders through the flash kernel's
-non-causal mode, then trains qwen2.5-3b through the flash forward and
-its backward kernel, and prints one JSON object per phase:
+non-causal mode, then trains every family but rwkv (qwen2.5-3b, the
+encoders, hymba-1.5b, seamless-m4t-large-v2 and the VLM) through the
+flash forward and its backward kernel, and prints one JSON object per
+phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
 2. ``build``: the five kernels compiled from ``src/repro_torch/csrc`` for
@@ -92,20 +94,31 @@ its backward kernel, and prints one JSON object per phase:
    (``flash_attention_bwd``: dq, dk, dv and the forward's lse against the
    plain versions in f32, within TOL and ROW_REL_TOL, at the train shape
    B=2, S=2048, H=16, KV=2, D=128, a ragged S=1000, hymba's window, the
-   encoders' non-causal D=64 and D=32, the VLM's cross shape and the
+   encoders' non-causal D=64 and D=32, the VLM's cross shape, seamless's
+   encoder (1024 x 1024) and cross (512 over 1024) shapes at B=4 and the
    train_4k length B=1, S=4096; two calls must give bit-equal gradients;
-   each with its dK/dV plan, graph ms, bound and SDPA's backward ms);
-   ``train_parity``: one
-   train step of qwen2.5-3b at full width and 2 layers through the
-   kernels and through the plain attention, held against an f32 plain
-   run (loss within TOL, each gradient's RMS error within BF16_ERR_RATIO
-   of the plain bf16 run's); then ``train``: qwen2.5-3b at full width and
-   depth (bf16, seeded) for 30 AdamW steps on the reference's synthetic
-   corpus, 8 x 2048 tokens in 4 microbatches, one ``train_step`` line per
-   step (loss, ms, tokens/s, grad norm, model FLOPs share), peak memory, a
-   ``torch.profiler`` window of one step; the run fails unless every loss
-   is finite, the last 5 losses' mean is under 0.75x the first 5's, and
-   every step launches exactly 288 flash forwards and 144 backwards;
+   each with its dK/dV plan, graph ms, bound and SDPA's backward ms); then
+   for each of ``TRAIN_RUNS``, one model at a time: ``train_parity``, one
+   train step at full width and 2 layers (the VLM: one group of 5 self
+   layers and a cross layer) through the kernels and through the plain
+   attention, held against an f32 plain run (loss within TOL, each
+   gradient's RMS error within BF16_ERR_RATIO of the plain bf16 run's, no
+   gradient zero); then ``train``, bf16 seeded weights and AdamW on the
+   reference's synthetic corpus, with seeded stub image or audio inputs
+   and nonzero VLM gates: qwen2.5-3b at full width and depth for 30 steps
+   of 8 x 2048 tokens in 4 microbatches, e5-base-v2 and reranker-minilm
+   (16 x 512), hymba-1.5b (2 x 2048, past its window), seamless-m4t-large-v2
+   (8 x 512 over 1024 frames a row, 2 microbatches) and the VLM at full
+   width and 2 of its 8 groups (4 x 512 over 1601 image embeddings; the
+   f32 moments of all 11.47 B weights would not fit), one ``train_step``
+   line per step (loss, ms, tokens/s, grad norm, model FLOPs share), peak
+   memory, a ``torch.profiler`` window of one step (busy share, the flash
+   backward's ms); a run fails unless every loss is finite, the last 5
+   losses' mean is under 0.75x the first 5's, and every step launches
+   exactly 2 flash forwards and 1 backward per attention call and
+   microbatch (qwen: 288 and 144); then ``vlm_grad``: one loss and backward
+   of the VLM at its full 48 layers (4 x 512 tokens), with its loss, grad
+   norm and peak memory, and 96 forwards and 48 backwards;
 12. ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
@@ -125,6 +138,7 @@ the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -132,6 +146,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -812,16 +827,21 @@ WKV6_CASES += [(B, S, 64, 64, "float32", split, "mild")
                for B, S, split in ((1, 1, 0), (1, 77, 0), (1, 1000, 0),
                                    (1, 2048, 0), (8, 1, 0), (1, 1000, 500))]
 # the backward kernel at the train phase's shape (qwen2.5-3b: H=16, KV=2,
-# D=128, B=2 per microbatch, S=2048), a ragged S, hymba's window, and the
-# next losses' modes: the encoders' non-causal attention at D=64 and D=32
-# and the VLM's cross-attention (512 over 1601); last, the reference's
-# train_4k length (B=1, S=4096), the longest walk the dK/dV planner splits
+# D=128, B=2 per microbatch, S=2048), a ragged S, and the other families'
+# train shapes: hymba's window, the encoders' non-causal attention at D=64
+# and D=32, the VLM's cross-attention (512 over 1601), seamless-m4t's
+# encoder (1024 x 1024 frames, H = KV = 16, D = 64) and its cross-attention
+# (512 over the 1024 frames), at its microbatch of 4 rows; last, the
+# reference's train_4k length (B=1, S=4096), the longest walk the dK/dV
+# planner splits
 FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (1, 1000, 32, 8, 128, 0, "bfloat16"),
                    (1, 2048, 25, 5, 64, 1024, "bfloat16"),
                    (8, 512, 12, 12, 64, 0, "bfloat16", 512, False),
                    (8, 512, 12, 12, 32, 0, "bfloat16", 512, False),
                    (8, 512, 32, 8, 128, 0, "bfloat16", 1601, False),
+                   (4, 1024, 16, 16, 64, 0, "bfloat16", 1024, False),
+                   (4, 512, 16, 16, 64, 0, "bfloat16", 1024, False),
                    (1, 4096, 16, 2, 128, 0, "bfloat16")]
 # the row of each kernel in the summary line: its index among the kernel's
 # checks (flash: S=1000; decode: the engine's 8 slots; wkv6_chunk: B=1,
@@ -946,6 +966,14 @@ def vlm_gates(np, groups: int):
     return (mag * rng.choice([-1.0, 1.0], size=(2, groups))).tolist()
 
 
+def set_gates(torch, model, gates) -> None:
+    """Write ``vlm_gates``' values into the VLM's cross layers."""
+    with torch.no_grad():
+        for cross, g, g_mlp in zip(model.cross_layers, *gates):
+            cross.gate.fill_(g)
+            cross.gate_mlp.fill_(g_mlp)
+
+
 def model_check(torch, np, cfg, dev, build_model, plain_attr,
                 prompt_tokens=1000):
     """Full-width prefill of ``prompt_tokens`` + 8 decode steps through the
@@ -990,10 +1018,7 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr,
         model = build_model(cfg, device=dev, dtype=getattr(torch, dtype))
         model.init_params(torch.Generator(device=dev).manual_seed(SEED))
         if gates is not None:
-            with torch.no_grad():
-                for cross, g, g_mlp in zip(model.cross_layers, *gates):
-                    cross.gate.fill_(g)
-                    cross.gate_mlp.fill_(g_mlp)
+            set_gates(torch, model, gates)
         torch.cuda.synchronize()
         weights_s = time.perf_counter() - t0
         for plain in (True, False):  # the f32 plain run first: the reference
@@ -1443,38 +1468,150 @@ def encode_run(torch, np, models, common):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: training qwen2.5-3b
+# phase 11: training every family but rwkv
 # ---------------------------------------------------------------------------
 
-TRAIN_ARCH = "qwen2.5-3b"
-# SyntheticCorpus(vocab, seq, global batch), microbatches, steps, AdamW
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_STEPS = 2048, 8, 4, 30
+
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 10
+
+
+class TrainSpec(NamedTuple):
+    """One training run: SyntheticCorpus batches of ``batch`` x ``seq``
+    tokens in ``microbatches``, ``steps`` AdamW steps at peak rate ``lr``
+    (after TRAIN_WARMUP steps of warm-up), at full width; the depth cut to
+    ``layers`` where given."""
+    arch: str
+    batch: int
+    seq: int
+    microbatches: int
+    steps: int
+    layers: Optional[int] = None
+    lr: float = TRAIN_LR
+
+
+# qwen2.5-3b first (8 x 2048 in 4 microbatches of 2), then the other
+# families: the encoders at rag_reranker's rerank length cap, hymba past its
+# 1024 window, seamless-m4t over 1024 stub frames a row, the VLM at 2 of its
+# 8 groups (AdamW's f32 moments of all 11.47 B weights would take 91.8 GB),
+# at AdamW's default peak rate: at 1e-3 its loss climbed back from step 7
+TRAIN_RUNS = [TrainSpec("qwen2.5-3b", 8, 2048, 4, 30),
+              TrainSpec("e5-base-v2", 16, 512, 1, 30),
+              TrainSpec("reranker-minilm", 16, 512, 1, 30),
+              TrainSpec("hymba-1.5b", 2, 2048, 1, 15),
+              TrainSpec("seamless-m4t-large-v2", 8, 512, 2, 20),
+              TrainSpec("llama-3.2-vision-11b", 4, 512, 1, 30, layers=10, lr=3e-4)]
+# the VLM's gradient at its full 48 layers: one forward_loss and backward
+# of 4 x 512 tokens (rows, seq), no update
+VLM_GRAD = (4, 512)
 # the reference's bar for a falling loss (tests/test_training.py)
 TRAIN_LOSS_RATIO = 0.75
 PARITY_LAYERS = 2
+PARITY_ROWS = 2
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step (the recompute not counted): 6 N per
-    token for the weights, and 3 x 4 D per unmasked (query, key) pair and
-    head of every layer's causal attention (forward, and a backward of
-    twice its products)."""
-    pairs = seq * (seq + 1) // 2
-    attn = 12.0 * cfg.head_dim * cfg.num_heads * cfg.num_layers * batch * pairs
-    return 6.0 * n_params * batch * seq + attn
+def attention_calls(cfg) -> int:
+    """Attention calls in one forward of the loss: one per layer, plus the
+    VLM's cross layers, plus seamless's encoder and cross-attention."""
+    if cfg.family == "vlm":
+        return cfg.num_layers + cfg.num_layers // cfg.cross_attn_every
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
 
 
-def train_run(torch, np, cfg, dev, build_model, common):
-    """``cfg`` at full width and depth, bf16 weights from the seed, trained
-    for TRAIN_STEPS steps on ``SyntheticCorpus`` batches of TRAIN_BATCH x
-    TRAIN_SEQ tokens in TRAIN_MICROBATCHES microbatches through
-    ``make_train_step``.  Each step's launch counts are set to 0 just
-    before it and read just after.  ``ok`` needs every loss finite, the
-    mean of the last 5 below TRAIN_LOSS_RATIO of the first 5's, and, in
-    every step, exactly 2 flash forwards per layer and microbatch (the
-    forward and the checkpoint's recompute) and one backward, nothing
-    else.  An extra step is profiled (``device_breakdown``)."""
+def attention_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
+    """Unmasked (query, key) pairs of one row and head: causal S(S+1)/2,
+    a window of W over S, or non-causal Sq x Sk."""
+    if not causal:
+        return sq * sk
+    if 0 < window < sq:
+        return window * (window + 1) // 2 + (sq - window) * window
+    return sq * (sq + 1) // 2
+
+
+def train_flops(model, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step of ``batch`` rows of ``seq`` tokens
+    (the recompute not counted): 6 per weight and token it multiplies (the
+    enc-dec's encoder and its cross K/V projections over the frames, the
+    VLM's cross K/V projections over the image embeddings, every other
+    weight over the tokens; an embedding table that is not also the LM head
+    is a lookup and counts none), and 3 x 4 D per unmasked (query, key)
+    pair and head of every attention call (forward, and a backward of twice
+    its products), by ``attention_pairs``."""
+    cfg = model.cfg
+    ctx = {"vlm": cfg.num_image_tokens, "audio": cfg.num_audio_frames}.get(cfg.family, 0)
+    lookup = cfg.family == "encoder" or getattr(model, "lm_head", None) is not None
+    weights = 0.0
+    for name, p in model.named_parameters():
+        if name == "embed" and lookup:
+            continue
+        leaf = name.rsplit(".", 1)[-1]
+        over_ctx = (name.startswith("enc_layers.") or leaf in ("wk_x", "wv_x")
+                    or (name.startswith("cross_layers.") and leaf in ("wk", "wv")))
+        weights += p.numel() * (ctx if over_ctx else seq)
+    causal = attention_pairs(seq, seq, True)
+    L = cfg.num_layers
+    if cfg.family == "encoder":
+        pairs = L * attention_pairs(seq, seq, False)
+    elif cfg.family == "hybrid":
+        full = sum(i < L for i in cfg.full_attn_layers)
+        pairs = full * causal + (L - full) * attention_pairs(seq, seq, True,
+                                                             cfg.sliding_window)
+    elif cfg.family == "vlm":
+        pairs = L * causal + (L // cfg.cross_attn_every) * attention_pairs(seq, ctx, False)
+    elif cfg.family == "audio":
+        pairs = (cfg.encoder_layers * attention_pairs(ctx, ctx, False)
+                 + L * (causal + attention_pairs(seq, ctx, False)))
+    else:
+        pairs = L * causal
+    return 6.0 * weights * batch + 12.0 * cfg.head_dim * cfg.num_heads * batch * pairs
+
+
+def parity_config(cfg):
+    """``cfg`` at full width and PARITY_LAYERS layers (the VLM: one group,
+    its self layers and a cross layer; the enc-dec: PARITY_LAYERS encoder
+    and decoder layers)."""
+    if cfg.family == "vlm":
+        return dataclasses.replace(cfg, num_layers=cfg.cross_attn_every)
+    if cfg.family == "audio":
+        return dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
+                                   encoder_layers=PARITY_LAYERS)
+    return dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+
+
+def seeded_model(torch, np, cfg, dev, build_model, dtype):
+    """``cfg`` with weights drawn from SEED in ``dtype``; a VLM's gates set
+    to ``vlm_gates`` (zero gates would leave every cross weight but the
+    gates without a gradient)."""
+    model = build_model(cfg, device=dev, dtype=dtype)
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    if cfg.family == "vlm":
+        set_gates(torch, model, vlm_gates(np, len(model.cross_layers)))
+    return model
+
+
+def stub_batch(torch, model, rows: int, dev, seed: int) -> dict:
+    """The model's ``extra_inputs`` for ``rows`` rows (the VLM's image
+    embeddings, the enc-dec's audio frames), standard normal f32 drawn on
+    the card from ``seed``; the train step takes them in the weights'
+    dtype."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {name: torch.randn(shape, generator=gen, device=dev)
+            for name, (shape, _) in getattr(model, "extra_inputs",
+                                            lambda b: {})(rows).items()}
+
+
+def train_run(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
+    """``cfg`` (full width, depth cut by the spec where it says so), bf16
+    weights from the seed, trained for ``spec.steps`` steps on
+    ``SyntheticCorpus`` batches through ``make_train_step``, with one
+    seeded stub input for the whole run where the family takes one.  Each
+    step's launch counts are set to 0 just before it and read just after.
+    ``ok`` needs every loss finite, the mean of the last 5 below
+    TRAIN_LOSS_RATIO of the first 5's, and, in every step, exactly 2 flash
+    forwards per attention call and microbatch (the forward and the
+    checkpoint's recompute) and one backward, nothing else.  An extra step
+    is profiled (``device_breakdown``)."""
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import (AdamWConfig, global_norm,
                                                 init_state)
@@ -1482,25 +1619,25 @@ def train_run(torch, np, cfg, dev, build_model, common):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
-    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
     params = dict(model.named_parameters())
     n_params = sum(p.numel() for p in params.values())
-    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP),
-                              num_microbatches=TRAIN_MICROBATCHES)
+    step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP),
+                              num_microbatches=spec.microbatches)
     state = init_state(params)
+    stub = stub_batch(torch, model, spec.batch, dev, SEED + 11)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    data = SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
-                                      seed=SEED))
-    per_mb = {"flash_attention": 2 * cfg.num_layers * TRAIN_MICROBATCHES,
-              "flash_attention_bwd": cfg.num_layers * TRAIN_MICROBATCHES}
-    expected = {name: per_mb.get(name, 0) for name in common.KERNELS}
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, spec.batch, seed=SEED))
+    calls = attention_calls(cfg)
+    per_step = {"flash_attention": 2 * calls * spec.microbatches,
+                "flash_attention_bwd": calls * spec.microbatches}
+    expected = {name: per_step.get(name, 0) for name in common.KERNELS}
+    tokens = spec.batch * spec.seq
+    flops = train_flops(model, spec.batch, spec.seq)
     steps, launches_ok, totals = [], True, Counter()
-    for step in range(TRAIN_STEPS):
-        batch = data.batch_at(step)
+    for step in range(spec.steps):
+        batch = {**data.batch_at(step), **stub}
         torch.cuda.synchronize()
         common.reset_launch_counts()
         t = time.perf_counter()
@@ -1519,117 +1656,195 @@ def train_run(torch, np, cfg, dev, build_model, common):
         emit(row)
         steps.append(row)
     peak = torch.cuda.max_memory_allocated()
-    profile = device_breakdown(torch, [lambda: step_fn(state, data.batch_at(TRAIN_STEPS))])
+    profile = device_breakdown(torch, [lambda: step_fn(
+        state, {**data.batch_at(spec.steps), **stub})])
     losses = [r["loss"] for r in steps]
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     ms = [r["ms"] for r in steps[1:]]  # the first step pays the allocator's warm-up
+    step_s = float(np.mean(ms)) / 1e3
     result = {
-        "phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
-        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "params": n_params,
-        "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MICROBATCHES,
-        "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+        "phase": "train", "arch": cfg.name, "family": cfg.family,
+        "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "vocab": cfg.vocab_size, "params": n_params,
+        "seq": spec.seq, "batch": spec.batch, "microbatches": spec.microbatches,
+        "stub_inputs": {k: list(v.shape) for k, v in stub.items()},
+        "steps": spec.steps, "lr": spec.lr, "warmup_steps": TRAIN_WARMUP,
         "setup_s": setup_s, "first5_mean_loss": first, "last5_mean_loss": last,
         "loss_ratio": last / first, "loss_ratio_bar": TRAIN_LOSS_RATIO,
         "step_ms_mean": float(np.mean(ms)), "step_ms_min": float(np.min(ms)),
-        "tokens_per_s": tokens / (float(np.mean(ms)) / 1e3),
-        "model_flops_per_step": flops,
-        "model_flops_share": flops / (float(np.mean(ms)) / 1e3) / PEAK_OPS["bfloat16"],
+        "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
+        "model_flops_share": flops / step_s / PEAK_OPS["bfloat16"],
         "max_memory_allocated_bytes": peak,
         "launches_per_step_expected": {k: n for k, n in expected.items() if n},
         "launches": dict(totals), "profile_one_step": profile,
+        "device_busy_share": profile.get("device_busy_share"),
+        "flash_bwd_group_ms": profile.get("device_ms_by_group", {}).get(
+            "flash_attention_bwd"),
         "finite": all(np.isfinite(losses))}
+    if cfg.family == "vlm":
+        result["groups"] = len(model.cross_layers)
+    if cfg.family == "audio":
+        result["encoder_layers"] = cfg.encoder_layers
     result["ok"] = (result["finite"] and last < TRAIN_LOSS_RATIO * first
                     and launches_ok)
     del model, params, state, step_fn
     return result
 
 
-def train_parity(torch, np, cfg, dev, build_model, common):
-    """One train step (one microbatch of 2 x TRAIN_SEQ tokens) of ``cfg`` at
-    full width and PARITY_LAYERS layers, from weights drawn from one seed:
-    in f32 with the plain attention (the reference run), in bf16 with the
-    plain attention and in bf16 through the kernels.  The kernels' loss
-    must be within bf16 TOL of the plain bf16 loss's scale, and each
-    gradient's RMS error against the f32 run at most BF16_ERR_RATIO times
-    the plain bf16 run's, as ``model_check`` holds logits.  The kernel run
-    launches exactly 2 flash forwards and one backward per layer, the
-    plain runs none."""
-    import dataclasses
-
+def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
+    """One train step (one microbatch of PARITY_ROWS x ``spec.seq`` tokens,
+    with a seeded stub input where the family takes one) of ``cfg`` at full
+    width and the depth of ``parity_config``, from weights drawn from one
+    seed: in f32 with the plain attention (the reference run), in bf16 with
+    the plain attention and in bf16 through the kernels.  The kernels' loss
+    must be within bf16 TOL of the plain bf16 loss's scale, no gradient of
+    the f32 run may be zero, and each gradient's RMS error against the f32
+    run at most BF16_ERR_RATIO times the plain bf16 run's, as
+    ``model_check`` holds logits; a 0-dim gradient (the VLM's gates), one
+    number, for which that ratio of two single errors is noise, is held as
+    the loss is: within TOL of the plain bf16 run's.  The kernel run
+    launches exactly 2 flash forwards and one backward per attention call,
+    the plain runs none."""
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import AdamWConfig, init_state
     from repro_torch.training.train_loop import make_train_step
 
-    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
-    batch = SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_SEQ, 2,
+    small = parity_config(cfg)
+    batch = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, PARITY_ROWS,
                                        seed=SEED + 7)).batch_at(0)
     runs = {}
     for dtype, plain in (("float32", True), ("bfloat16", True), ("bfloat16", False)):
-        model = build_model(small, device=dev, dtype=getattr(torch, dtype))
-        model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+        model = seeded_model(torch, np, small, dev, build_model, getattr(torch, dtype))
         model.plain_attention = plain
-        step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+        step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP))
         state = init_state(dict(model.named_parameters()))
+        inputs = {**batch, **stub_batch(torch, model, PARITY_ROWS, dev, SEED + 9)}
         torch.cuda.synchronize()
         common.reset_launch_counts()
-        _, metrics = step_fn(state, batch)
+        _, metrics = step_fn(state, inputs)
         loss = float(metrics["loss"])
         launches = {k: n for k, n in common.launch_counts.items() if n}
         grads = {n: p.grad.float() for n, p in model.named_parameters()}
         runs[dtype, plain] = (loss, grads, launches)
-        del model, step_fn, state
+        del model, step_fn, state, inputs
         gc.collect()
         torch.cuda.empty_cache()
     ref_loss, ref, _ = runs["float32", True]
     plain_loss, plain_g, plain_launches = runs["bfloat16", True]
     kern_loss, kern_g, kern_launches = runs["bfloat16", False]
-    ratios = {}
+    tol = TOL["bfloat16"]
+    ratios, scalars, zero = {}, {}, []
     for name, g in ref.items():
+        if not bool(g.abs().max() > 0):
+            zero.append(name)
+        if g.ndim == 0:
+            # one number (the VLM's gates): the ratio of two single errors
+            # is noise, so it is held as the loss is, kernels against plain
+            k, p = float(kern_g[name]), float(plain_g[name])
+            scalars[name] = {"f32_plain": float(g), "bf16_plain": p, "bf16_kernel": k,
+                             "ok": abs(k - p) <= tol * abs(p)}
+            continue
         p_err = _rms(torch, plain_g[name], g)
         k_err = _rms(torch, kern_g[name], g)
         ratios[name] = k_err / p_err if p_err > 0 else (0.0 if k_err == 0 else float("inf"))
     worst = sorted(ratios.items(), key=lambda kv: -kv[1])
-    tol = TOL["bfloat16"]
-    want = {"flash_attention": 2 * PARITY_LAYERS, "flash_attention_bwd": PARITY_LAYERS}
-    result = {"phase": "train_parity", "arch": cfg.name, "layers": PARITY_LAYERS,
-              "d_model": cfg.d_model, "tokens": 2 * TRAIN_SEQ,
+    calls = attention_calls(small)
+    want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    result = {"phase": "train_parity", "arch": cfg.name, "layers": small.num_layers,
+              "d_model": cfg.d_model, "tokens": PARITY_ROWS * spec.seq,
               "loss_f32_plain": ref_loss, "loss_bf16_plain": plain_loss,
               "loss_bf16_kernel": kern_loss,
               "loss_rel_diff": abs(kern_loss - plain_loss) / abs(plain_loss),
-              "loss_tol": tol, "grads": len(ratios),
+              "loss_tol": tol, "grads": len(ratios), "zero_grads_f32": zero,
               "grad_rms_err_ratio_max": worst[0][1],
               "grad_rms_err_ratio_worst5": dict(worst[:5]),
-              "grad_rms_err_ratio_tol": BF16_ERR_RATIO,
+              "grad_rms_err_ratio_tol": BF16_ERR_RATIO, "scalar_grads": scalars,
               "launches_kernel_run": kern_launches, "launches_kernel_expected": want,
               "launches_plain_run": plain_launches}
+    if cfg.family == "audio":
+        result["encoder_layers"] = small.encoder_layers
     result["ok"] = (abs(kern_loss - plain_loss) <= tol * abs(plain_loss)
                     and all(np.isfinite([ref_loss, plain_loss, kern_loss]))
-                    and worst[0][1] <= BF16_ERR_RATIO
+                    and worst[0][1] <= BF16_ERR_RATIO and not zero
+                    and all(v["ok"] for v in scalars.values())
                     and kern_launches == want and not plain_launches)
     return result
 
 
+def vlm_grad_run(torch, np, cfg, dev, build_model, common):
+    """The VLM at full width and depth: one ``forward_loss`` and backward
+    of VLM_GRAD's rows x seq tokens over seeded image embeddings, bf16
+    weights and gradients, no optimiser state.  ``ok`` needs a finite loss
+    and gradient norm and exactly 2 flash forwards and one backward per
+    attention call."""
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import global_norm
+
+    torch.cuda.reset_peak_memory_stats()
+    model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
+    model.requires_grad_(True)
+    rows, seq = VLM_GRAD
+    batch = SyntheticCorpus(DataConfig(cfg.vocab_size, seq, rows,
+                                       seed=SEED)).batch_at(0)
+    stub = stub_batch(torch, model, rows, dev, SEED + 11)
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    t = time.perf_counter()
+    loss = model.forward_loss(**batch, **stub)
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {k: n for k, n in common.launch_counts.items() if n}
+    calls = attention_calls(cfg)
+    want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    gnorm = float(global_norm(p.grad for p in model.parameters()))
+    result = {"phase": "vlm_grad", "arch": cfg.name, "layers": cfg.num_layers,
+              "groups": len(model.cross_layers),
+              "params": sum(p.numel() for p in model.parameters()),
+              "tokens": rows * seq, "loss": float(loss.detach()), "grad_norm": gnorm,
+              "ms": seconds * 1e3,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "launches": launches, "launches_expected": want}
+    result["ok"] = (bool(np.isfinite(result["loss"])) and bool(np.isfinite(gnorm))
+                    and launches == want)
+    del model, loss
+    return result
+
+
 def train_phase(torch, np, F, flash_ops, dev, gen, build_model, common, get_config):
-    """The backward kernel's checks, the step parity check and the
-    30-step training run; returns the checks and the train result."""
+    """The backward kernel's checks, then for each of TRAIN_RUNS the step
+    parity check and the training run, then the VLM's full-depth
+    gradient; returns the checks and the train results by arch."""
     bwd = [check_flash_bwd(torch, F, flash_ops, dev, gen, *c) for c in FLASH_BWD_CASES]
     emit({"phase": "kernel_checks", "checks": bwd})
     bad = [c for c in bwd if not c["ok"]]
     if bad:
         raise SmokeFailure(f"{len(bad)} flash backward check(s) out of tolerance")
-    cfg = get_config(TRAIN_ARCH)
-    result = train_parity(torch, np, cfg, dev, build_model, common)
+    results = {}
+    for spec in TRAIN_RUNS:
+        cfg = get_config(spec.arch)
+        result = train_parity(torch, np, spec, cfg, dev, build_model, common)
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"{spec.arch} train step parity (kernels vs plain) failed")
+        if spec.layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=spec.layers)
+        result = train_run(torch, np, spec, cfg, dev, build_model, common)
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"{spec.arch} training run failed")
+        results[spec.arch] = result
+        gc.collect()
+        torch.cuda.empty_cache()
+    result = vlm_grad_run(torch, np, get_config(CROSS_ARCHS[0]), dev, build_model,
+                          common)
     emit(result)
     if not result["ok"]:
-        raise SmokeFailure("train step parity (kernels vs plain) failed")
-    result = train_run(torch, np, cfg, dev, build_model, common)
-    emit(result)
-    if not result["ok"]:
-        raise SmokeFailure(f"{TRAIN_ARCH} training run failed")
+        raise SmokeFailure("full-depth VLM gradient failed")
     gc.collect()
     torch.cuda.empty_cache()
-    return bwd, result
+    return bwd, results
 
 
 # ---------------------------------------------------------------------------
@@ -2011,10 +2226,12 @@ def run():
     torch.cuda.empty_cache()
 
     # training, on a card free of the encoders: the backward kernel's
-    # checks, the step parity and qwen2.5-3b at full width and depth
-    bwd_checks, train = train_phase(torch, np, F, flash_ops, dev, gen,
-                                    build_model, common, get_config)
+    # checks, then each family's step parity and training run, one model at
+    # a time, qwen2.5-3b first
+    bwd_checks, trained = train_phase(torch, np, F, flash_ops, dev, gen,
+                                      build_model, common, get_config)
     checks += bwd_checks
+    train = trained[TRAIN_RUNS[0].arch]
     engines["flash_attention_bwd"] = train
 
     plan_phase(torch, flash_ops, checks, predicted, steps)
@@ -2048,8 +2265,13 @@ def run():
     flash_row = next(r for r in summary if r["name"] == "flash_attention")
     flash_row["launches_encode"] = encode_launches
     flash_row["launches_train"] = train["launches"]["flash_attention"]
-    next(r for r in summary if r["name"] == "flash_attention_bwd")[
-        "launches_per_step"] = train["launches_per_step_expected"]["flash_attention_bwd"]
+    bwd_row = next(r for r in summary if r["name"] == "flash_attention_bwd")
+    bwd_row["launches_per_step"] = train["launches_per_step_expected"]["flash_attention_bwd"]
+    # the other families' training runs, per arch
+    for row, name in ((flash_row, "flash_attention"), (bwd_row, "flash_attention_bwd")):
+        row["launches_train_families"] = {arch: r["launches"][name]
+                                          for arch, r in trained.items()
+                                          if arch != TRAIN_RUNS[0].arch}
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

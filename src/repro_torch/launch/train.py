@@ -1,14 +1,17 @@
-"""Train a decoder with seeded random weights on the reference's synthetic
-token stream: AdamW over the microbatched loss of ``DenseLM`` (dense or
-MoE).  The counterpart of the reference's ``launch/train.py``, with its
-flags and defaults but no checkpoints or gradient compression
-(``--ckpt-dir``, ``--ckpt-every``, ``--resume``, ``--compress``), which
-the port does not have yet.  Like the reference's, the CLI always trains
-a reduced config (``--reduced`` is on by default and cannot be turned
-off); full-width runs go through ``training.train_loop.make_train_step``.
+"""Train a model with seeded random weights on the reference's synthetic
+token stream: AdamW over the loss of any family but rwkv (the dense and
+MoE decoders, the encoders, hymba, the VLM and the enc-dec), whose WKV6
+kernels have no backward yet.  The counterpart of the reference's
+``launch/train.py``, with its flags and defaults but no checkpoints or
+gradient compression (``--ckpt-dir``, ``--ckpt-every``, ``--resume``,
+``--compress``), which the port does not have yet.  As the reference's,
+it feeds zeros for a model's stub inputs (the VLM's image embeddings, the
+enc-dec's audio frames; ``extra_inputs``), and the CLI always trains a
+reduced config (``--reduced`` is on by default and cannot be turned off);
+full-width runs go through ``training.train_loop.make_train_step``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --steps 30
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch hymba-1.5b
 
 Runs on the card unless ``--device cpu`` is given.  The weights are bf16
 and the moments f32, as in the reference.
@@ -47,18 +50,23 @@ def main(argv=None):
         cfg = reduced_config(cfg)
     model = build_model(cfg, device=device, dtype=torch.bfloat16)
     if not hasattr(model, "forward_loss"):
-        raise SystemExit(f"{cfg.name}: the port trains the dense and MoE "
-                         "decoders only")
+        raise SystemExit(f"{cfg.name}: the port cannot train the "
+                         f"{cfg.family} family yet: its WKV6 kernels have "
+                         "no backward")
     model.init_params(torch.Generator(device=device).manual_seed(args.seed))
     train_step = make_train_step(model, AdamWConfig(lr=args.lr, warmup_steps=10))
     opt_state = init_state(dict(model.named_parameters()))
     data = SyntheticCorpus(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                       seed=args.seed))
 
+    extra = getattr(model, "extra_inputs", lambda batch: {})(args.batch)
     losses = []
     for step in range(args.steps):
+        batch = data.batch_at(step)
+        for name, (shape, dtype) in extra.items():
+            batch[name] = torch.zeros(shape, dtype=dtype, device=device)
         t0 = time.time()
-        opt_state, metrics = train_step(opt_state, data.batch_at(step))
+        opt_state, metrics = train_step(opt_state, batch)
         losses.append(float(metrics["loss"]))
         print(f"step {step}: loss={losses[-1]:.4f} "
               f"({time.time()-t0:.2f}s)", flush=True)

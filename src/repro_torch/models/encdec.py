@@ -14,6 +14,12 @@ rope) and the MLP.  :class:`EncDecLM` serves:
     decode_step(cache, tokens, pos)      -> (logits, cache)
     init_cache(batch, max_len)           -> cache
 
+and trains through ``forward_loss(tokens, labels, audio_frames)``, the
+reference's, with every encoder and decoder layer rematerialised
+(``layers.remat``; the reference leaves its encoder out of
+``jax.checkpoint``, and recomputation changes no value).
+``extra_inputs(batch)`` names the audio input's shape and dtype.
+
 The cache is a dict of stacked bf16 leaves, each contiguous:
 
     k, v    (num_layers, B, KV, max_len, D)           self-attention KV
@@ -37,8 +43,9 @@ from repro_torch.models.layers import (attention_block_decode,
                                        attention_block_prefill,
                                        bidirectional_attention,
                                        decode_attention, embed_lookup,
-                                       full_lengths, matmul, model_logits,
-                                       mlp_block, rms_norm)
+                                       full_lengths, matmul, mlp_block,
+                                       model_logits, model_loss, remat,
+                                       rms_norm)
 from repro_torch.models.transformer import (CACHE_DTYPE, EncoderLayer, _param,
                                             attention_params, dense_mlp,
                                             init_like_reference)
@@ -72,6 +79,11 @@ class EncDecLayer(nn.Module):
     def _mlp(self, x, cfg):
         return x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
                              cfg.activation)
+
+    def forward(self, x, enc_out, cfg, plain=False):
+        """The training pass: this layer's cross K/V of ``enc_out``
+        (``cross_kv``), then the layer, keeping no K/V."""
+        return self.prefill(x, *self.cross_kv(enc_out, cfg), cfg, plain)[0]
 
     def prefill(self, x, ck, cv, cfg, plain):
         """``dec_layer_prefill`` over this layer's cross k/v (B, F, KV, D);
@@ -133,14 +145,31 @@ class EncDecLM(nn.Module):
         init_like_reference(self, generator)
         return self
 
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def extra_inputs(self, batch: int) -> dict:
+        """The input beside the tokens, as the reference's bundle names it:
+        {"audio_frames": ((batch, num_audio_frames, d_model), dtype)}, in
+        the weights' dtype."""
+        cfg = self.cfg
+        return {"audio_frames": ((batch, cfg.num_audio_frames, cfg.d_model),
+                                 self.dtype)}
+
+    def _encoder(self, audio_frames, train: bool):
+        """The normed encoder output (B, F, d) of the frames, taken in the
+        weights' dtype; with ``train`` each layer runs under ``remat``."""
+        x = torch.as_tensor(audio_frames, device=self.device).to(self.dtype)
+        for layer in self.enc_layers:
+            args = (x, self.cfg, self.plain_attention)
+            x = remat(layer, *args) if train else layer(*args)
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
     @torch.no_grad()
     def encode(self, audio_frames):
         """(B, F, d) frames, taken in the weights' dtype -> the normed
         encoder output (B, F, d)."""
-        x = torch.as_tensor(audio_frames, device=self.device).to(self.dtype)
-        for layer in self.enc_layers:
-            x = layer(x, self.cfg, self.plain_attention)
-        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+        return self._encoder(audio_frames, train=False)
 
     @torch.no_grad()
     def prefill(self, tokens, audio_frames):
@@ -149,8 +178,7 @@ class EncDecLM(nn.Module):
         last token and the prefill cache."""
         cfg, plain = self.cfg, self.plain_attention
         enc_out = self.encode(audio_frames)
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = embed_lookup(self.embed, tokens)
+        x = embed_lookup(self.embed, self._tokens(tokens))
         ks, vs, cks, cvs = [], [], [], []
         for layer in self.dec_layers:
             ck, cv = layer.cross_kv(enc_out, cfg)
@@ -169,14 +197,25 @@ class EncDecLM(nn.Module):
         (B,); pos: scalar or (B,) positions.  Returns (logits (B, vocab)
         f32, cache), the self K/V written in place."""
         cfg, plain = self.cfg, self.plain_attention
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = embed_lookup(self.embed, tokens)
+        x = embed_lookup(self.embed, self._tokens(tokens))
         pos = torch.as_tensor(pos, device=self.device)
         lengths = full_lengths(cache["ck"][0])
         for i, layer in enumerate(self.dec_layers):
             x = layer.decode(x, (cache["k"][i], cache["v"][i]), cache["ck"][i],
                              cache["cv"][i], pos, lengths, cfg, plain)
         return model_logits(self, x), cache
+
+    def forward_loss(self, tokens, labels, audio_frames) -> torch.Tensor:
+        """The reference's ``forward_loss``: the encoder over audio_frames
+        (B, num_audio_frames, d_model), then the decoder over tokens (B,
+        S), each layer projecting its cross K/V of the encoder output
+        inside its ``remat``; the mean cross entropy of the f32 logits at
+        every position against labels (B, S)."""
+        enc_out = self._encoder(audio_frames, train=True)
+        x = embed_lookup(self.embed, self._tokens(tokens))
+        for layer in self.dec_layers:
+            x = remat(layer, x, enc_out, self.cfg, self.plain_attention)
+        return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg

@@ -16,6 +16,10 @@ kernels; the Mamba heads are plain PyTorch, as the reference's are jnp
     decode_step(cache, tokens, pos)   -> (logits, cache)
     init_cache(batch, max_len)        -> cache
 
+and trains through ``forward_loss(tokens, labels)``, the reference's: the
+prefill's function with fresh Mamba states and no cache, each layer
+rematerialised (``layers.remat``).
+
 The cache is a dict of stacked leaves:
 
     k_full, v_full  (F, B, KV, max_len, D)       bf16, the F full layers
@@ -33,7 +37,11 @@ Deliberate divergences from the reference:
   a prefill, as decode writes it; the reference keeps the last W rows at
   0..W-1, which breaks the ring once S > W and S % W != 0;
 * the Mamba prefill takes any S >= 1 (a shorter last chunk); the
-  reference asserts S % 128 == 0 once S > 128.
+  reference asserts S % 128 == 0 once S > 128;
+* the loss rematerialises every layer; the reference leaves its three
+  full-attention layers out of ``jax.checkpoint``.  Recomputation changes
+  no value, and a layer kept whole would hold its Mamba scan's f32
+  intermediates through the whole backward.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import (ACC_DTYPE, attention_block_decode,
                                        attention_block_prefill, embed_lookup,
                                        matmul, mlp_block, model_logits,
-                                       rms_norm)
+                                       model_loss, remat, rms_norm)
 from repro_torch.models.rwkv import ParamDef, _param, instantiate_all, model_defs
 from repro_torch.models.transformer import CACHE_DTYPE
 
@@ -257,6 +265,15 @@ class HymbaLayer(nn.Module):
         return x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
                              cfg.activation)
 
+    def forward(self, x, cfg, plain=False):
+        """The training pass: the prefill from fresh (zero) Mamba states,
+        keeping neither its K/V nor its states."""
+        B, h = x.shape[0], cfg.q_dim
+        conv = torch.zeros((B, h, CONV_K - 1), device=x.device, dtype=x.dtype)
+        ssm = torch.zeros((B, h, cfg.ssm_state), device=x.device,
+                          dtype=ACC_DTYPE)
+        return self.prefill(x, cfg, plain, conv, ssm)[0]
+
     def prefill(self, x, cfg, plain, conv_state, ssm_state):
         """x: (B, S, d).  Returns (x, (k, v) (B, KV, S, D), conv, ssm)."""
         h_in = rms_norm(x, self.ln1, cfg.norm_eps)
@@ -394,6 +411,15 @@ class HymbaLM(nn.Module):
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
         return model_logits(self, x), cache
+
+    def forward_loss(self, tokens, labels) -> torch.Tensor:
+        """The reference's ``forward_loss``: tokens and labels (B, S), any
+        S >= 1 (past the window too: the loss writes no ring); the mean
+        cross entropy of the f32 logits at every position."""
+        x = embed_lookup(self.embed, self._tokens(tokens))
+        for layer in self.layers:
+            x = remat(layer, x, self.cfg, self.plain_attention)
+        return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
         return self._cache(batch, max_len, CACHE_DTYPE)

@@ -17,6 +17,9 @@ cross-attention) and ``decode_attention`` to the decode kernel (over a
 full cross-attention cache with ``full_lengths``).  ``plain=True`` takes their plain PyTorch versions instead; only
 the models' ``plain_attention``, which the chip smoke check sets to
 compare the two, passes it.
+
+Training shares two helpers: ``remat`` runs a layer under
+``torch.utils.checkpoint`` and ``model_loss`` ends a decoder's loss.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import (decode_attention_op,
                                                   decode_attention_ref)
@@ -119,15 +123,36 @@ def cross_entropy_from_logits(logits: torch.Tensor,
     return (lse - picked).mean()
 
 
+def _head_logits(model, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of a decoder's final-normed ``x`` against its ``lm_head``
+    (its ``embed`` where it ties the two) over the padded vocabulary."""
+    cfg = model.cfg
+    table = model.embed if model.lm_head is None else model.lm_head
+    return lm_head_logits(rms_norm(x, model.final_norm, cfg.norm_eps), table,
+                          valid_vocab=cfg.vocab_size)
+
+
 def model_logits(model, x: torch.Tensor) -> torch.Tensor:
     """A decoder's output: its ``final_norm``, then f32 logits against its
     ``lm_head`` (its ``embed`` where it ties the two), cut to the real
     vocabulary."""
-    cfg = model.cfg
-    table = model.embed if model.lm_head is None else model.lm_head
-    logits = lm_head_logits(rms_norm(x, model.final_norm, cfg.norm_eps), table,
-                            valid_vocab=cfg.vocab_size)
-    return logits[..., :cfg.vocab_size]
+    return _head_logits(model, x)[..., :model.cfg.vocab_size]
+
+
+def model_loss(model, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """A decoder's training loss, the reference's ``forward_loss`` tail:
+    the mean cross entropy of the f32 logits at every position over the
+    padded vocabulary (padded rows at -1e30)."""
+    return cross_entropy_from_logits(_head_logits(model, x), labels)
+
+
+def remat(layer, *args):
+    """``layer(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of the
+    reference's ``jax.checkpoint``: only the layer's inputs stay alive, and
+    every kernel in it, the flash forward too, runs once more in the
+    backward."""
+    return checkpoint(layer, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,12 @@ MiniLM reranker): :class:`EncoderLayer` runs non-causal attention, and
 
     prefill(tokens)                    -> (mean-pooled embedding, None)
 
-It has no cache and no decode step.
+It has no cache and no decode step.  It trains through
+
+    forward_loss(tokens[, labels])     -> mean square of the pooled embedding
+
+the reference's surrogate loss, each layer rematerialised as in
+``DenseLM``.
 """
 from __future__ import annotations
 
@@ -36,16 +41,14 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (attention_block_decode,
                                        attention_block_prefill, attention_qkv,
-                                       bidirectional_attention,
-                                       cross_entropy_from_logits, embed_lookup,
-                                       lm_head_logits, matmul, mlp_block,
-                                       model_logits, rms_norm)
+                                       bidirectional_attention, embed_lookup,
+                                       matmul, mlp_block, model_logits,
+                                       model_loss, remat, rms_norm)
 from repro_torch.models.moe import moe_block, moe_shapes
 
 CACHE_DTYPE = torch.bfloat16
@@ -256,12 +259,8 @@ class DenseLM(nn.Module):
         does, so the flash forward runs twice per layer."""
         x = self._embed_in(self._tokens(tokens))
         for layer in self.layers:
-            x = checkpoint(layer, x, self.cfg, self.plain_attention,
-                           use_reentrant=False)
-        table = self.embed if self.lm_head is None else self.lm_head
-        logits = lm_head_logits(rms_norm(x, self.final_norm, self.cfg.norm_eps),
-                                table, valid_vocab=self.cfg.vocab_size)
-        return cross_entropy_from_logits(logits, self._tokens(labels))
+            x = remat(layer, x, self.cfg, self.plain_attention)
+        return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -310,15 +309,30 @@ class EncoderLM(nn.Module):
         init_like_reference(self, generator)
         return self
 
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _pooled(self, x):
+        """The mean over S of the final-normed states, (B, d_model), taken
+        in f32 and returned in x's dtype."""
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return x.float().mean(dim=1).to(x.dtype)
+
     @torch.no_grad()
     def prefill(self, tokens):
         """tokens: (B, S), every row S tokens long (no padding mask, as in
-        the reference).  Returns the mean over S of the final-normed
-        states, (B, d_model), taken in f32 and returned in the weights'
-        dtype, and None (an encoder keeps no cache)."""
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = embed_lookup(self.embed, tokens)
+        the reference).  Returns the pooled embedding (``_pooled``) and
+        None (an encoder keeps no cache)."""
+        x = embed_lookup(self.embed, self._tokens(tokens))
         for layer in self.layers:
             x = layer(x, self.cfg, self.plain_attention)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return x.float().mean(dim=1).to(x.dtype), None
+        return self._pooled(x), None
+
+    def forward_loss(self, tokens, labels=None) -> torch.Tensor:
+        """The reference's surrogate loss: the mean of the squares of the
+        pooled embedding, in f32.  ``labels`` is taken and ignored, as the
+        reference's batch carries it.  Each layer runs under ``remat``."""
+        x = embed_lookup(self.embed, self._tokens(tokens))
+        for layer in self.layers:
+            x = remat(layer, x, self.cfg, self.plain_attention)
+        return self._pooled(x).float().square().mean()

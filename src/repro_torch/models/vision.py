@@ -13,6 +13,12 @@ runs them in the reference's group order.  It serves:
     decode_step(cache, tokens, pos)    -> (logits, cache)
     init_cache(batch, max_len)         -> cache
 
+and trains through ``forward_loss(tokens, labels, image_embeds)``, the
+reference's, with every self and cross layer rematerialised
+(``layers.remat``; the reference leaves its cross layers out of
+``jax.checkpoint``, and recomputation changes no value).
+``extra_inputs(batch)`` names the image input's shape and dtype.
+
 The cache is a dict of stacked bf16 leaves, each contiguous:
 
     k, v    (num_layers, B, KV, max_len, D)        the self layers' KV
@@ -34,8 +40,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (bidirectional_attention,
                                        decode_attention, embed_lookup,
-                                       full_lengths, matmul, model_logits,
-                                       mlp_block, rms_norm)
+                                       full_lengths, matmul, mlp_block,
+                                       model_logits, model_loss, remat,
+                                       rms_norm)
 from repro_torch.models.transformer import (CACHE_DTYPE, DecoderLayer, _param,
                                             dense_mlp, init_like_reference)
 
@@ -74,6 +81,10 @@ class CrossLayer(nn.Module):
         h = mlp_block(self.mlp, rms_norm(x, self.ln_mlp, cfg.norm_eps),
                       cfg.activation)
         return x + torch.tanh(self.gate_mlp).to(x.dtype) * h
+
+    def forward(self, x, image_embeds, cfg, plain=False):
+        """The training pass: the image's K/V (``kv``), then the layer."""
+        return self.prefill(x, *self.kv(image_embeds, cfg), cfg, plain)
 
     def prefill(self, x, k, v, cfg, plain):
         """``cross_layer_apply``: x (B, S, d) over k/v (B, I, KV, D)."""
@@ -134,6 +145,20 @@ class VisionLM(nn.Module):
         for g, cross in enumerate(self.cross_layers):
             yield self.self_layers[g * self.per:(g + 1) * self.per], cross
 
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _image(self, image_embeds) -> torch.Tensor:
+        return torch.as_tensor(image_embeds, device=self.device).to(self.dtype)
+
+    def extra_inputs(self, batch: int) -> dict:
+        """The input beside the tokens, as the reference's bundle names it:
+        {"image_embeds": ((batch, num_image_tokens, vision_d_model),
+        dtype)}, in the weights' dtype."""
+        cfg = self.cfg
+        return {"image_embeds": ((batch, cfg.num_image_tokens,
+                                  cfg.vision_d_model), self.dtype)}
+
     @torch.no_grad()
     def prefill(self, tokens, image_embeds):
         """tokens: (B, S), every row S tokens long (no lengths, as in the
@@ -141,9 +166,8 @@ class VisionLM(nn.Module):
         taken in the weights' dtype.  Returns the logits (B, vocab) of the
         last token and the prefill cache."""
         cfg, plain = self.cfg, self.plain_attention
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        img = torch.as_tensor(image_embeds, device=self.device).to(self.dtype)
-        x = embed_lookup(self.embed, tokens)
+        img = self._image(image_embeds)
+        x = embed_lookup(self.embed, self._tokens(tokens))
         ks, vs, cks, cvs = [], [], [], []
         for layers, cross in self._groups():
             for layer in layers:
@@ -165,8 +189,7 @@ class VisionLM(nn.Module):
         at ``pos`` in place, attends over all image entries in every row,
         and returns (logits (B, vocab) f32, cache)."""
         cfg, plain = self.cfg, self.plain_attention
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = embed_lookup(self.embed, tokens)
+        x = embed_lookup(self.embed, self._tokens(tokens))
         pos = torch.as_tensor(pos, device=self.device)
         lengths = full_lengths(cache["ck"][0])
         i = 0
@@ -178,6 +201,21 @@ class VisionLM(nn.Module):
             x = cross.decode(x, cache["ck"][g], cache["cv"][g], lengths, cfg,
                              plain)
         return model_logits(self, x), cache
+
+    def forward_loss(self, tokens, labels, image_embeds) -> torch.Tensor:
+        """The reference's ``forward_loss``: tokens and labels (B, S) over
+        image_embeds (B, num_image_tokens, vision_d_model), taken in the
+        weights' dtype; the mean cross entropy of the f32 logits at every
+        position.  Each cross layer projects the image's K/V inside its
+        ``remat``, and its f32 gates take gradients as any weight."""
+        cfg, plain = self.cfg, self.plain_attention
+        img = self._image(image_embeds)
+        x = embed_lookup(self.embed, self._tokens(tokens))
+        for layers, cross in self._groups():
+            for layer in layers:
+                x = remat(layer, x, cfg, plain)
+            x = remat(cross, x, img, cfg, plain)
+        return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg

@@ -16,21 +16,27 @@ from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
 def make_train_step(model: nn.Module, opt_cfg: AdamWConfig = AdamWConfig(),
                     num_microbatches: int = 1) -> Callable:
     """(opt_state, batch) -> (opt_state, {"loss", "step"}) for a model with
-    ``forward_loss`` (``DenseLM``, dense or MoE), whose weights it updates
-    in place.  It turns the model's gradients on once.  Each call zeroes
-    the gradients, runs the ``num_microbatches`` microbatches of
-    ``batch`` (``tokens`` and ``labels``, (B, S) arrays or tensors) and
-    applies the update; the loss is the batch's mean, detached, and the
-    step the optimiser's count after the update."""
+    ``forward_loss`` (every family but rwkv: ``DenseLM``, ``EncoderLM``,
+    ``HymbaLM``, ``VisionLM``, ``EncDecLM``), whose weights it updates in
+    place.  It turns the model's gradients on once, the VLM's f32 gates
+    too.  Each call zeroes the gradients, runs the ``num_microbatches``
+    microbatches of ``batch`` (``tokens`` and ``labels``, (B, S) arrays or
+    tensors, and the model's ``extra_inputs``, which reach the device in
+    the weights' dtype) and applies the update; the loss is the batch's
+    mean, detached, and the step the optimiser's count after the
+    update."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     loss_fn = make_microbatched_loss(model.forward_loss, num_microbatches)
 
+    def to_device(a) -> torch.Tensor:
+        t = torch.as_tensor(a, device=model.device)
+        return t.to(model.dtype) if t.is_floating_point() else t
+
     def train_step(opt_state: AdamWState, batch: Dict[str, np.ndarray]):
         for p in params.values():
             p.grad = None
-        tensors = {name: torch.as_tensor(a, device=model.device)
-                   for name, a in batch.items()}
+        tensors = {name: to_device(a) for name, a in batch.items()}
         loss = loss_fn(tensors)
         opt_state = apply_updates(params, {n: p.grad for n, p in params.items()},
                                   opt_state, opt_cfg)

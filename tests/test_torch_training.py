@@ -238,5 +238,5 @@ def test_launcher_loss_decreases(arch):
 
 
 def test_launcher_refuses_a_family_it_cannot_train():
-    with pytest.raises(SystemExit, match="dense and MoE"):
+    with pytest.raises(SystemExit, match="WKV6 kernels have no backward"):
         train_main(["--device", "cpu", "--arch", "rwkv6-7b", "--steps", "1"])
