@@ -13,13 +13,13 @@ attention kernels' sliding-window mode and ring decode beside its Mamba
 heads, the cross-attention decoders llama-3.2-vision-11b and
 seamless-m4t-large-v2 through both attention kernels over their image and
 audio caches, and rag_reranker's two encoders through the flash kernel's
-non-causal mode, then trains every family but rwkv (qwen2.5-3b, the
-encoders, hymba-1.5b, seamless-m4t-large-v2 and the VLM) through the
-flash forward and its backward kernel, and prints one JSON object per
-phase:
+non-causal mode, then trains every family (qwen2.5-3b, the encoders,
+hymba-1.5b, seamless-m4t-large-v2 and the VLM through the flash forward
+and its backward kernel, rwkv6-7b through the chunked WKV6 forward and the
+WKV6 backward kernel), and prints one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
-2. ``build``: the five kernels compiled from ``src/repro_torch/csrc`` for
+2. ``build``: the six kernels compiled from ``src/repro_torch/csrc`` for
    sm_90a, in parallel, with nvcc's register/spill report; then one
    ``sass`` line per kernel library with its HGMMA, HMMA and FFMA
    instructions per entry (``cuobjdump -sass``), which fails the run if a
@@ -97,28 +97,37 @@ phase:
    encoders' non-causal D=64 and D=32, the VLM's cross shape, seamless's
    encoder (1024 x 1024) and cross (512 over 1024) shapes at B=4 and the
    train_4k length B=1, S=4096; two calls must give bit-equal gradients;
-   each with its dK/dV plan, graph ms, bound and SDPA's backward ms); then
-   for each of ``TRAIN_RUNS``, one model at a time: ``train_parity``, one
-   train step at full width and 2 layers (the VLM: one group of 5 self
-   layers and a cross layer) through the kernels and through the plain
-   attention, held against an f32 plain run (loss within TOL, each
+   each with its dK/dV plan, graph ms, bound and SDPA's backward ms), and
+   of the WKV6 backward (``wkv6_bwd``: dr, dk, dv, dlogw, du and dstate
+   against ``wkv6_bwd_ref`` in f64, within TOL and ROW_REL_TOL, dlogw
+   also as a whole (its error's norm within ROW_REL_TOL of its norm; at
+   strong decays its rows are reported, not held), at rwkv6-7b's train
+   shape B=2, S=2048, H=64, D=64, a ragged S=1000, and the strong
+   and slow decays; two calls bit-equal; graph ms and bound);
+   then for each of ``TRAIN_RUNS``, one model at a time: ``train_parity``,
+   one train step at full width and 2 layers (the VLM: one group of 5
+   self layers and a cross layer) through the kernels and through their
+   plain versions, held against an f32 plain run (loss within TOL, each
    gradient's RMS error within BF16_ERR_RATIO of the plain bf16 run's, no
    gradient zero); then ``train``, bf16 seeded weights and AdamW on the
    reference's synthetic corpus, with seeded stub image or audio inputs
    and nonzero VLM gates: qwen2.5-3b at full width and depth for 30 steps
    of 8 x 2048 tokens in 4 microbatches, e5-base-v2 and reranker-minilm
    (16 x 512), hymba-1.5b (2 x 2048, past its window), seamless-m4t-large-v2
-   (8 x 512 over 1024 frames a row, 2 microbatches) and the VLM at full
+   (8 x 512 over 1024 frames a row, 2 microbatches), the VLM at full
    width and 2 of its 8 groups (4 x 512 over 1601 image embeddings; the
-   f32 moments of all 11.47 B weights would not fit), one ``train_step``
-   line per step (loss, ms, tokens/s, grad norm, model FLOPs share), peak
-   memory, a ``torch.profiler`` window of one step (busy share, the flash
-   backward's ms); a run fails unless every loss is finite, the last 5
-   losses' mean is under 0.75x the first 5's, and every step launches
-   exactly 2 flash forwards and 1 backward per attention call and
-   microbatch (qwen: 288 and 144); then ``vlm_grad``: one loss and backward
-   of the VLM at its full 48 layers (4 x 512 tokens), with its loss, grad
-   norm and peak memory, and 96 forwards and 48 backwards;
+   f32 moments of all 11.47 B weights would not fit) and rwkv6-7b at full
+   width and 8 of its 32 layers (qwen's 8 x 2048 in 4 microbatches), one
+   ``train_step`` line per step (loss, ms, tokens/s, grad norm, model
+   FLOPs share), peak memory, a ``torch.profiler`` window of one step
+   (busy share, the backward kernel's ms); a run fails unless every loss
+   is finite, the last 5 losses' mean is under 0.75x the first 5's, and
+   every step launches exactly ``train_launches``: 2 forwards and 1
+   backward per attention call (WKV6 call, for rwkv) and microbatch (qwen:
+   288 and 144; rwkv: 64 and 32); then ``vlm_grad`` and ``rwkv_grad``: one
+   loss and backward at full depth, the VLM's 48 layers over 4 x 512
+   tokens (96 forwards and 48 backwards) and rwkv6-7b's 32 over 4 x 2048
+   (64 and 32), with the loss, grad norm and peak memory;
 12. ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
@@ -486,8 +495,8 @@ def wkv6_chunk_work(B, S, H, D):
     inter-chunk (C x D x D) product, the 6 off-diagonal (16 x 16 x D)
     sub-chunk products, A v over the 10 sub-chunk blocks at or below the
     diagonal, and the (D x C x D) state update, each once (the kernel
-    takes three bf16 products for each, its hi/lo split, which are not
-    counted); the exponentials are those of the decayed operands and the
+    takes three bf16 products for each, its operands split into two or
+    three bf16 parts, which are not counted); the exponentials are those of the decayed operands and the
     diagonal sub-chunks' pairs, once per head (the two column blocks of a
     head share them)."""
     C, SUB = 64, 16
@@ -557,6 +566,8 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
               and bool(torch.isfinite(out).all()) and bool(torch.isfinite(s1).all()))
     row_err = row_rel_err(torch, out, truth)
     state_row_err = row_rel_err(torch, s1, sref)
+    # outputs that round to another bf16 value than the plain version's
+    differs = float((out != ref).float().mean())
     del truth
     esize = r.element_size()
     # r, k, v read and o written in the model's dtype, logw read in f32,
@@ -578,6 +589,7 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
     result.update({
         "max_abs_err": float(max(err.max(), serr.max())), "tol": tol,
         "max_row_rel_err": row_err, "max_state_row_rel_err": state_row_err,
+        "differs_from_plain_share": differs,
         "row_rel_tol": ROW_REL_TOL, "ok_abs": ok_abs, "ok_rows": ok_rows,
         "ok": ok_abs and ok_rows, "kernel_ms": cuda_ms(torch, kernel),
         # where the host's launch cost exceeds the kernel's (S=1, S=77)
@@ -585,6 +597,96 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
         "kernel_graph_ms": graph_ms(torch, kernel),
         "plain_ms": cuda_ms(torch, plain), "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by})
+    return result
+
+
+def check_wkv6_bwd(torch, ops_mod, dev, gen, B, S, H, D, decay="mild"):
+    """The WKV6 backward kernel against its plain version: bf16 r, k, v
+    and dO as (B, S, H, D) projections seen as (B, H, S, D), as the model
+    passes them, f32 logw (``LOGW_MEAN[decay]``), u and a nonzero carried
+    state; the kernel's dr, dk, dv, dlogw, du and dstate against
+    ``wkv6_bwd_ref`` on the same inputs in f64, each held to TOL and, row by
+    row, to ROW_REL_TOL of the row's RMS, and a second call bit-equal to the
+    first (nothing atomic).  dlogw is also held as a whole: the norm of its
+    error at most ROW_REL_TOL of its own norm (an all-zero dlogw reads 1,
+    reported beside).  At strong decays its rows are reported, not held:
+    dlogw_t = P_t - k_t * dk~_t is there a difference of terms ~1e3 times
+    its size, and f32 resolves some rows only to ~0.1 of their RMS, in
+    the plain version too (its f32 readings against the f64 run are
+    reported beside the kernel's for every gradient).  Times: the kernel
+    by CUDA events and through a CUDA graph, and its plain version (a token
+    loop); no single PyTorch call computes it.  The bound counts 12 D^2 f32
+    operations per token and head (the state rebuilt, 3; dr~, 2; dS
+    carried, 3; dk~ and dv, 2 each) against the bytes of r, k, v, dO
+    (bf16), logw, u and the state read and of dr, dk, dv (bf16), dlogw, du
+    and the state's gradient written; both times are reported."""
+    from repro_torch.kernels.rwkv6_scan import wkv6_bwd_ref
+
+    dt = torch.bfloat16
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    r, k, v, do = (rnd(B, S, H, D).to(dt).transpose(1, 2) for _ in range(4))
+    logw = (-torch.exp(rnd(B, S, H, D) + LOGW_MEAN[decay])).transpose(1, 2)
+    u = rnd(H, D, scale=0.2)
+    s0 = rnd(B, H, D, D, scale=0.1)
+
+    def kernel():
+        return ops_mod.wkv6_bwd_op(r, k, v, logw, u, s0, do)
+
+    def plain():
+        return wkv6_bwd_ref(r, k, v, logw, u, s0, do)
+
+    grads = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    truth = wkv6_bwd_ref(*(x.double() for x in (r, k, v, logw, u, s0, do)))
+    tol = TOL["bfloat16"]
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate")
+    errs, row_errs, plain_row_errs, ok_abs = {}, {}, {}, True
+    plain_grads = plain()
+    for name, g, p, ref in zip(names, grads, plain_grads, truth):
+        err = (g.double() - ref).abs()
+        ok_abs = (ok_abs and bool((err <= tol + tol * ref.abs()).all())
+                  and bool(torch.isfinite(g).all()))
+        errs[name] = float(err.max())
+        row_errs[name] = row_rel_err(torch, g, ref)
+        plain_row_errs[name] = row_rel_err(torch, p, ref)
+
+    def norm_err(g):
+        return float((g.double() - truth[3]).norm() / truth[3].norm())
+
+    dlogw_norm = {"kernel": norm_err(grads[3]), "plain": norm_err(plain_grads[3]),
+                  "zero": norm_err(torch.zeros_like(grads[3]))}
+    del truth, plain_grads
+    held = {n: e for n, e in row_errs.items() if n != "dlogw" or decay != "strong"}
+    tokens = B * H * S
+    # per token and channel 22 bytes; the state and its gradient, u and du
+    nbytes = tokens * D * (4 * 2 + 4 + 3 * 2 + 4) + 2 * 4 * (B * H * D * D + H * D)
+    ops = 12.0 * tokens * D * D
+    b_ms, b_by = bound(ops, nbytes, "float32")
+    row_err = max(held.values())
+    result = {"kernel": "wkv6_bwd", "dtype": "bfloat16",
+              "shape": {"B": B, "S": S, "H": H, "D": D, "decay": decay},
+              "deterministic": deterministic,
+              "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+              "tol": tol, "max_row_rel_err": row_err, "row_rel_err_by_grad": row_errs,
+              "plain_row_rel_err_by_grad": plain_row_errs,
+              "row_rel_tol": ROW_REL_TOL, "rows_held": sorted(held),
+              "dlogw_norm_rel_err": dlogw_norm, "ok_abs": ok_abs,
+              "ok_rows": row_err <= ROW_REL_TOL,
+              "ok_dlogw_norm": dlogw_norm["kernel"] <= ROW_REL_TOL < dlogw_norm["zero"],
+              "kernel_ms": cuda_ms(torch, kernel),
+              "kernel_graph_ms": graph_ms(torch, kernel),
+              "plain_ms": cuda_ms(torch, plain, target_ms=1.0), "library_ms": None,
+              "bound_ms": b_ms, "bound_by": b_by,
+              "bound_ops_ms": ops / PEAK_OPS["float32"] * 1e3,
+              "bound_bytes_ms": nbytes / BYTES_PER_S * 1e3}
+    result["ok"] = (ok_abs and result["ok_rows"] and result["ok_dlogw_norm"]
+                    and deterministic)
     return result
 
 
@@ -843,11 +945,17 @@ FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (4, 1024, 16, 16, 64, 0, "bfloat16", 1024, False),
                    (4, 512, 16, 16, 64, 0, "bfloat16", 1024, False),
                    (1, 4096, 16, 2, 128, 0, "bfloat16")]
+# the WKV6 backward at rwkv6-7b's train shape (H = 64, D = 64; B = 2 per
+# microbatch, S = 2048), a ragged S, and the strong and slow decays of
+# WKV6_CASES: (B, S, H, D, decay)
+WKV6_BWD_CASES = [(2, 2048, 64, 64, "mild"), (1, 1000, 64, 64, "mild"),
+                  (1, 1000, 64, 64, "strong"), (1, 1000, 64, 64, "slow")]
 # the row of each kernel in the summary line: its index among the kernel's
 # checks (flash: S=1000; decode: the engine's 8 slots; wkv6_chunk: B=1,
-# S=1000; wkv6_scan: the engine's decode step, B=8 at S=1, bf16)
+# S=1000; wkv6_scan: the engine's decode step, B=8 at S=1, bf16; the
+# backward kernels: their train shapes)
 SUMMARY_SHAPE = {"flash_attention": 2, "decode_attention": 0, "wkv6_chunk": 3,
-                 "wkv6_scan": 1, "flash_attention_bwd": 0}
+                 "wkv6_scan": 1, "flash_attention_bwd": 0, "wkv6_bwd": 0}
 SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:90"),
@@ -861,6 +969,10 @@ SOURCES = {
     # reference's training differentiates its jnp causal_flash_attention
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/models/layers.py:308"),
+    # nor wkv6_scan (kernel.py:77): the reference's training differentiates
+    # its jnp wkv6_chunked
+    "wkv6_bwd": ("src/repro_torch/csrc/wkv6_bwd.cu",
+                 "src/repro/models/rwkv.py:49"),
 }
 
 
@@ -974,10 +1086,9 @@ def set_gates(torch, model, gates) -> None:
             cross.gate_mlp.fill_(g_mlp)
 
 
-def model_check(torch, np, cfg, dev, build_model, plain_attr,
-                prompt_tokens=1000):
+def model_check(torch, np, cfg, dev, build_model, prompt_tokens=1000):
     """Full-width prefill of ``prompt_tokens`` + 8 decode steps through the
-    kernels and through the plain versions (``model.<plain_attr> = True``),
+    kernels and through the plain versions (``model.plain_kernels = True``),
     in f32 and in bf16 weights drawn from one seed.
 
     In f32 the two differ only by the kernels' arithmetic, and that
@@ -1022,7 +1133,7 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr,
         torch.cuda.synchronize()
         weights_s = time.perf_counter() - t0
         for plain in (True, False):  # the f32 plain run first: the reference
-            setattr(model, plain_attr, plain)
+            model.plain_kernels = plain
 
             def run(model=model):
                 return _logits_run(torch, model, prompt, steps, extra)
@@ -1034,7 +1145,7 @@ def model_check(torch, np, cfg, dev, build_model, plain_attr,
             if (dtype, plain) != ("float32", True):
                 runs[dtype, plain], _ = routed_run(
                     moe, run, replay=free["float32", True])
-        setattr(model, plain_attr, False)
+        model.plain_kernels = False
         if cfg.is_moe and dtype == "float32":
             stats = moe_stats(torch, moe, cfg, free["float32", True],
                               model.layers[0].mlp["router"], (1, 1000, cfg.d_model),
@@ -1288,7 +1399,7 @@ def generate_run(torch, np, model, common):
 def encoder_check(torch, np, cfg, dev, build_model):
     """Full-width and full-depth pooled embeddings of a 512- and a
     137-token prompt (one ``prefill`` each) through the kernel and through
-    the plain version (``plain_attention``), in f32 and in bf16 weights
+    the plain version (``plain_kernels``), in f32 and in bf16 weights
     drawn from one seed: held to MODEL_REL_TOL_F32 in f32, and in bf16 by
     BF16_ERR_RATIO against the f32 plain run, as ``model_check`` holds the
     decoders' logits.  Returns the result and the bf16 model."""
@@ -1299,10 +1410,10 @@ def encoder_check(torch, np, cfg, dev, build_model):
         model = build_model(cfg, device=dev, dtype=getattr(torch, dtype))
         model.init_params(torch.Generator(device=dev).manual_seed(SEED))
         for plain in (False, True):
-            model.plain_attention = plain
+            model.plain_kernels = plain
             runs[dtype, plain] = torch.cat(
                 [model.prefill(p)[0] for p in prompts]).float()
-        model.plain_attention = False
+        model.plain_kernels = False
         if dtype == "float32":
             del model
             torch.cuda.empty_cache()
@@ -1374,8 +1485,8 @@ def device_breakdown(torch, calls):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         groups = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
-                  "decode_attention": 0.0, "wkv6": 0.0, "matmul": 0.0,
-                  "other": 0.0}
+                  "decode_attention": 0.0, "wkv6": 0.0, "wkv6_bwd": 0.0,
+                  "matmul": 0.0, "other": 0.0}
         kernels = []
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
@@ -1391,6 +1502,8 @@ def device_breakdown(torch, calls):
             elif any(w in name for w in ("decode_split", "decode_merge",
                                          "decode_fwd")):
                 group = "decode_attention"
+            elif "wkv6_bwd" in name:
+                group = "wkv6_bwd"
             elif "wkv6" in name:
                 group = "wkv6"
             elif any(w in name for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
@@ -1468,7 +1581,7 @@ def encode_run(torch, np, models, common):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: training every family but rwkv
+# phase 11: training every family
 # ---------------------------------------------------------------------------
 
 
@@ -1493,30 +1606,44 @@ class TrainSpec(NamedTuple):
 # families: the encoders at rag_reranker's rerank length cap, hymba past its
 # 1024 window, seamless-m4t over 1024 stub frames a row, the VLM at 2 of its
 # 8 groups (AdamW's f32 moments of all 11.47 B weights would take 91.8 GB),
-# at AdamW's default peak rate: at 1e-3 its loss climbed back from step 7
+# at AdamW's default peak rate: at 1e-3 its loss climbed back from step 7;
+# rwkv6-7b at qwen's batches and 8 of its 32 layers (2.30 B weights: the
+# f32 moments of all 7.58 B, with bf16 weights and gradients, take 91 GB)
 TRAIN_RUNS = [TrainSpec("qwen2.5-3b", 8, 2048, 4, 30),
               TrainSpec("e5-base-v2", 16, 512, 1, 30),
               TrainSpec("reranker-minilm", 16, 512, 1, 30),
               TrainSpec("hymba-1.5b", 2, 2048, 1, 15),
               TrainSpec("seamless-m4t-large-v2", 8, 512, 2, 20),
-              TrainSpec("llama-3.2-vision-11b", 4, 512, 1, 30, layers=10, lr=3e-4)]
-# the VLM's gradient at its full 48 layers: one forward_loss and backward
-# of 4 x 512 tokens (rows, seq), no update
-VLM_GRAD = (4, 512)
+              TrainSpec("llama-3.2-vision-11b", 4, 512, 1, 30, layers=10, lr=3e-4),
+              TrainSpec(RWKV_ARCH, 8, 2048, 4, 30, layers=8)]
+# the gradients at full depth, one forward_loss and backward each, no
+# update: (phase, rows, seq) by arch; the VLM's 48 layers over 4 x 512
+# tokens, rwkv6-7b's 32 over 4 x 2048
+FULL_GRADS = {CROSS_ARCHS[0]: ("vlm_grad", 4, 512), RWKV_ARCH: ("rwkv_grad", 4, 2048)}
 # the reference's bar for a falling loss (tests/test_training.py)
 TRAIN_LOSS_RATIO = 0.75
 PARITY_LAYERS = 2
 PARITY_ROWS = 2
 
 
-def attention_calls(cfg) -> int:
-    """Attention calls in one forward of the loss: one per layer, plus the
-    VLM's cross layers, plus seamless's encoder and cross-attention."""
+def train_launches(cfg, microbatches: int = 1) -> dict:
+    """Kernel launches of one loss and backward over ``microbatches``
+    microbatches, by kernel, nothing else: per layer and microbatch, the
+    forward kernel twice (the forward and the checkpoint's recompute) and
+    the backward once; rwkv6-7b's WKV6 kernels (the chunked forward: bf16
+    prompts of 2048 tokens), every other family's flash kernels, once per
+    attention call: one per layer, plus the VLM's cross layers, plus
+    seamless's encoder and cross-attention."""
+    if cfg.family == "ssm":
+        return {"wkv6_chunk": 2 * cfg.num_layers * microbatches,
+                "wkv6_bwd": cfg.num_layers * microbatches}
+    calls = cfg.num_layers
     if cfg.family == "vlm":
-        return cfg.num_layers + cfg.num_layers // cfg.cross_attn_every
-    if cfg.family == "audio":
-        return cfg.encoder_layers + 2 * cfg.num_layers
-    return cfg.num_layers
+        calls += cfg.num_layers // cfg.cross_attn_every
+    elif cfg.family == "audio":
+        calls = cfg.encoder_layers + 2 * cfg.num_layers
+    return {"flash_attention": 2 * calls * microbatches,
+            "flash_attention_bwd": calls * microbatches}
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
@@ -1537,7 +1664,9 @@ def train_flops(model, batch: int, seq: int) -> float:
     weight over the tokens; an embedding table that is not also the LM head
     is a lookup and counts none), and 3 x 4 D per unmasked (query, key)
     pair and head of every attention call (forward, and a backward of twice
-    its products), by ``attention_pairs``."""
+    its products), by ``attention_pairs``; rwkv6-7b has no pairs, and its
+    WKV6 3 x 4 D^2 per token, head and layer (the forward's r S and state
+    update, a backward of twice that)."""
     cfg = model.cfg
     ctx = {"vlm": cfg.num_image_tokens, "audio": cfg.num_audio_frames}.get(cfg.family, 0)
     lookup = cfg.family == "encoder" or getattr(model, "lm_head", None) is not None
@@ -1562,6 +1691,9 @@ def train_flops(model, batch: int, seq: int) -> float:
     elif cfg.family == "audio":
         pairs = (cfg.encoder_layers * attention_pairs(ctx, ctx, False)
                  + L * (causal + attention_pairs(seq, ctx, False)))
+    elif cfg.family == "ssm":
+        return (6.0 * weights * batch
+                + 12.0 * cfg.head_dim ** 2 * cfg.num_heads * L * batch * seq)
     else:
         pairs = L * causal
     return 6.0 * weights * batch + 12.0 * cfg.head_dim * cfg.num_heads * batch * pairs
@@ -1608,10 +1740,9 @@ def train_run(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     seeded stub input for the whole run where the family takes one.  Each
     step's launch counts are set to 0 just before it and read just after.
     ``ok`` needs every loss finite, the mean of the last 5 below
-    TRAIN_LOSS_RATIO of the first 5's, and, in every step, exactly 2 flash
-    forwards per attention call and microbatch (the forward and the
-    checkpoint's recompute) and one backward, nothing else.  An extra step
-    is profiled (``device_breakdown``)."""
+    TRAIN_LOSS_RATIO of the first 5's, and, in every step, exactly the
+    launches of ``train_launches``.  An extra step is profiled
+    (``device_breakdown``)."""
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import (AdamWConfig, global_norm,
                                                 init_state)
@@ -1629,10 +1760,9 @@ def train_run(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     data = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, spec.batch, seed=SEED))
-    calls = attention_calls(cfg)
-    per_step = {"flash_attention": 2 * calls * spec.microbatches,
-                "flash_attention_bwd": calls * spec.microbatches}
+    per_step = train_launches(cfg, spec.microbatches)
     expected = {name: per_step.get(name, 0) for name in common.KERNELS}
+    bwd_kernel = next(name for name in per_step if name.endswith("_bwd"))
     tokens = spec.batch * spec.seq
     flops = train_flops(model, spec.batch, spec.seq)
     steps, launches_ok, totals = [], True, Counter()
@@ -1679,8 +1809,8 @@ def train_run(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
         "launches_per_step_expected": {k: n for k, n in expected.items() if n},
         "launches": dict(totals), "profile_one_step": profile,
         "device_busy_share": profile.get("device_busy_share"),
-        "flash_bwd_group_ms": profile.get("device_ms_by_group", {}).get(
-            "flash_attention_bwd"),
+        "bwd_kernel": bwd_kernel,
+        "bwd_group_ms": profile.get("device_ms_by_group", {}).get(bwd_kernel),
         "finite": all(np.isfinite(losses))}
     if cfg.family == "vlm":
         result["groups"] = len(model.cross_layers)
@@ -1696,16 +1826,16 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     """One train step (one microbatch of PARITY_ROWS x ``spec.seq`` tokens,
     with a seeded stub input where the family takes one) of ``cfg`` at full
     width and the depth of ``parity_config``, from weights drawn from one
-    seed: in f32 with the plain attention (the reference run), in bf16 with
-    the plain attention and in bf16 through the kernels.  The kernels' loss
-    must be within bf16 TOL of the plain bf16 loss's scale, no gradient of
-    the f32 run may be zero, and each gradient's RMS error against the f32
-    run at most BF16_ERR_RATIO times the plain bf16 run's, as
-    ``model_check`` holds logits; a 0-dim gradient (the VLM's gates), one
-    number, for which that ratio of two single errors is noise, is held as
-    the loss is: within TOL of the plain bf16 run's.  The kernel run
-    launches exactly 2 flash forwards and one backward per attention call,
-    the plain runs none."""
+    seed: in f32 with the plain versions of the kernels (the reference
+    run), in bf16 with the plain versions and in bf16 through the kernels.
+    The kernels' loss must be within bf16 TOL of the plain bf16 loss's
+    scale, no gradient of the f32 run may be zero, and each gradient's RMS
+    error against the f32 run at most BF16_ERR_RATIO times the plain bf16
+    run's, as ``model_check`` holds logits; a 0-dim gradient (the VLM's
+    gates), one number, for which that ratio of two single errors is
+    noise, is held as the loss is: within TOL of the plain bf16 run's.
+    The kernel run launches exactly ``train_launches``, the plain runs
+    nothing."""
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import AdamWConfig, init_state
     from repro_torch.training.train_loop import make_train_step
@@ -1716,7 +1846,7 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     runs = {}
     for dtype, plain in (("float32", True), ("bfloat16", True), ("bfloat16", False)):
         model = seeded_model(torch, np, small, dev, build_model, getattr(torch, dtype))
-        model.plain_attention = plain
+        model.plain_kernels = plain
         step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP))
         state = init_state(dict(model.named_parameters()))
         inputs = {**batch, **stub_batch(torch, model, PARITY_ROWS, dev, SEED + 9)}
@@ -1749,8 +1879,7 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
         k_err = _rms(torch, kern_g[name], g)
         ratios[name] = k_err / p_err if p_err > 0 else (0.0 if k_err == 0 else float("inf"))
     worst = sorted(ratios.items(), key=lambda kv: -kv[1])
-    calls = attention_calls(small)
-    want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    want = train_launches(small)
     result = {"phase": "train_parity", "arch": cfg.name, "layers": small.num_layers,
               "d_model": cfg.d_model, "tokens": PARITY_ROWS * spec.seq,
               "loss_f32_plain": ref_loss, "loss_bf16_plain": plain_loss,
@@ -1772,19 +1901,18 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     return result
 
 
-def vlm_grad_run(torch, np, cfg, dev, build_model, common):
-    """The VLM at full width and depth: one ``forward_loss`` and backward
-    of VLM_GRAD's rows x seq tokens over seeded image embeddings, bf16
-    weights and gradients, no optimiser state.  ``ok`` needs a finite loss
-    and gradient norm and exactly 2 flash forwards and one backward per
-    attention call."""
+def grad_run(torch, np, cfg, dev, build_model, common):
+    """``cfg`` at full width and depth: one ``forward_loss`` and backward
+    of FULL_GRADS' rows x seq tokens (over seeded image embeddings for the
+    VLM), bf16 weights and gradients, no optimiser state.  ``ok`` needs a
+    finite loss and gradient norm and exactly ``train_launches``."""
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import global_norm
 
+    phase, rows, seq = FULL_GRADS[cfg.name]
     torch.cuda.reset_peak_memory_stats()
     model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
     model.requires_grad_(True)
-    rows, seq = VLM_GRAD
     batch = SyntheticCorpus(DataConfig(cfg.vocab_size, seq, rows,
                                        seed=SEED)).batch_at(0)
     stub = stub_batch(torch, model, rows, dev, SEED + 11)
@@ -1796,31 +1924,38 @@ def vlm_grad_run(torch, np, cfg, dev, build_model, common):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     launches = {k: n for k, n in common.launch_counts.items() if n}
-    calls = attention_calls(cfg)
-    want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    want = train_launches(cfg)
     gnorm = float(global_norm(p.grad for p in model.parameters()))
-    result = {"phase": "vlm_grad", "arch": cfg.name, "layers": cfg.num_layers,
-              "groups": len(model.cross_layers),
+    result = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
               "params": sum(p.numel() for p in model.parameters()),
               "tokens": rows * seq, "loss": float(loss.detach()), "grad_norm": gnorm,
               "ms": seconds * 1e3,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "launches": launches, "launches_expected": want}
+    if cfg.family == "vlm":
+        result["groups"] = len(model.cross_layers)
     result["ok"] = (bool(np.isfinite(result["loss"])) and bool(np.isfinite(gnorm))
                     and launches == want)
     del model, loss
     return result
 
 
-def train_phase(torch, np, F, flash_ops, dev, gen, build_model, common, get_config):
-    """The backward kernel's checks, then for each of TRAIN_RUNS the step
-    parity check and the training run, then the VLM's full-depth
-    gradient; returns the checks and the train results by arch."""
+def train_phase(torch, np, F, flash_ops, wkv6_ops, dev, gen, build_model, common,
+                get_config):
+    """The backward kernels' checks, then for each of TRAIN_RUNS the step
+    parity check and the training run, then the full-depth gradients of
+    FULL_GRADS; returns the checks and the train results by arch."""
     bwd = [check_flash_bwd(torch, F, flash_ops, dev, gen, *c) for c in FLASH_BWD_CASES]
     emit({"phase": "kernel_checks", "checks": bwd})
     bad = [c for c in bwd if not c["ok"]]
     if bad:
         raise SmokeFailure(f"{len(bad)} flash backward check(s) out of tolerance")
+    wkv = [check_wkv6_bwd(torch, wkv6_ops, dev, gen, *c) for c in WKV6_BWD_CASES]
+    emit({"phase": "kernel_checks", "checks": wkv})
+    bad = [c for c in wkv if not c["ok"]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} wkv6 backward check(s) out of tolerance")
+    bwd += wkv
     results = {}
     for spec in TRAIN_RUNS:
         cfg = get_config(spec.arch)
@@ -1837,13 +1972,13 @@ def train_phase(torch, np, F, flash_ops, dev, gen, build_model, common, get_conf
         results[spec.arch] = result
         gc.collect()
         torch.cuda.empty_cache()
-    result = vlm_grad_run(torch, np, get_config(CROSS_ARCHS[0]), dev, build_model,
-                          common)
-    emit(result)
-    if not result["ok"]:
-        raise SmokeFailure("full-depth VLM gradient failed")
-    gc.collect()
-    torch.cuda.empty_cache()
+    for arch in FULL_GRADS:
+        result = grad_run(torch, np, get_config(arch), dev, build_model, common)
+        emit(result)
+        if not result["ok"]:
+            raise SmokeFailure(f"full-depth {arch} gradient failed")
+        gc.collect()
+        torch.cuda.empty_cache()
     return bwd, results
 
 
@@ -2044,8 +2179,7 @@ def run():
         raise SmokeFailure(f"{len(bad)} kernel check(s) out of tolerance")
 
     cfg = get_config(ARCH)
-    result, model = model_check(torch, np, cfg, dev, build_model,
-                                "plain_attention")
+    result, model = model_check(torch, np, cfg, dev, build_model)
     emit(result)
     if not result["ok"]:
         raise SmokeFailure("full-width model check failed")
@@ -2074,7 +2208,7 @@ def run():
     checks += wkv
 
     cfg = get_config(RWKV_ARCH)
-    result, model = model_check(torch, np, cfg, dev, build_model, "plain_wkv")
+    result, model = model_check(torch, np, cfg, dev, build_model)
     emit(result)
     if not result["ok"]:
         raise SmokeFailure("full-width rwkv6-7b model check failed")
@@ -2115,8 +2249,7 @@ def run():
     moe_launches = {}
     for arch in MOE_ARCHS:
         cfg = get_config(arch)
-        result, model = model_check(torch, np, cfg, dev, build_model,
-                                    "plain_attention")
+        result, model = model_check(torch, np, cfg, dev, build_model)
         emit(result)
         if not result["ok"]:
             raise SmokeFailure(f"full-width {arch} model check failed")
@@ -2156,7 +2289,7 @@ def run():
     checks += hymba_checks
     cfg = get_config(HYMBA_ARCH)
     result, model = model_check(torch, np, cfg, dev, build_model,
-                                "plain_attention", prompt_tokens=HYMBA_PROMPT)
+                                prompt_tokens=HYMBA_PROMPT)
     emit(result)
     if not result["ok"]:
         raise SmokeFailure(f"full-width {HYMBA_ARCH} model check failed")
@@ -2191,8 +2324,7 @@ def run():
     cross_launches = {}
     for arch in CROSS_ARCHS:
         cfg = get_config(arch)
-        result, model = model_check(torch, np, cfg, dev, build_model,
-                                    "plain_attention")
+        result, model = model_check(torch, np, cfg, dev, build_model)
         emit(result)
         if not result["ok"]:
             raise SmokeFailure(f"full-width {arch} model check failed")
@@ -2228,11 +2360,12 @@ def run():
     # training, on a card free of the encoders: the backward kernel's
     # checks, then each family's step parity and training run, one model at
     # a time, qwen2.5-3b first
-    bwd_checks, trained = train_phase(torch, np, F, flash_ops, dev, gen,
+    bwd_checks, trained = train_phase(torch, np, F, flash_ops, wkv6_ops, dev, gen,
                                       build_model, common, get_config)
     checks += bwd_checks
     train = trained[TRAIN_RUNS[0].arch]
     engines["flash_attention_bwd"] = train
+    engines["wkv6_bwd"] = rwkv_train = trained[RWKV_ARCH]
 
     plan_phase(torch, flash_ops, checks, predicted, steps)
 
@@ -2267,11 +2400,17 @@ def run():
     flash_row["launches_train"] = train["launches"]["flash_attention"]
     bwd_row = next(r for r in summary if r["name"] == "flash_attention_bwd")
     bwd_row["launches_per_step"] = train["launches_per_step_expected"]["flash_attention_bwd"]
-    # the other families' training runs, per arch
+    # the other attention families' training runs, per arch
     for row, name in ((flash_row, "flash_attention"), (bwd_row, "flash_attention_bwd")):
         row["launches_train_families"] = {arch: r["launches"][name]
                                           for arch, r in trained.items()
-                                          if arch != TRAIN_RUNS[0].arch}
+                                          if arch != TRAIN_RUNS[0].arch
+                                          and r["launches"].get(name)}
+    # rwkv6-7b's training run (the wkv6_bwd row's ``launches``)
+    chunk_row = next(r for r in summary if r["name"] == "wkv6_chunk")
+    chunk_row["launches_train"] = rwkv_train["launches"]["wkv6_chunk"]
+    wkv_bwd_row = next(r for r in summary if r["name"] == "wkv6_bwd")
+    wkv_bwd_row["launches_per_step"] = rwkv_train["launches_per_step_expected"]["wkv6_bwd"]
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -69,10 +69,17 @@
 // f32 recurrence read up to 0.042 of their RMS at H = 64 (bf16 output
 // rounding alone reads ~0.012), and the output missed the plain version's
 // 2e-2 tolerance at S = 1000 and 2048; with the split they read as the
-// output rounding does and the state stays within ~2e-5 of f32.  C = 64
-// and sub-chunks of 16 (the mma's rows, one sub-chunk per output warp)
-// keep the pairwise diagonal work at a quarter of the chunk's pairs and
-// the shared memory at ~213 KB with three stages; 8 warps is what the
+// output rounding does and the state stays within ~2e-5 of f32.  A, the
+// one operand of A v that is not a bf16 input, is split further, into
+// hi + lo + lo2 (lo2 = x - hi - lo), ~24 bits, taken against v in three
+// products.  Read to 16 bits, A rounds ~0.3% of the outputs to the other
+// bf16 neighbour of the f32 recurrence's, and training rwkv6-7b's
+// gradients then stray from the f32 run's ~1.4x as far as the plain bf16
+// run's do; at 24 bits they stray as the plain run's (an emulation of the
+// split on the card; the other operands at 24 bits change nothing there).
+// C = 64 and sub-chunks of 16 (the mma's rows, one sub-chunk per output
+// warp) keep the pairwise diagonal work at a quarter of the chunk's pairs
+// and the shared memory at ~217 KB with three stages; 8 warps is what the
 // registers of the output warps' fragments allow.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -109,7 +116,7 @@ constexpr int KQ_ROWS = SUB * NSUB * (NSUB - 1) / 2;  // k_j rows over all i
 
 // byte offsets in dynamic shared memory: STAGES stages of inputs, then the
 // chunk's tensor-core operands, each as a bf16 high half and, right after
-// it, the low half (x - hi)
+// it, the low half (x - hi); the diagonal blocks of A also a third part
 constexpr int R_OFF = 0;
 constexpr int K_OFF = R_OFF + C * PK * 2;
 constexpr int V_OFF = K_OFF + C * PK * 2;
@@ -125,8 +132,8 @@ constexpr int RDEC = STAGES * STAGE;         // r * 2^excl        (C, D)
 constexpr int KDEC = RDEC + 2 * RDEC_LO;     // k * 2^(last-cum)  (C, D)
 constexpr int RQ = KDEC + 2 * RDEC_LO;       // r_i * 2^(excl-B_i), i >= 1
 constexpr int KQ = RQ + 2 * RQ_LO;           // k_j * 2^(B_i-cum), j < i
-constexpr int AD = KQ + 2 * KQ_LO;           // diagonal blocks of A (C, SUB)
-constexpr int SH = AD + 2 * AD_LO;           // S0 (D, COLS)
+constexpr int AD = KQ + 2 * KQ_LO;           // diagonal blocks of A (C, SUB), 3 parts
+constexpr int SH = AD + 3 * AD_LO;           // S0 (D, COLS)
 constexpr int BONUS = SH + 2 * S_LO;         // r . (u * k), f32 (C,)
 constexpr int US = BONUS + C * 4;            // u of the head, f32 (D,)
 constexpr int TOT = US + D * 4;              // cum's partial sums, f32
@@ -217,6 +224,15 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t&
   lo = pack_bf16(x - f.x, y - f.y);
 }
 
+// x as hi + lo + lo2 bf16 pairs, lo2 = bf16(x - hi - lo)
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& lo,
+                                       uint32_t& lo2) {
+  split2(x, y, hi, lo);
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
+  lo2 = pack_bf16(x - h.x - l.x, y - h.y - l.y);
+}
+
 // 2^x on the SFU; x <= 0 everywhere in this kernel, -inf gives 0
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -295,8 +311,8 @@ wkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   float* tot = reinterpret_cast<float*>(smem + TOT);
 
   for (int i = tid; i < D; i += THREADS) us[i] = u[h * D + i];
-  // the diagonal blocks' entries at s >= t stay zero (hi and lo)
-  for (int i = tid; i < 2 * C * PA; i += THREADS) ad[i] = __float2bfloat16(0.f);
+  // the diagonal blocks' entries at s >= t stay zero (all three parts)
+  for (int i = tid; i < 3 * C * PA; i += THREADS) ad[i] = __float2bfloat16(0.f);
 
   // a state warp's 16 rows in the accumulator layout: st[nb][2 * hh + e]
   // is row w16 + g + 8 * hh, column 8 * nb + 2 * q + e
@@ -506,10 +522,13 @@ wkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
       for (int m = 0; m < PER_LANE; ++m)
         if (pl + LANES * m < PAIRS) {
           const bf16 hi = __float2bfloat16(acc[m]);
-          const bf16 lo = __float2bfloat16(acc[m] - __bfloat162float(hi));
+          const float rest = acc[m] - __bfloat162float(hi);
+          const bf16 lo = __float2bfloat16(rest);
+          const bf16 lo2 = __float2bfloat16(rest - __bfloat162float(lo));
           const int at = tt[m] * PA + (ss[m] - base);
           ad[at] = pad[at] = hi;
           ad[at + C * PA] = pad[at + C * PA] = lo;
+          ad[at + 2 * C * PA] = pad[at + 2 * C * PA] = lo2;
         }
     }
     cluster_arrive();  // both halves of the operands are in place
@@ -540,7 +559,7 @@ wkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
         }
       }
       // below the diagonal: A_wj = rq_w kq_(w, j)^T on the tensor cores,
-      // then o += A_wj v_j with A_wj (hi + lo) from the accumulators
+      // then o += A_wj v_j with A_wj (hi + lo + lo2) from the accumulators
       if (warp > 0) {
         uint32_t rh[D / 16][4], rl[D / 16][4];
         const uint32_t rq_a = sb + RQ + (warp - 1) * SUB * PK * 2;
@@ -568,36 +587,41 @@ wkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
             p[0][e] += px[0][e];
             p[1][e] += px[1][e];
           }
-          uint32_t ph[4], pl[4];
-          split2(p[0][0], p[0][1], ph[0], pl[0]);
-          split2(p[0][2], p[0][3], ph[1], pl[1]);
-          split2(p[1][0], p[1][1], ph[2], pl[2]);
-          split2(p[1][2], p[1][3], ph[3], pl[3]);
+          uint32_t ph[4], pl[4], pl2[4];
+          split3(p[0][0], p[0][1], ph[0], pl[0], pl2[0]);
+          split3(p[0][2], p[0][3], ph[1], pl[1], pl2[1]);
+          split3(p[1][0], p[1][1], ph[2], pl[2], pl2[2]);
+          split3(p[1][2], p[1][3], ph[3], pl[3], pl2[3]);
 #pragma unroll
           for (int jj = 0; jj < COLS / 16; ++jj) {
             uint32_t vf[4];
             ldmatrix_x4_trans(vf, vs_a + ((16 * j + (mi % 2) * 8 + mr) * PV + (2 * jj + mi / 2) * 8) * 2);
             mma_bf16(o[2 * jj], ph, vf[0], vf[1]);
             mma_bf16(ox[2 * jj], pl, vf[0], vf[1]);
+            mma_bf16(ox[2 * jj], pl2, vf[0], vf[1]);
             mma_bf16(o[2 * jj + 1], ph, vf[2], vf[3]);
             mma_bf16(ox[2 * jj + 1], pl, vf[2], vf[3]);
+            mma_bf16(ox[2 * jj + 1], pl2, vf[2], vf[3]);
           }
         }
       }
       // the diagonal block: o += A_ww v_w
       {
-        uint32_t ah[4], al[4];
+        uint32_t ah[4], al[4], al2[4];
         const uint32_t at = sb + AD + ((w16 + (mi % 2) * 8 + mr) * PA + (mi / 2) * 8) * 2;
         ldmatrix_x4(ah, at);
         ldmatrix_x4(al, at + AD_LO);
+        ldmatrix_x4(al2, at + 2 * AD_LO);
 #pragma unroll
         for (int jj = 0; jj < COLS / 16; ++jj) {
           uint32_t vf[4];
           ldmatrix_x4_trans(vf, vs_a + ((w16 + (mi % 2) * 8 + mr) * PV + (2 * jj + mi / 2) * 8) * 2);
           mma_bf16(o[2 * jj], ah, vf[0], vf[1]);
           mma_bf16(ox[2 * jj], al, vf[0], vf[1]);
+          mma_bf16(ox[2 * jj], al2, vf[0], vf[1]);
           mma_bf16(o[2 * jj + 1], ah, vf[2], vf[3]);
           mma_bf16(ox[2 * jj + 1], al, vf[2], vf[3]);
+          mma_bf16(ox[2 * jj + 1], al2, vf[2], vf[3]);
         }
       }
 #pragma unroll

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("flash_attention", "decode_attention", "wkv6_scan", "wkv6_chunk",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "wkv6_bwd")
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -1,10 +1,17 @@
 """Plain PyTorch versions of the WKV6 kernels.
 
 ``wkv6_scan_ref`` is the token-by-token recurrence: the plain version of
-both kernels, which the wrapper runs on the CPU and ``chip_smoke.py``
-holds them to on the card.  ``wkv6_chunk_ref`` computes the same function
-through the chunked kernel's own factorisation, in f32; the tests hold
-its arithmetic to the recurrence and to the JAX package.
+both forward kernels, which the wrapper runs on the CPU and
+``chip_smoke.py`` holds them to on the card.  ``wkv6_chunk_ref`` computes
+the same function through the chunked kernel's own factorisation, in f32;
+the tests hold its arithmetic to the recurrence and to the JAX package.
+``wkv6_bwd_ref`` is the plain version of the backward kernel
+(``csrc/wkv6_bwd.cu``): the recurrence's gradients in the kernel's two
+passes, token by token; the tests hold it to autograd of
+``wkv6_scan_ref``.
+
+The recurrence and the backward run in f32, or in f64 where their
+inputs are f64 (the tests' exact checks); ``wkv6_chunk_ref`` in f32.
 """
 from __future__ import annotations
 
@@ -18,10 +25,16 @@ CHUNK = 64  # tokens per chunk of the chunked kernel
 SUB = 16    # tokens per sub-chunk: the mma tile's rows
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The dtype a plain version computes in: f64 for f64 inputs, else f32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def wkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token-by-token WKV6 recurrence in f32, for any S >= 1.
+    """Token-by-token WKV6 recurrence in f32 (f64 for f64 inputs), for any
+    S >= 1.
 
     r/k/v/logw: (B, H, S, D); u: (H, D); state: (B, H, D, D) (k-dim x
     v-dim).  Per token t:
@@ -29,12 +42,14 @@ def wkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
         S_t = diag(exp(logw_t)) S_{t-1} + k_t^T v_t
 
-    Returns (out (B, H, S, D) in r's dtype, final state (B, H, D, D) f32).
+    Returns (out (B, H, S, D) in r's dtype, final state (B, H, D, D) in
+    the dtype it is computed in).
     """
-    r32, k32, v32 = r.float(), k.float(), v.float()
-    decay = torch.exp(logw.float())
-    s = state.float().clone()
-    bonus = (r32 * u.float()[None, :, None, :] * k32).sum(-1, keepdim=True)
+    acc = _acc(r)
+    r32, k32, v32 = r.to(acc), k.to(acc), v.to(acc)
+    decay = torch.exp(logw.to(acc))
+    s = state.to(acc).clone()
+    bonus = (r32 * u.to(acc)[None, :, None, :] * k32).sum(-1, keepdim=True)
     outs = []
     for t in range(r.shape[2]):
         outs.append(torch.einsum("bhk,bhkv->bhv", r32[:, :, t], s))
@@ -100,3 +115,66 @@ def wkv6_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s * torch.exp2(last).transpose(-1, -2) + kdec.transpose(-1, -2) @ vc
     out = torch.cat(outs, dim=2)[:, :, :S]
     return out.to(r.dtype), s
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                 dout: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``wkv6_scan_ref``'s output against ``dout`` (B, H, S,
+    D), the final state's gradient taken as zero, in the backward kernel's
+    two passes, token by token.  Same arguments as ``wkv6_scan_ref``.
+
+    With S_t the state after token t (S_{-1} = ``state``), dS_t the
+    gradient of the loss with respect to it (dS_{S-1} = 0) and
+    c_t = v_t . dout_t:
+
+    * forward pass, rebuilding S from ``state``:
+      dr~_t = S_{t-1} dout_t^T and dr_t = dr~_t + u * k_t c_t;
+    * backward pass, carrying dS: dk~_t = dS_t v_t^T,
+      dk_t = dk~_t + r_t * u c_t, dv_t = k_t dS_t + (r_t . (u * k_t)) dout_t,
+      then dS_{t-1} = diag(exp(logw_t)) dS_t + r_t^T dout_t;
+    * dlogw_t = P_t - k_t * dk~_t with P_t = sum_{t' > t} (r_t' * dr~_t' -
+      k_t' * dk~_t'), the same as exp(logw_t) * sum_j S_{t-1}[:, j]
+      dS_t[:, j] but never needing S and dS at once, and never dividing by a
+      decay.  P_t is sum_j S_t[:, j] dS_t[:, j], so the one reverse sum of
+      the difference stays that small; the two sums taken apart would each
+      grow with the sequence and cancel (at strong decays, to ~1e-3 of
+      their size);
+    * du = sum over rows and tokens of r_t * k_t c_t; dstate = dS_{-1}.
+
+    Returns (dr, dk, dv) in r's dtype, then dlogw (B, H, S, D), du (H, D)
+    and dstate (B, H, D, D), computed in f32 (f64 for f64 inputs) and
+    returned in that dtype.
+    """
+    acc = _acc(r)
+    r32, k32, v32, do = (x.to(acc) for x in (r, k, v, dout))
+    u32 = u.to(acc)[None, :, :]
+    decay = torch.exp(logw.to(acc))
+    S = r.shape[2]
+    c = (v32 * do).sum(-1)                                   # (B, H, S)
+    s = state.to(acc).clone()
+    drt = []
+    for t in range(S):
+        drt.append(torch.einsum("bhkv,bhv->bhk", s, do[:, :, t]))
+        s = (s * decay[:, :, t, :, None]
+             + k32[:, :, t, :, None] * v32[:, :, t, None, :])
+    drt = torch.stack(drt, dim=2)
+    ds = torch.zeros_like(s)
+    dkt, dvs = [None] * S, [None] * S
+    for t in reversed(range(S)):
+        dkt[t] = torch.einsum("bhkv,bhv->bhk", ds, v32[:, :, t])
+        dvs[t] = torch.einsum("bhk,bhkv->bhv", k32[:, :, t], ds)
+        ds = (ds * decay[:, :, t, :, None]
+              + r32[:, :, t, :, None] * do[:, :, t, None, :])
+    dkt = torch.stack(dkt, dim=2)
+    bonus = (r32 * u32[:, :, None] * k32).sum(-1, keepdim=True)
+    dr = drt + u32[:, :, None] * k32 * c[..., None]
+    dk = dkt + r32 * u32[:, :, None] * c[..., None]
+    dv = torch.stack(dvs, dim=2) + bonus * do
+    kdk = k32 * dkt
+    inc = r32 * drt - kdk
+    # P_t: the reverse cumulative sum of inc over t' > t
+    after = F.pad(inc.flip(2).cumsum(2).flip(2)[:, :, 1:], (0, 0, 0, 1))
+    dlogw = after - kdk
+    du = (r32 * k32 * c[..., None]).sum((0, 2))
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw, du, ds)

@@ -1,7 +1,7 @@
 """Train a model with seeded random weights on the reference's synthetic
-token stream: AdamW over the loss of any family but rwkv (the dense and
-MoE decoders, the encoders, hymba, the VLM and the enc-dec), whose WKV6
-kernels have no backward yet.  The counterpart of the reference's
+token stream: AdamW over the loss of any family (the dense and MoE
+decoders, the encoders, rwkv6-7b, hymba, the VLM and the enc-dec).  The
+counterpart of the reference's
 ``launch/train.py``, with its flags and defaults but no checkpoints or
 gradient compression (``--ckpt-dir``, ``--ckpt-every``, ``--resume``,
 ``--compress``), which the port does not have yet.  As the reference's,
@@ -12,6 +12,7 @@ full-width runs go through ``training.train_loop.make_train_step``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --steps 30
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch hymba-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch rwkv6-7b
 
 Runs on the card unless ``--device cpu`` is given.  The weights are bf16
 and the moments f32, as in the reference.
@@ -49,10 +50,6 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg, device=device, dtype=torch.bfloat16)
-    if not hasattr(model, "forward_loss"):
-        raise SystemExit(f"{cfg.name}: the port cannot train the "
-                         f"{cfg.family} family yet: its WKV6 kernels have "
-                         "no backward")
     model.init_params(torch.Generator(device=device).manual_seed(args.seed))
     train_step = make_train_step(model, AdamWConfig(lr=args.lr, warmup_steps=10))
     opt_state = init_state(dict(model.named_parameters()))

@@ -119,7 +119,7 @@ class EncDecLM(nn.Module):
     """The encoder-decoder on one device: ``embed``, ``enc_layers``,
     ``enc_norm``, ``dec_layers``, ``final_norm`` and ``lm_head``, named as
     the reference names them.  Weights start at zero, as in ``DenseLM``;
-    ``plain_attention`` runs the plain versions of the attention kernels
+    ``plain_kernels`` runs the plain versions of the attention kernels
     (for comparisons only)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
@@ -129,7 +129,7 @@ class EncDecLM(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
-        self.plain_attention = False
+        self.plain_kernels = False
         d, v = cfg.d_model, cfg.padded_vocab
         self.embed = _param((v, d), dev, dtype)
         self.enc_layers = nn.ModuleList(
@@ -161,7 +161,7 @@ class EncDecLM(nn.Module):
         weights' dtype; with ``train`` each layer runs under ``remat``."""
         x = torch.as_tensor(audio_frames, device=self.device).to(self.dtype)
         for layer in self.enc_layers:
-            args = (x, self.cfg, self.plain_attention)
+            args = (x, self.cfg, self.plain_kernels)
             x = remat(layer, *args) if train else layer(*args)
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
 
@@ -176,7 +176,7 @@ class EncDecLM(nn.Module):
         """tokens: (B, S), every row S tokens long; audio_frames: (B,
         num_audio_frames, d_model).  Returns the logits (B, vocab) of the
         last token and the prefill cache."""
-        cfg, plain = self.cfg, self.plain_attention
+        cfg, plain = self.cfg, self.plain_kernels
         enc_out = self.encode(audio_frames)
         x = embed_lookup(self.embed, self._tokens(tokens))
         ks, vs, cks, cvs = [], [], [], []
@@ -196,7 +196,7 @@ class EncDecLM(nn.Module):
         """One token per row.  cache: the dict of ``init_cache``; tokens:
         (B,); pos: scalar or (B,) positions.  Returns (logits (B, vocab)
         f32, cache), the self K/V written in place."""
-        cfg, plain = self.cfg, self.plain_attention
+        cfg, plain = self.cfg, self.plain_kernels
         x = embed_lookup(self.embed, self._tokens(tokens))
         pos = torch.as_tensor(pos, device=self.device)
         lengths = full_lengths(cache["ck"][0])
@@ -214,7 +214,7 @@ class EncDecLM(nn.Module):
         enc_out = self._encoder(audio_frames, train=True)
         x = embed_lookup(self.embed, self._tokens(tokens))
         for layer in self.dec_layers:
-            x = remat(layer, x, enc_out, self.cfg, self.plain_attention)
+            x = remat(layer, x, enc_out, self.cfg, self.plain_kernels)
         return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):

@@ -311,7 +311,7 @@ class HymbaLM(nn.Module):
     The weights start at zero; ``init_params`` draws them by the
     reference's rules (``a_log`` stays f32 in a bf16 model), and
     ``repro_torch.bridge.load_reference_params`` copies them from the
-    reference's parameter tree.  Setting ``plain_attention`` to True runs
+    reference's parameter tree.  Setting ``plain_kernels`` to True runs
     the plain PyTorch versions of the attention kernels (for comparisons
     only).
     """
@@ -323,7 +323,7 @@ class HymbaLM(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
-        self.plain_attention = False
+        self.plain_kernels = False
         full = set(cfg.full_attn_layers)
         defs = model_defs(cfg)  # embed, final_norm, lm_head: as rwkv's
         self.embed = _param(defs["embed"], dev, dtype)
@@ -385,7 +385,7 @@ class HymbaLM(nn.Module):
         cache = self._cache(tokens.shape[0], tokens.shape[1], self.dtype)
         for i, (layer, (kind, j)) in enumerate(zip(self.layers, self._kv_slot)):
             x, (k, v), conv, ssm = layer.prefill(
-                x, self.cfg, self.plain_attention, cache["conv"][i],
+                x, self.cfg, self.plain_kernels, cache["conv"][i],
                 cache["ssm"][i])
             if kind == "swa":
                 k, v = _ring(k, layer.window), _ring(v, layer.window)
@@ -406,7 +406,7 @@ class HymbaLM(nn.Module):
         for i, (layer, (kind, j)) in enumerate(zip(self.layers, self._kv_slot)):
             kv = (cache[f"k_{kind}"][j], cache[f"v_{kind}"][j])
             x, conv, ssm = layer.decode(x, kv, pos, self.cfg,
-                                        self.plain_attention,
+                                        self.plain_kernels,
                                         cache["conv"][i], cache["ssm"][i])
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
@@ -418,7 +418,7 @@ class HymbaLM(nn.Module):
         cross entropy of the f32 logits at every position."""
         x = embed_lookup(self.embed, self._tokens(tokens))
         for layer in self.layers:
-            x = remat(layer, x, self.cfg, self.plain_attention)
+            x = remat(layer, x, self.cfg, self.plain_kernels)
         return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):

@@ -15,7 +15,7 @@ and the encoders' and cross-attention's ``bidirectional_attention`` go to
 the flash kernel (causal and non-causal modes, Sq != Sk for
 cross-attention) and ``decode_attention`` to the decode kernel (over a
 full cross-attention cache with ``full_lengths``).  ``plain=True`` takes their plain PyTorch versions instead; only
-the models' ``plain_attention``, which the chip smoke check sets to
+the models' ``plain_kernels``, which the chip smoke check sets to
 compare the two, passes it.
 
 Training shares two helpers: ``remat`` runs a layer under

@@ -8,15 +8,21 @@ The WKV6 recurrence per head (head_dim D):
 Unlike the reference, whose model prefills through the jnp ``wkv6_chunked``
 (which needs S % 64 == 0 past one chunk) and decodes through ``wkv6_step``,
 both prefill and decode here call the port's kernel ``wkv6_op`` directly,
-for any S >= 1; decode runs it at S = 1.  ``RWKVLM.plain_wkv = True`` takes
-its plain PyTorch version instead (for comparisons only).
+for any S >= 1; decode runs it at S = 1.  ``RWKVLM.plain_kernels = True``
+takes its plain PyTorch version instead (for comparisons only).
 
 :class:`RWKVLM` holds the weights of ``repro.models.rwkv.rwkv_layer_defs``
-in the same layout, one :class:`RWKVLayer` per layer, and serves:
+in the same layout, one :class:`RWKVLayer` per layer, and serves and
+trains:
 
     prefill(tokens)                   -> (last logits, state)
     decode_step(cache, tokens, pos)   -> (logits, cache)   (pos is ignored)
     init_cache(batch, max_len)        -> state             (max_len is ignored)
+    forward_loss(tokens, labels)      -> mean cross entropy
+
+The loss is the reference's ``forward_loss``: every layer from zero
+states, under ``layers.remat``; on the card its WKV6 calls go through
+``WKV6Fn`` (the forward kernel, then ``csrc/wkv6_bwd.cu``).
 
 The state is ``{"wkv": (L, B, H, D, D) f32, "tm_x": (L, B, d), "cm_x":
 (L, B, d)}``, the token-shift states in the weights' dtype.  (The reference
@@ -35,7 +41,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
 from repro_torch.models.layers import (ACC_DTYPE, activate, embed_lookup,
-                                       matmul, model_logits, rms_norm)
+                                       matmul, model_logits, model_loss,
+                                       remat, rms_norm)
 
 LORA_R = 64  # decay lora rank
 DDLERP_R = 32  # data-dependent lerp rank
@@ -186,22 +193,28 @@ def _mix_out(tm, out: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
     return matmul(normed * g, tm["wo"])
 
 
-def time_mix_prefill(tm, x: torch.Tensor, cfg: ArchConfig,
-                     tm_state: torch.Tensor, wkv_state: torch.Tensor, *,
-                     plain: bool = False):
-    """x: (B, S, d).  Returns (out, (last_x, wkv_state')); ``wkv_state`` is
-    updated in place."""
+def _wkv_operands(tm, x: torch.Tensor, tm_x: torch.Tensor, cfg: ArchConfig):
+    """The WKV6 operands of x (B, S, d) after the token-shift state tm_x
+    (B, d): r, k, v and logw as (B, H, S, D) views of (B, S, H, D)
+    projections (no copy), and the gate g."""
     B, S, _ = x.shape
     H, D = cfg.num_heads, cfg.head_dim
-    xx = torch.cat([tm_state[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+    xx = torch.cat([tm_x[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
     xr, xk, xv, xw, xg = _ddlerp(tm, x, xx)
-    # (B, S, H, D) projections seen as (B, H, S, D) views, no copy
     r, k, v = (matmul(a, tm[w]).view(B, S, H, D).transpose(1, 2)
                for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
     logw, g = _decay_and_gate(tm, xw, xg)
-    logw = logw.view(B, S, H, D).transpose(1, 2)
-    out, wkv_state = wkv6(r, k, v, logw, tm["u"].view(H, D), wkv_state,
-                          plain=plain)
+    return r, k, v, logw.view(B, S, H, D).transpose(1, 2), g
+
+
+def time_mix_prefill(tm, x: torch.Tensor, cfg: ArchConfig,
+                     tm_state: torch.Tensor, wkv_state: torch.Tensor, *,
+                     plain: bool = False):
+    """x: (B, S, d).  Returns (out, (last_x, wkv_state)); ``wkv_state`` is
+    updated in place."""
+    r, k, v, logw, g = _wkv_operands(tm, x, tm_state, cfg)
+    out, wkv_state = wkv6(r, k, v, logw, tm["u"].view(cfg.num_heads, cfg.head_dim),
+                          wkv_state, plain=plain)
     return _mix_out(tm, out.transpose(1, 2), g, x.dtype), (x[:, -1], wkv_state)
 
 
@@ -250,9 +263,9 @@ class RWKVLayer(nn.Module):
         self.cm = nn.ParameterDict(
             {k: _param(p, device, dtype) for k, p in defs["cm"].items()})
 
-    def forward(self, x, state, cfg, plain: bool, prefill: bool):
-        """x: (B, S, d) in prefill, (B, d) in decode; state: (tm_x, cm_x,
-        wkv), the last updated in place."""
+    def step(self, x, state, cfg, plain: bool, prefill: bool):
+        """Serving: x (B, S, d) in prefill, (B, d) in decode; state: (tm_x,
+        cm_x, wkv), the last updated in place."""
         tm_x, cm_x, wkv = state
         time_mix = time_mix_prefill if prefill else time_mix_decode
         h, (tm_x, wkv) = time_mix(
@@ -263,6 +276,22 @@ class RWKVLayer(nn.Module):
                               cm_x, prefill=prefill)
         return x + h, (tm_x, cm_x, wkv)
 
+    def forward(self, x, cfg, plain: bool):
+        """The loss's layer, the reference's ``layer_prefill`` from zero
+        states: x (B, S, d) -> (B, S, d), writing nothing in place."""
+        B, _, d = x.shape
+        H, D = cfg.num_heads, cfg.head_dim
+        shift = x.new_zeros(B, d)
+        r, k, v, logw, g = _wkv_operands(
+            self.tm, rms_norm(x, self.ln1, cfg.norm_eps), shift, cfg)
+        out, _ = (wkv6_scan_ref if plain else wkv6_op)(
+            r, k, v, logw, self.tm["u"].view(H, D),
+            x.new_zeros(B, H, D, D, dtype=torch.float32))
+        x = x + _mix_out(self.tm, out.transpose(1, 2), g, x.dtype)
+        h, _ = channel_mix(self.cm, rms_norm(x, self.ln2, cfg.norm_eps),
+                           shift, prefill=True)
+        return x + h
+
 
 class RWKVLM(nn.Module):
     """rwkv6 on one device.
@@ -270,8 +299,8 @@ class RWKVLM(nn.Module):
     The weights start at zero; ``init_params`` draws them by the
     reference's rules, and ``repro_torch.bridge.load_reference_params``
     copies them from the reference's parameter tree.  ``w0`` and ``u`` are
-    f32 whatever the model's dtype.  Setting ``plain_wkv`` to True runs the
-    plain PyTorch version of the WKV6 kernel (for comparisons only).
+    f32 whatever the model's dtype.  Setting ``plain_kernels`` to True runs
+    the plain PyTorch version of the WKV6 kernels (for comparisons only).
     """
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
@@ -281,7 +310,7 @@ class RWKVLM(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
-        self.plain_wkv = False
+        self.plain_kernels = False
         defs = model_defs(cfg)
         self.embed = _param(defs["embed"], dev, dtype)
         self.layers = nn.ModuleList(
@@ -323,12 +352,21 @@ class RWKVLM(nn.Module):
     def _run(self, x, state, prefill: bool):
         """Every layer over ``x``, updating the state dict in place."""
         for i, layer in enumerate(self.layers):
-            x, (tm_x, cm_x, _) = layer(
+            x, (tm_x, cm_x, _) = layer.step(
                 x, (state["tm_x"][i], state["cm_x"][i], state["wkv"][i]),
-                self.cfg, self.plain_wkv, prefill)
+                self.cfg, self.plain_kernels, prefill)
             state["tm_x"][i] = tm_x
             state["cm_x"][i] = cm_x
         return x
+
+    def forward_loss(self, tokens, labels) -> torch.Tensor:
+        """The reference's ``forward_loss``: tokens and labels (B, S), any
+        S >= 1; the mean cross entropy of the f32 logits at every
+        position."""
+        x = embed_lookup(self.embed, self._tokens(tokens))
+        for layer in self.layers:
+            x = remat(layer, x, self.cfg, self.plain_kernels)
+        return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
         """Zero state for ``batch`` sequences; O(1) in length, so

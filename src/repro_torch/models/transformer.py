@@ -182,7 +182,7 @@ class DenseLM(nn.Module):
 
     The weights start at zero; ``init_params`` draws them from a generator,
     and ``repro_torch.bridge.load_reference_params`` copies them from the
-    reference's parameter tree.  Setting ``plain_attention`` to True runs
+    reference's parameter tree.  Setting ``plain_kernels`` to True runs
     the plain PyTorch versions of the attention kernels (for comparisons
     only).
     """
@@ -194,7 +194,7 @@ class DenseLM(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
-        self.plain_attention = False
+        self.plain_kernels = False
         d, v = cfg.d_model, cfg.padded_vocab
         self.embed = _param((v, d), dev, dtype)
         self.layers = nn.ModuleList(
@@ -226,7 +226,7 @@ class DenseLM(nn.Module):
         x = self._embed_in(tokens)
         ks, vs = [], []
         for layer in self.layers:
-            x, (k, v) = layer.prefill(x, self.cfg, self.plain_attention)
+            x, (k, v) = layer.prefill(x, self.cfg, self.plain_kernels)
             ks.append(k)
             vs.append(v)
         if lengths is None:
@@ -247,7 +247,7 @@ class DenseLM(nn.Module):
         k_all, v_all = cache
         for i, layer in enumerate(self.layers):
             x, _ = layer.decode(x, (k_all[i], v_all[i]), pos, self.cfg,
-                                self.plain_attention)
+                                self.plain_kernels)
         return model_logits(self, x), cache
 
     def forward_loss(self, tokens, labels) -> torch.Tensor:
@@ -259,7 +259,7 @@ class DenseLM(nn.Module):
         does, so the flash forward runs twice per layer."""
         x = self._embed_in(self._tokens(tokens))
         for layer in self.layers:
-            x = remat(layer, x, self.cfg, self.plain_attention)
+            x = remat(layer, x, self.cfg, self.plain_kernels)
         return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
@@ -287,7 +287,7 @@ class EncoderLM(nn.Module):
     """An encoder-only model on one device (e5-base-v2, the MiniLM
     reranker), counterpart of ``make_encoder``: ``embed``, ``layers`` and
     ``final_norm``, no LM head.  Weights start at zero, as in ``DenseLM``;
-    ``plain_attention`` runs the plain version of the attention kernel
+    ``plain_kernels`` runs the plain version of the attention kernel
     (for comparisons only)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
@@ -297,7 +297,7 @@ class EncoderLM(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
-        self.plain_attention = False
+        self.plain_kernels = False
         d = cfg.d_model
         self.embed = _param((cfg.padded_vocab, d), dev, dtype)
         self.layers = nn.ModuleList(
@@ -325,7 +325,7 @@ class EncoderLM(nn.Module):
         None (an encoder keeps no cache)."""
         x = embed_lookup(self.embed, self._tokens(tokens))
         for layer in self.layers:
-            x = layer(x, self.cfg, self.plain_attention)
+            x = layer(x, self.cfg, self.plain_kernels)
         return self._pooled(x), None
 
     def forward_loss(self, tokens, labels=None) -> torch.Tensor:
@@ -334,5 +334,5 @@ class EncoderLM(nn.Module):
         reference's batch carries it.  Each layer runs under ``remat``."""
         x = embed_lookup(self.embed, self._tokens(tokens))
         for layer in self.layers:
-            x = remat(layer, x, self.cfg, self.plain_attention)
+            x = remat(layer, x, self.cfg, self.plain_kernels)
         return self._pooled(x).float().square().mean()

@@ -110,7 +110,7 @@ class VisionLM(nn.Module):
     Weights start at zero; ``init_params`` draws them by the reference's
     rules (the gates stay zero, so a seeded model ignores its image until
     the gates are set) and ``repro_torch.bridge.load_reference_params``
-    copies them from the reference's tree.  ``plain_attention`` runs the
+    copies them from the reference's tree.  ``plain_kernels`` runs the
     plain versions of the attention kernels (for comparisons only)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
@@ -123,7 +123,7 @@ class VisionLM(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
-        self.plain_attention = False
+        self.plain_kernels = False
         self.per = cfg.cross_attn_every
         groups = cfg.num_layers // self.per
         d, v = cfg.d_model, cfg.padded_vocab
@@ -165,7 +165,7 @@ class VisionLM(nn.Module):
         reference); image_embeds: (B, num_image_tokens, vision_d_model),
         taken in the weights' dtype.  Returns the logits (B, vocab) of the
         last token and the prefill cache."""
-        cfg, plain = self.cfg, self.plain_attention
+        cfg, plain = self.cfg, self.plain_kernels
         img = self._image(image_embeds)
         x = embed_lookup(self.embed, self._tokens(tokens))
         ks, vs, cks, cvs = [], [], [], []
@@ -188,7 +188,7 @@ class VisionLM(nn.Module):
         (B,); pos: scalar or (B,) positions.  Writes the self layers' K/V
         at ``pos`` in place, attends over all image entries in every row,
         and returns (logits (B, vocab) f32, cache)."""
-        cfg, plain = self.cfg, self.plain_attention
+        cfg, plain = self.cfg, self.plain_kernels
         x = embed_lookup(self.embed, self._tokens(tokens))
         pos = torch.as_tensor(pos, device=self.device)
         lengths = full_lengths(cache["ck"][0])
@@ -208,7 +208,7 @@ class VisionLM(nn.Module):
         weights' dtype; the mean cross entropy of the f32 logits at every
         position.  Each cross layer projects the image's K/V inside its
         ``remat``, and its f32 gates take gradients as any weight."""
-        cfg, plain = self.cfg, self.plain_attention
+        cfg, plain = self.cfg, self.plain_kernels
         img = self._image(image_embeds)
         x = embed_lookup(self.embed, self._tokens(tokens))
         for layers, cross in self._groups():

@@ -16,7 +16,7 @@ from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
 def make_train_step(model: nn.Module, opt_cfg: AdamWConfig = AdamWConfig(),
                     num_microbatches: int = 1) -> Callable:
     """(opt_state, batch) -> (opt_state, {"loss", "step"}) for a model with
-    ``forward_loss`` (every family but rwkv: ``DenseLM``, ``EncoderLM``,
+    ``forward_loss`` (every family: ``DenseLM``, ``EncoderLM``, ``RWKVLM``,
     ``HymbaLM``, ``VisionLM``, ``EncDecLM``), whose weights it updates in
     place.  It turns the model's gradients on once, the VLM's f32 gates
     too.  Each call zeroes the gradients, runs the ``num_microbatches``

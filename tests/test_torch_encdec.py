@@ -461,7 +461,7 @@ def test_cuda_prefill_and_decode_go_through_the_kernels():
     audio = audio.to(dev)
     runs = {}
     for plain in (True, False):
-        model.plain_attention = plain
+        model.plain_kernels = plain
         common.reset_launch_counts()
         logits, small = model.prefill(torch.from_numpy(tokens), audio)
         cache = _port_decode_cache(model, small, 2, 40)

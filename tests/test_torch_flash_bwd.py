@@ -179,10 +179,11 @@ def test_op_takes_the_function_only_when_a_gradient_is_needed():
 
 
 def test_wrappers_without_a_backward_refuse_a_gradient_off_the_cpu():
-    """``decode_attention_op`` and ``wkv6_op`` refuse, by the wrapper's name,
-    a call off the CPU whose input requires grad (checked here on the meta
-    device, which needs no card); under no_grad they go on to the device
-    check; on the CPU they stay plain autograd ops."""
+    """``decode_attention_op`` refuses, by the wrapper's name, a call off
+    the CPU whose input requires grad, and ``wkv6_op`` one its backward
+    kernel cannot take (here f32 at D = 32; checked on the meta device,
+    which needs no card); under no_grad they go on to the device check; on
+    the CPU they stay plain autograd ops."""
     from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.rwkv6_scan import wkv6_op
 
@@ -297,7 +298,8 @@ def test_cuda_wrappers_without_a_backward_raise_on_a_gradient():
     kc = torch.randn(2, 2, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="decode_attention_op"):
         decode_attention_op(q, kc, kc, 3)
-    r = torch.randn(1, 2, 3, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    # f32: the WKV6 backward kernel takes bf16 only
+    r = torch.randn(1, 2, 3, 64, device=dev, requires_grad=True)
     logw = -torch.rand(1, 2, 3, 64, device=dev)
     with pytest.raises(RuntimeError, match="wkv6_op"):
         wkv6_op(r, r.detach(), r.detach(), logw, torch.zeros(2, 64, device=dev),

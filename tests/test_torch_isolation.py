@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` nor its root
-scripts ``chip_smoke.py`` and ``kernel_ab.py`` imports JAX or anything of
-the JAX package, and its entry points run on the card unless the caller
-names the CPU."""
+scripts ``chip_smoke.py``, ``kernel_ab.py`` and ``wkv6_split_probe.py``
+imports JAX or anything of the JAX package, and its entry points run on
+the card unless the caller names the CPU."""
 import ast
 from pathlib import Path
 
@@ -18,7 +18,7 @@ from repro_torch.serving.engine import ServingEngine
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
+    [REPO / "chip_smoke.py", REPO / "kernel_ab.py", REPO / "wkv6_split_probe.py"]
 
 
 def _imported_roots(path: Path):

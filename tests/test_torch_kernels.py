@@ -254,7 +254,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     decode_attention_op(tq[:, 0], tk.transpose(1, 2), tv.transpose(1, 2), 3)
     assert common.launch_counts == {"flash_attention": 0,
                                     "decode_attention": 0, "wkv6_scan": 0,
-                                    "wkv6_chunk": 0, "flash_attention_bwd": 0}
+                                    "wkv6_chunk": 0, "flash_attention_bwd": 0,
+                                    "wkv6_bwd": 0}
 
 
 def test_wrappers_reject_mismatched_shapes():
@@ -401,7 +402,7 @@ def test_cuda_kernels_match_plain_versions():
     assert common.launch_counts == {"flash_attention": n_flash,
                                     "decode_attention": n_decode,
                                     "wkv6_scan": 0, "wkv6_chunk": 0,
-                                    "flash_attention_bwd": 0}
+                                    "flash_attention_bwd": 0, "wkv6_bwd": 0}
 
 
 @pytest.mark.gpu

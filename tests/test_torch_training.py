@@ -227,7 +227,7 @@ def test_data_pipeline_is_the_reference_copy():
     assert ours.read_bytes() == ref.read_bytes()
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-3b-a800m", "rwkv6-7b"])
 def test_launcher_loss_decreases(arch):
     """The reference's ``test_loss_decreases`` arguments, on the CPU."""
     losses = train_main(["--device", "cpu", "--arch", arch, "--steps", "20",
@@ -235,8 +235,3 @@ def test_launcher_loss_decreases(arch):
     assert len(losses) == 20 and all(np.isfinite(losses))
     assert np.mean(losses[-5:]) < 0.75 * np.mean(losses[:5]), (
         f"{arch}: loss did not decrease: {losses[:3]} ... {losses[-3:]}")
-
-
-def test_launcher_refuses_a_family_it_cannot_train():
-    with pytest.raises(SystemExit, match="WKV6 kernels have no backward"):
-        train_main(["--device", "cpu", "--arch", "rwkv6-7b", "--steps", "1"])

@@ -1,5 +1,5 @@
-"""The port's training of the encoders, hymba, the VLM and the enc-dec
-against the JAX package.
+"""The port's training of the encoders, rwkv6-7b, hymba, the VLM and the
+enc-dec against the JAX package.
 
 Each family's config is cut to a few layers and narrow widths, and the
 port and the reference agree on it field by field: the encoders at the
@@ -7,7 +7,8 @@ head dims they run at full size (e5-base-v2 64, reranker-minilm 32),
 hymba at three layers, a full-attention singleton and a window run of
 two (W = 8, the heads of ``test_torch_hymba.py``), the VLM at two
 groups of two self layers and a cross layer, seamless-m4t-large-v2 at two
-encoder and two decoder layers.  Weights come from
+encoder and two decoder layers, rwkv6-7b at ``reduced_config``'s two
+layers of four heads of 16.  Weights come from
 ``build_model(cfg).init(jax.random.key(0))`` cast to f32 and cross
 through ``repro_torch.bridge``; the VLM's gates are set to seeded nonzero
 values on both sides (the reference's zero gates would leave every cross
@@ -18,7 +19,10 @@ frames.  The loss and every gradient are held to
 (its largest magnitude), as ``test_torch_training.py`` holds the
 decoders': in f32 both sides sum the same products in another order.
 hymba runs at S = 24 over its window of 8, which the loss may pass (it
-writes no ring).
+writes no ring).  rwkv6-7b runs at S = 24 and at S = 128, two of the
+reference's chunks of 64 (its ``wkv6_chunked`` takes no other length past
+one chunk): the port's CPU loss is autograd of the token-by-token
+recurrence, the reference's JAX's of the chunked form.
 """
 import dataclasses
 
@@ -52,12 +56,17 @@ CONFIGS = {
     "llama-3.2-vision-11b": (dict(layers=4), {}),
     "seamless-m4t-large-v2": ({}, {}),
 }
+RWKV = ("rwkv6-7b", ({}, {}))
 ARCHS = list(CONFIGS)
 SEQ = 24
+# (arch, seq) of the loss-and-gradient test, ids as the arch alone where
+# the length is SEQ
+LOSS_CASES = [pytest.param(arch, SEQ, id=arch) for arch in ARCHS + ["rwkv6-7b"]]
+LOSS_CASES.append(pytest.param("rwkv6-7b", 128, id="rwkv6-7b-two-chunks"))
 
 
 def _configs(arch):
-    reduce, changes = CONFIGS[arch]
+    reduce, changes = dict([RWKV], **CONFIGS)[arch]
     cfg = dataclasses.replace(reduced_config(get_config(arch), **reduce), **changes)
     jcfg = dataclasses.replace(jax_reduced_config(jax_get_config(arch), **reduce),
                                **changes)
@@ -121,12 +130,12 @@ def _by_name(cfg, tree):
     return {name: p.detach() for name, p in shell.named_parameters()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_gradients_match_value_and_grad(arch):
+@pytest.mark.parametrize("arch,seq", LOSS_CASES)
+def test_loss_and_gradients_match_value_and_grad(arch, seq):
     cfg, bundle, params, model = _pair(arch)
     if cfg.family == "hybrid":
-        assert SEQ > cfg.sliding_window
-    batch = _batch(cfg)
+        assert seq > cfg.sliding_window
+    batch = _batch(cfg, seq=seq)
     loss, grads = jax.jit(jax.value_and_grad(bundle.loss_fn))(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     model.requires_grad_(True)

@@ -482,7 +482,7 @@ def test_cuda_prefill_and_decode_go_through_the_kernels():
     img = img.to(dev)
     runs = {}
     for plain in (True, False):
-        model.plain_attention = plain
+        model.plain_kernels = plain
         common.reset_launch_counts()
         logits, small = model.prefill(torch.from_numpy(tokens), img)
         cache = _port_decode_cache(model, small, 2, 40)
