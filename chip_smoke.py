@@ -100,10 +100,12 @@ WKV6 backward kernel), and prints one JSON object per phase:
    each with its dK/dV plan, graph ms, bound and SDPA's backward ms), and
    of the WKV6 backward (``wkv6_bwd``: dr, dk, dv, dlogw, du and dstate
    against ``wkv6_bwd_ref`` in f64, within TOL and ROW_REL_TOL, dlogw
-   also as a whole (its error's norm within ROW_REL_TOL of its norm; at
-   strong decays its rows are reported, not held), at rwkv6-7b's train
-   shape B=2, S=2048, H=64, D=64, a ragged S=1000, and the strong
-   and slow decays; two calls bit-equal; graph ms and bound);
+   also as a whole (its error's norm within ROW_REL_TOL of its norm), at
+   rwkv6-7b's train shape B=2, S=2048, H=64, D=64, a ragged S=1000, the
+   strong and slow decays, one partial chunk (S=37) and ``rwkv_grad``'s
+   B=4; two calls bit-equal; graph ms, the bytes bound, the chunked
+   products' and the f32 operations' times, and the two plain versions'
+   row errors in f32);
    then for each of ``TRAIN_RUNS``, one model at a time: ``train_parity``,
    one train step at full width and 2 layers (the VLM: one group of 5
    self layers and a cross layer) through the kernels and through their
@@ -306,7 +308,8 @@ TENSOR_CORES = ("HGMMA", "HMMA")
 # instructions of which each such entry needs one): the bf16 attention
 # kernels, the chunked WKV6 kernel and the attention backward's dQ and dK/dV
 # kernels: one persistent wgmma kernel for both at D = 64 and 128, and
-# mma.sync at D = 32
+# mma.sync at D = 32; and the WKV6 backward's two kernels, the chunks'
+# walks and every chunk on its own
 TENSOR_CORE_ENTRIES = {
     "flash_attention": (("flash_fwd_tc", TENSOR_CORES),),
     "decode_attention": (("decode_split", TENSOR_CORES),),
@@ -314,7 +317,8 @@ TENSOR_CORE_ENTRIES = {
     "flash_attention_bwd": (("bwd_dq_dkdv_tcILi64E", ("HGMMA",)),
                             ("bwd_dq_dkdv_tcILi128E", ("HGMMA",)),
                             ("bwd_dq_mmaILi32E", ("HMMA",)),
-                            ("bwd_dkdv_mmaILi32E", ("HMMA",)))}
+                            ("bwd_dkdv_mmaILi32E", ("HMMA",))),
+    "wkv6_bwd": (("wkv6_bwd_states", TENSOR_CORES), ("wkv6_bwd_chunk", TENSOR_CORES))}
 
 
 def sass_counts(common, name: str) -> dict:
@@ -600,6 +604,31 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
     return result
 
 
+def wkv6_bwd_work(B, S, H, D):
+    """Operations and bytes of the WKV6 backward for this call's tokens
+    (the last chunk's padding not counted): (the chunked form's products,
+    the token-by-token form's f32 operations, the function's bytes).
+
+    The products, per ``csrc/wkv6_bwd.cu``, per (b, h) and chunk of C
+    tokens, each once and before its bf16 parts: the two walks' (D x C x
+    D) state updates, the three inter-chunk (C x D x D) products (dO S0^T,
+    v dSe^T, k decayed by dSe), and over the 10 sub-chunk blocks at or
+    below the diagonal dA, A and A^T dO, over the 6 below it dr's dA kq
+    and dk's dA^T rE (16 x 16 x D each).  The token-by-token form takes 12
+    D^2 f32 operations per token and head (the state rebuilt, 3; dr~, 2;
+    dS carried, 3; dk~ and dv, 2 each).  Bytes: r, k, v, dO (bf16), logw,
+    u and the state read, dr, dk, dv (bf16), dlogw, du and the state's
+    gradient written, each once; the kernel's scratch of chunk states is
+    its own cost, not the function's."""
+    C, SUB = 64, 16
+    chunks = B * H * S / C
+    blocks = SUB * SUB * D
+    products = 2.0 * (5 * C * D * D + 3 * 10 * blocks + 2 * 6 * blocks) * chunks
+    f32_ops = 12.0 * B * H * S * D * D
+    nbytes = B * H * S * D * (4 * 2 + 4 + 3 * 2 + 4) + 2 * 4 * (B * H * D * D + H * D)
+    return products, f32_ops, nbytes
+
+
 def check_wkv6_bwd(torch, ops_mod, dev, gen, B, S, H, D, decay="mild"):
     """The WKV6 backward kernel against its plain version: bf16 r, k, v
     and dO as (B, S, H, D) projections seen as (B, H, S, D), as the model
@@ -609,18 +638,16 @@ def check_wkv6_bwd(torch, ops_mod, dev, gen, B, S, H, D, decay="mild"):
     row, to ROW_REL_TOL of the row's RMS, and a second call bit-equal to the
     first (nothing atomic).  dlogw is also held as a whole: the norm of its
     error at most ROW_REL_TOL of its own norm (an all-zero dlogw reads 1,
-    reported beside).  At strong decays its rows are reported, not held:
-    dlogw_t = P_t - k_t * dk~_t is there a difference of terms ~1e3 times
-    its size, and f32 resolves some rows only to ~0.1 of their RMS, in
-    the plain version too (its f32 readings against the f64 run are
-    reported beside the kernel's for every gradient).  Times: the kernel
-    by CUDA events and through a CUDA graph, and its plain version (a token
-    loop); no single PyTorch call computes it.  The bound counts 12 D^2 f32
-    operations per token and head (the state rebuilt, 3; dr~, 2; dS
-    carried, 3; dk~ and dv, 2 each) against the bytes of r, k, v, dO
-    (bf16), logw, u and the state read and of dr, dk, dv (bf16), dlogw, du
-    and the state's gradient written; both times are reported."""
-    from repro_torch.kernels.rwkv6_scan import wkv6_bwd_ref
+    reported beside).  Beside the kernel's, the row errors and dlogw's norm
+    error of the two plain versions in f32 are reported: ``wkv6_bwd_ref``,
+    whose running sum leaves dlogw's rows at strong decays ~1 of their RMS
+    off, and ``wkv6_bwd_chunk_ref``, the kernel's own arithmetic.  Times:
+    the kernel by CUDA events and through a CUDA graph, and its plain
+    version (a token loop); no single PyTorch call computes it.  The bound
+    (``wkv6_bwd_work``) is the larger of the function's bytes and the
+    chunked form's products at the bf16 tensor-core rate; the token-by-
+    token form's f32 operations at the f32 rate are reported beside it."""
+    from repro_torch.kernels.rwkv6_scan import wkv6_bwd_chunk_ref, wkv6_bwd_ref
 
     dt = torch.bfloat16
 
@@ -646,36 +673,37 @@ def check_wkv6_bwd(torch, ops_mod, dev, gen, B, S, H, D, decay="mild"):
     truth = wkv6_bwd_ref(*(x.double() for x in (r, k, v, logw, u, s0, do)))
     tol = TOL["bfloat16"]
     names = ("dr", "dk", "dv", "dlogw", "du", "dstate")
-    errs, row_errs, plain_row_errs, ok_abs = {}, {}, {}, True
-    plain_grads = plain()
-    for name, g, p, ref in zip(names, grads, plain_grads, truth):
+
+    def norm_err(g):
+        return float((g.double() - truth[3]).norm() / truth[3].norm())
+
+    errs, row_errs, ok_abs = {}, {}, True
+    for name, g, ref in zip(names, grads, truth):
         err = (g.double() - ref).abs()
         ok_abs = (ok_abs and bool((err <= tol + tol * ref.abs()).all())
                   and bool(torch.isfinite(g).all()))
         errs[name] = float(err.max())
         row_errs[name] = row_rel_err(torch, g, ref)
-        plain_row_errs[name] = row_rel_err(torch, p, ref)
-
-    def norm_err(g):
-        return float((g.double() - truth[3]).norm() / truth[3].norm())
-
-    dlogw_norm = {"kernel": norm_err(grads[3]), "plain": norm_err(plain_grads[3]),
-                  "zero": norm_err(torch.zeros_like(grads[3]))}
-    del truth, plain_grads
-    held = {n: e for n, e in row_errs.items() if n != "dlogw" or decay != "strong"}
-    tokens = B * H * S
-    # per token and channel 22 bytes; the state and its gradient, u and du
-    nbytes = tokens * D * (4 * 2 + 4 + 3 * 2 + 4) + 2 * 4 * (B * H * D * D + H * D)
-    ops = 12.0 * tokens * D * D
-    b_ms, b_by = bound(ops, nbytes, "float32")
-    row_err = max(held.values())
+    dlogw_norm = {"kernel": norm_err(grads[3]), "zero": norm_err(torch.zeros_like(grads[3]))}
+    plain_rows = {}
+    for tag, fn in (("plain", plain),
+                    ("chunk_plain", lambda: wkv6_bwd_chunk_ref(r, k, v, logw, u, s0, do))):
+        p = fn()
+        plain_rows[tag] = {n: row_rel_err(torch, g, ref) for n, g, ref in zip(names, p, truth)}
+        dlogw_norm[tag] = norm_err(p[3])
+        del p
+    del truth
+    products, f32_ops, nbytes = wkv6_bwd_work(B, S, H, D)
+    b_ms, b_by = bound(products, nbytes, "bfloat16")
+    row_err = max(row_errs.values())
     result = {"kernel": "wkv6_bwd", "dtype": "bfloat16",
               "shape": {"B": B, "S": S, "H": H, "D": D, "decay": decay},
               "deterministic": deterministic,
               "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
               "tol": tol, "max_row_rel_err": row_err, "row_rel_err_by_grad": row_errs,
-              "plain_row_rel_err_by_grad": plain_row_errs,
-              "row_rel_tol": ROW_REL_TOL, "rows_held": sorted(held),
+              "plain_row_rel_err_by_grad": plain_rows["plain"],
+              "chunk_plain_row_rel_err_by_grad": plain_rows["chunk_plain"],
+              "row_rel_tol": ROW_REL_TOL, "rows_held": sorted(row_errs),
               "dlogw_norm_rel_err": dlogw_norm, "ok_abs": ok_abs,
               "ok_rows": row_err <= ROW_REL_TOL,
               "ok_dlogw_norm": dlogw_norm["kernel"] <= ROW_REL_TOL < dlogw_norm["zero"],
@@ -683,8 +711,9 @@ def check_wkv6_bwd(torch, ops_mod, dev, gen, B, S, H, D, decay="mild"):
               "kernel_graph_ms": graph_ms(torch, kernel),
               "plain_ms": cuda_ms(torch, plain, target_ms=1.0), "library_ms": None,
               "bound_ms": b_ms, "bound_by": b_by,
-              "bound_ops_ms": ops / PEAK_OPS["float32"] * 1e3,
-              "bound_bytes_ms": nbytes / BYTES_PER_S * 1e3}
+              "bound_ops_ms": products / PEAK_OPS["bfloat16"] * 1e3,
+              "bound_bytes_ms": nbytes / BYTES_PER_S * 1e3,
+              "bound_f32_ops_ms": f32_ops / PEAK_OPS["float32"] * 1e3}
     result["ok"] = (ok_abs and result["ok_rows"] and result["ok_dlogw_norm"]
                     and deterministic)
     return result
@@ -946,10 +975,12 @@ FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (4, 512, 16, 16, 64, 0, "bfloat16", 1024, False),
                    (1, 4096, 16, 2, 128, 0, "bfloat16")]
 # the WKV6 backward at rwkv6-7b's train shape (H = 64, D = 64; B = 2 per
-# microbatch, S = 2048), a ragged S, and the strong and slow decays of
-# WKV6_CASES: (B, S, H, D, decay)
+# microbatch, S = 2048), a ragged S, the strong and slow decays of
+# WKV6_CASES, a single partial chunk and rwkv_grad's shape (B = 4):
+# (B, S, H, D, decay)
 WKV6_BWD_CASES = [(2, 2048, 64, 64, "mild"), (1, 1000, 64, 64, "mild"),
-                  (1, 1000, 64, 64, "strong"), (1, 1000, 64, 64, "slow")]
+                  (1, 1000, 64, 64, "strong"), (1, 1000, 64, 64, "slow"),
+                  (1, 37, 64, 64, "mild"), (4, 2048, 64, 64, "mild")]
 # the row of each kernel in the summary line: its index among the kernel's
 # checks (flash: S=1000; decode: the engine's 8 slots; wkv6_chunk: B=1,
 # S=1000; wkv6_scan: the engine's decode step, B=8 at S=1, bf16; the

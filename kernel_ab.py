@@ -18,7 +18,10 @@ decays), on whichever kernel that checkout routes them to; then of
 ``flash_attention_bwd_op`` at each shape of ``chip_smoke.FLASH_BWD_CASES``
 (the first is the train shape) beside SDPA's backward on the same inputs,
 timed as ``chip_smoke.sdpa_calls`` does (its forward and backward less its
-forward).  Needs one CUDA card.
+forward); last of ``wkv6_bwd_op`` at each shape of
+``chip_smoke.WKV6_BWD_CASES`` (the first is rwkv6-7b's train shape), on
+inputs made as ``chip_smoke.check_wkv6_bwd`` makes them.  Needs one CUDA
+card.
 """
 from __future__ import annotations
 
@@ -43,12 +46,12 @@ def worker(root: Path) -> dict:
     import torch
     import torch.nn.functional as F
     # this checkout's device timing and backward shapes
-    from chip_smoke import FLASH_BWD_CASES, graph_ms, sdpa_calls
+    from chip_smoke import FLASH_BWD_CASES, LOGW_MEAN, WKV6_BWD_CASES, graph_ms, sdpa_calls
 
     from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.flash_attention import flash_attention_op
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.rwkv6_scan import wkv6_op
+    from repro_torch.kernels.rwkv6_scan import wkv6_bwd_op, wkv6_op
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device is available")
@@ -94,6 +97,15 @@ def worker(root: Path) -> dict:
                                      window, causal)
         out[f"sdpa_{tag}"] = (graph_ms(torch, fwd_bwd) - graph_ms(torch, fwd)) if fwd else None
         del q, k, v, do, o, lse
+    for B, S, Hw, Dw, decay in WKV6_BWD_CASES:
+        r, k, v, do = (rnd(B, S, Hw, Dw).transpose(1, 2) for _ in range(4))
+        logw = (-torch.exp(torch.randn(B, S, Hw, Dw, generator=gen, device=dev) * 0.5
+                           + LOGW_MEAN[decay])).transpose(1, 2)
+        u = torch.randn(Hw, Dw, generator=gen, device=dev) * 0.2
+        s0 = torch.randn(B, Hw, Dw, Dw, generator=gen, device=dev) * 0.1
+        out[f"wkv6_bwd_B{B}_S{S}_{decay}"] = graph_ms(
+            torch, lambda: wkv6_bwd_op(r, k, v, logw, u, s0, do))
+        del r, k, v, do, logw, s0
     return out
 
 

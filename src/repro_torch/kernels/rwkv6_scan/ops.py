@@ -22,7 +22,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import common
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_ref, wkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan.ref import CHUNK, wkv6_bwd_ref, wkv6_scan_ref
 
 NAME = "wkv6_scan"
 CHUNK_NAME = "wkv6_chunk"
@@ -33,7 +33,7 @@ BWD_HEAD_DIM = 64  # the backward kernel's; it takes bf16 only
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P]
-_BWD_ARGTYPES = [_P] * 13 + [_I] * 4 + [ctypes.POINTER(_L), _P]
+_BWD_ARGTYPES = [_P] * 14 + [_I] * 4 + [ctypes.POINTER(_L), _P]
 
 
 def kernel_for(dtype: torch.dtype, S: int, D: int) -> str:
@@ -158,10 +158,11 @@ def wkv6_bwd_op(r, k, v, logw, u, state, dout, *, need_dstate: bool = True):
     dlogw (B, H, S, D) f32, du (H, D) f32 and dstate (B, H, D, D) f32, or
     None for dstate without ``need_dstate``.
 
-    A CUDA call (bf16, D = 64) launches ``csrc/wkv6_bwd.cu`` once on the
-    current stream and bumps its launch count; the kernel leaves each batch
-    row's share of du, which one sum over rows adds up.  A CPU call runs
-    ``wkv6_bwd_ref``."""
+    A CUDA call (bf16, D = 64) runs ``csrc/wkv6_bwd.cu`` on the current
+    stream (two kernels: the chunks' states, then every chunk) and bumps
+    its launch count once; the wrapper allocates the states' scratch, and
+    the kernel leaves each chunk's share of du, which one sum adds up.  A
+    CPU call runs ``wkv6_bwd_ref``."""
     check_shapes(r, k, v, logw, u, state)
     if dout.shape != r.shape:
         raise ValueError(f"{BWD_NAME}: dout{tuple(dout.shape)} != "
@@ -183,7 +184,9 @@ def wkv6_bwd_op(r, k, v, logw, u, state, dout, *, need_dstate: bool = True):
         raise ValueError(f"{BWD_NAME}: u and state must be contiguous")
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dlogw = torch.empty_like(logw)
-    du_part = torch.empty(B, H, D, device=r.device, dtype=torch.float32)
+    chunks = -(-S // CHUNK)
+    du_part = torch.empty(B, H, chunks, D, device=r.device, dtype=torch.float32)
+    states = torch.empty(2, B, H, chunks, D, D, device=r.device, dtype=torch.float32)
     dstate = torch.empty_like(state) if need_dstate else None
     if r.numel() == 0:
         return (dr, dk, dv, dlogw.zero_(), u.new_zeros(u.shape),
@@ -194,11 +197,11 @@ def wkv6_bwd_op(r, k, v, logw, u, state, dout, *, need_dstate: bool = True):
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), state.data_ptr(), dout.data_ptr(), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du_part.data_ptr(),
-            dstate.data_ptr() if need_dstate else None, B, H, S, D, strides,
-            common.current_stream(r.device))
+            dstate.data_ptr() if need_dstate else None, states.data_ptr(), B, H, S,
+            D, strides, common.current_stream(r.device))
     common.check(BWD_NAME, rc)
     common.count_launch(BWD_NAME)
-    return dr, dk, dv, dlogw, du_part.sum(0), dstate
+    return dr, dk, dv, dlogw, du_part.sum((0, 2)), dstate
 
 
 class WKV6Fn(torch.autograd.Function):

@@ -6,9 +6,12 @@ both forward kernels, which the wrapper runs on the CPU and
 the same function through the chunked kernel's own factorisation, in f32;
 the tests hold its arithmetic to the recurrence and to the JAX package.
 ``wkv6_bwd_ref`` is the plain version of the backward kernel
-(``csrc/wkv6_bwd.cu``): the recurrence's gradients in the kernel's two
-passes, token by token; the tests hold it to autograd of
-``wkv6_scan_ref``.
+(``csrc/wkv6_bwd.cu``), which the wrapper runs on the CPU and
+``chip_smoke.py`` holds the kernel to: the recurrence's gradients token by
+token; the tests hold it to autograd of ``wkv6_scan_ref``.
+``wkv6_bwd_chunk_ref`` computes the same gradients through the kernel's
+chunked factorisation (``wkv6_bwd_chunk_states`` its two walks over the
+chunks); the tests hold its arithmetic to autograd and to the JAX package.
 
 The recurrence and the backward run in f32, or in f64 where their
 inputs are f64 (the tests' exact checks); ``wkv6_chunk_ref`` in f32.
@@ -178,3 +181,214 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dlogw = after - kdk
     du = (r32 * k32 * c[..., None]).sum((0, 2))
     return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw, du, ds)
+
+
+def _matmul(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a @ b
+
+
+def _excl_cumsum(x: torch.Tensor, dim: int, reverse: bool = False) -> torch.Tensor:
+    """Sum of the entries before each along ``dim`` (after it, reversed)."""
+    if reverse:
+        return _excl_cumsum(x.flip(dim), dim).flip(dim)
+    return torch.cat([torch.zeros_like(x.narrow(dim, 0, 1)),
+                      torch.cumsum(x, dim).narrow(dim, 0, x.shape[dim] - 1)], dim)
+
+
+def _chunked(x: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
+    """(B, H, S, D) as (B, H, n, chunk, D), zero-padded past S."""
+    B, H, S, D = x.shape
+    return F.pad(x, (0, 0, 0, n * chunk - S)).reshape(B, H, n, chunk, D)
+
+
+class _Decays:
+    """logw of each chunk (log2 units; padded tokens 0) as sums over
+    sub-chunks of ``sub`` tokens, so that every exponent is a sum over its
+    own span of tokens and never the difference of two long prefix sums:
+
+    * ``lw`` (B, H, n, chunk, D) and, per sub-chunk, ``before`` / ``after``,
+      the sum over its tokens before / after each token, and ``tot``
+      (B, H, n, chunk / sub, D), its sum;
+    * ``excl`` = cum[t - 1] and ``to_end`` = last - cum[t] (B, H, n, chunk,
+      D), ``last`` (B, H, n, 1, D)."""
+
+    def __init__(self, logw, n, chunk, sub, acc):
+        B, H, _, D = logw.shape
+        self.sub = sub
+        self.lw = _chunked(logw.to(acc), n, chunk) * LOG2E
+        lws = self.lw.reshape(B, H, n, chunk // sub, sub, D)
+        self.tot = torch.cumsum(lws, 4)[..., -1, :]
+        self.before = _excl_cumsum(lws, 4).reshape(self.lw.shape)
+        self.after = _excl_cumsum(lws, 4, reverse=True).reshape(self.lw.shape)
+        grow = lambda x: x.repeat_interleave(sub, 3)  # noqa: E731
+        self.excl = grow(_excl_cumsum(self.tot, 3)) + self.before
+        self.to_end = self.after + grow(_excl_cumsum(self.tot, 3, reverse=True))
+        self.last = torch.cumsum(self.tot, 3)[..., -1:, :]
+
+    def span(self, i: int, j: int) -> torch.Tensor:
+        """The sum over sub-chunks i..j-1 (zero where j <= i)."""
+        out = torch.zeros_like(self.tot[..., :1, :])
+        for m in range(i, j):
+            out = out + self.tot[..., m:m + 1, :]
+        return out
+
+    def pair_decays(self, m: int) -> torch.Tensor:
+        """(.., t, s, D): the product of the decays 2^lw over s < tau < t in
+        sub-chunk m, 0 at s >= t; multiplied from tau = t - 1 down, as the
+        kernel's pair loop."""
+        sub = self.sub
+        w = torch.exp2(self.lw[..., m * sub:(m + 1) * sub, :])
+        idx = torch.arange(sub, device=w.device)
+        upto = (idx[None, :] < idx[:, None])[..., None]  # tau < t
+        x = torch.where(upto, w[..., None, :, :], 1.0).flip(-2)
+        prod = torch.cat([torch.ones_like(x[..., :1, :]), torch.cumprod(x, -2)[..., :-1, :]],
+                         -2).flip(-2)  # [t, s]: the product over tau > s
+        return torch.where(upto, prod, 0.0)
+
+
+def wkv6_bwd_chunk_states(r, k, v, logw, state, dout, *, chunk: int = CHUNK,
+                          sub: int = SUB, mm=_matmul):
+    """Phases 1 and 2 of ``csrc/wkv6_bwd.cu``: the state at the start of
+    each chunk, S_n (B, H, n, D, D), and the gradient of the loss with
+    respect to the state at its end, dS_n (the last chunk's zero), walking
+    the chunks forward and backward:
+
+        S_(n+1) = diag(2^last) S_n + (k 2^(last - cum))^T v
+        dS_(n-1) = diag(2^last) dS_n + (r 2^excl)^T dout
+
+    and dstate, the gradient at the first chunk's start.  In f32 (f64 for
+    f64 inputs); ``mm(name, a, b)`` takes each product (``a @ b``)."""
+    acc = _acc(r)
+    n = -(-r.shape[2] // chunk)
+    rc, kc, vc, dc = (_chunked(x.to(acc), n, chunk) for x in (r, k, v, dout))
+    dec = _Decays(logw, n, chunk, sub, acc)
+    s, ds = state.to(acc), torch.zeros_like(state, dtype=acc)
+    states, dstates = [], [None] * n
+    for i in range(n):
+        states.append(s)
+        kdec = kc[:, :, i] * torch.exp2(dec.to_end[:, :, i])
+        s = (s * torch.exp2(dec.last[:, :, i]).transpose(-1, -2)
+             + mm("state", kdec.transpose(-1, -2), vc[:, :, i]))
+    for i in reversed(range(n)):
+        dstates[i] = ds
+        rdec = rc[:, :, i] * torch.exp2(dec.excl[:, :, i])
+        ds = (ds * torch.exp2(dec.last[:, :, i]).transpose(-1, -2)
+              + mm("dstate", rdec.transpose(-1, -2), dc[:, :, i]))
+    return torch.stack(states, 2), torch.stack(dstates, 2), ds
+
+
+def wkv6_bwd_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                       dout: torch.Tensor, *, chunk: int = CHUNK, sub: int = SUB,
+                       mm=_matmul) -> Tuple[torch.Tensor, ...]:
+    """``wkv6_bwd_ref``'s gradients as ``csrc/wkv6_bwd.cu`` factors them, in
+    f32 (f64 for f64 inputs).  Same arguments and results.
+
+    Phases 1 and 2 (``wkv6_bwd_chunk_states``) give each chunk of
+    ``chunk`` tokens (the last zero-padded, as ``wkv6_chunk_ref`` pads) the
+    state S0 at its start and the gradient dSe at its end.  Phase 3 takes
+    every chunk on its own, with ``cum``, ``excl``, ``last`` as
+    ``wkv6_chunk_ref`` defines them, ``c_t = v_t . dout_t`` and
+    dA[t, s] = dout_t . v_s for s < t:
+
+    * dr = 2^excl (dout S0^T) + sum_s dA[t, s] k_s 2^(excl_t - cum_s)
+      + u k c;
+    * dk = 2^(last - cum) (v dSe^T) + sum_t dA[t, s] r_t 2^(excl_t - cum_s)
+      + r u c;
+    * dv = (k 2^(last - cum)) dSe + A^T dout + (r . (u * k)) dout.
+
+    The pair sums run as the forward builds A, in sub-chunks of ``sub``
+    tokens: pairwise on the diagonal blocks; below them dr's through the
+    boundary B_m = cum before sub-chunk m (rows t in m against the tokens
+    before m), dk's and A^T's through E_m = cum at the end of sub-chunk m
+    (rows s in m against the tokens after it).  Every exponent is <= 0
+    and is summed over its own span (``_Decays``): a difference of two
+    prefix sums ~450 deep at strong decays would carry ~2e-5 of relative
+    error into each decay, as much as the running sum leaves in dlogw.  A
+    diagonal block's pair takes the product of its tokens' decays.
+
+    dlogw_t = exp(logw_t) sum_j S_(t-1)[:, j] dS_t[:, j], with no sum
+    carried across chunks and no difference of growing sums.  Expanded
+    in the chunk, per channel, it is the sum of
+
+    * (a) 2^last (S0 dSe^T)[i, i], the same for every t;
+    * (b) sum over t' > t of r_t' * (2^excl (dout S0^T))_t';
+    * (c) sum over s < t of k_s * (2^(last - cum) (v dSe^T))_s;
+    * (d) sum over s < t < t' of Z[t', s] = k_s r_t' 2^(excl_t' - cum_s)
+      dA[t', s], the pairs that straddle t, by where s and t' lie against
+      t's sub-chunk m: both before and after it (the block sums of Z
+      from dk's products), s before and t' in m (r times dr's part below
+      the diagonal), s in m and t' after (k times dk's part above it),
+      both in m (pairwise).
+
+    ``mm(name, a, b)`` takes each product (``a @ b``); a caller may read
+    its operands as the kernel's bf16 parts.
+    """
+    acc = _acc(r)
+    B, H, S, D = r.shape
+    n = -(-S // chunk)
+    S0, dSe, dstate = wkv6_bwd_chunk_states(r, k, v, logw, state, dout,
+                                            chunk=chunk, sub=sub, mm=mm)
+    rc, kc, vc, dc = (_chunked(x.to(acc), n, chunk) for x in (r, k, v, dout))
+    dec = _Decays(logw, n, chunk, sub, acc)
+    u32 = u.to(acc)[None, :, None, None, :]
+    c = (vc * dc).sum(-1, keepdim=True)
+    bonus = (rc * u32 * kc).sum(-1, keepdim=True)
+
+    dr = torch.exp2(dec.excl) * mm("inter_r", dc, S0.transpose(-1, -2))
+    dk = torch.exp2(dec.to_end) * mm("inter_k", vc, dSe.transpose(-1, -2))
+    dv = mm("inter_v", kc * torch.exp2(dec.to_end), dSe) + bonus * dc
+    # (a), (b), (c)
+    dlogw = (torch.exp2(dec.last) * (S0 * dSe).sum(-1).unsqueeze(-2)
+             + _excl_cumsum(rc * dr, 3, reverse=True) + _excl_cumsum(kc * dk, 3))
+
+    dA = mm("dA", dc, vc.transpose(-1, -2))  # [t, s]; only s < t is used
+    idx = torch.arange(sub, device=r.device)
+    below = idx[:, None] > idx[None, :]  # [t, s]: s < t
+    nsub = chunk // sub
+    zb = {}  # the sum of Z over t' in sub-chunk l and s in j < l
+    for m in range(nsub):
+        tm = slice(m * sub, (m + 1) * sub)
+        r_m, k_m = rc[..., tm, :], kc[..., tm, :]
+        # the diagonal block, pair by pair
+        f = dec.pair_decays(m)
+        dA_m = torch.where(below, dA[..., tm, tm], 0.0)[..., None]
+        rkf = r_m[..., :, None, :] * k_m[..., None, :, :] * f
+        dr[..., tm, :] += (dA_m * k_m[..., None, :, :] * f).sum(-2)
+        dk[..., tm, :] += (dA_m * r_m[..., :, None, :] * f).sum(-3)
+        dv[..., tm, :] += mm("dv_intra", rkf.sum(-1).transpose(-1, -2), dc[..., tm, :])
+        # (d), both in m: over t' > t, the sum of Z[t', s] over s < t
+        before = _excl_cumsum(rkf * dA_m, -2)  # [t', t]
+        dlogw[..., tm, :] += (before * below[..., None]).sum(-3)
+        if m:  # t' in m, s before it: through B_m
+            kq = kc[..., :m * sub, :] * torch.exp2(torch.cat(
+                [dec.after[..., j * sub:(j + 1) * sub, :] + dec.span(j + 1, m)
+                 for j in range(m)], -2))
+            dr_b = (torch.exp2(dec.before[..., tm, :])
+                    * mm("dr_intra", dA[..., tm, :m * sub], kq))
+            dr[..., tm, :] += dr_b
+            dlogw[..., tm, :] += _excl_cumsum(r_m * dr_b, 3, reverse=True)
+        if m < nsub - 1:  # s in m, t' after it: through E_m
+            k_e = k_m * torch.exp2(dec.after[..., tm, :])
+            dk_b = torch.zeros_like(k_m)
+            for l in range(m + 1, nsub):
+                tl = slice(l * sub, (l + 1) * sub)
+                r_e = rc[..., tl, :] * torch.exp2(dec.before[..., tl, :] + dec.span(m + 1, l))
+                p = mm("dk_intra", dA[..., tl, tm].transpose(-1, -2), r_e)
+                dk_b += p
+                zb[l, m] = (k_e * p).sum(-2, keepdim=True)
+                a_t = mm("A", k_e, r_e.transpose(-1, -2))
+                dv[..., tm, :] += mm("dv_intra", a_t, dc[..., tl, :])
+            dk_b = torch.exp2(dec.after[..., tm, :]) * dk_b
+            dk[..., tm, :] += dk_b
+            dlogw[..., tm, :] += _excl_cumsum(k_m * dk_b, 3)
+        # (d), s before m and t' after it
+        for (l, j), z in zb.items():
+            if j < m < l:
+                dlogw[..., tm, :] += z
+    dr = dr + u32 * kc * c
+    dk = dk + rc * u32 * c
+    du = (rc * kc * c).sum((0, 2, 3))
+    out = [x.reshape(B, H, n * chunk, D)[:, :, :S] for x in (dr, dk, dv, dlogw)]
+    return (out[0].to(r.dtype), out[1].to(r.dtype), out[2].to(r.dtype), out[3],
+            du, dstate)

@@ -1,15 +1,16 @@
-"""How many bf16 parts the chunked WKV6 kernel's operands need, on one H100.
+"""How many bf16 parts the chunked WKV6 kernels' operands need, on one H100.
 
-``csrc/wkv6_chunk.cu`` takes each tensor-core operand as bf16 parts (hi,
-lo = x - hi, and for A of A v a third, lo2 = x - hi - lo).  This script
-holds one rwkv6-7b train step at full width and 2 layers (chip_smoke's
-``train_parity`` step: 2 x 2048 seeded tokens, the loss and backward, no
-update) to an f32 run of the plain model, with the WKV6 forward swapped
-for each variant named on the command line, and prints the worst ratio of
-a gradient's RMS error against the f32 run to the plain bf16 run's (the
-ratio ``chip_smoke.py`` bars at 1.25), and the gradients' global norm
-beside the plain bf16 and f32 runs'.  The backward is the kernel of
-``csrc/wkv6_bwd.cu`` throughout.  Variants:
+``csrc/wkv6_chunk.cu`` and ``csrc/wkv6_bwd.cu`` take each tensor-core
+operand as bf16 parts (hi, lo = x - hi, and where it is needed a third,
+lo2 = x - hi - lo).  This script holds one rwkv6-7b train step at full
+width and 2 layers (chip_smoke's ``train_parity`` step: 2 x 2048 seeded
+tokens, the loss and backward, no update) to an f32 run of the plain
+model, with the WKV6 forward or backward swapped for each variant named
+on the command line, and prints the worst ratio of a gradient's RMS error
+against the f32 run to the plain bf16 run's (the ratio ``chip_smoke.py``
+bars at 1.25), and the gradients' global norm beside the plain bf16 and
+f32 runs'.  Where a variant swaps the forward, the backward is the
+kernel of ``csrc/wkv6_bwd.cu``, and the other way round.  Variants:
 
 * ``kernel``: ``wkv6_chunk.cu`` as it is;
 * ``scan``: ``wkv6_scan.cu``, the token-by-token kernel;
@@ -17,13 +18,21 @@ beside the plain bf16 and f32 runs'.  The backward is the kernel of
 * ``parts:IAVS``: the chunked form with the operands of its four products
   read as I, A, V and S bf16 parts each (a digit 2 or 3): the inter-chunk
   term (r decayed, S0), the sub-diagonal A (r and k decayed), A v (A) and
-  the state update (k decayed); the diagonal blocks of A in f32.
+  the state update (k decayed); the diagonal blocks of A in f32;
+* ``bwd_ref``: the backward as ``wkv6_bwd_chunk_ref``, in f32;
+* ``bwd:IPQA``: the same with the operands of its products read as bf16
+  parts (a digit 2 or 3 each, products of order below the last part's
+  left out, a bf16 input taken whole): I, S0 and dSe and k decayed in the
+  inter-chunk terms; P, r and k decayed in the walks of phases 1 and 2;
+  Q, dA and r and k decayed in dr's and dk's products off the diagonal;
+  A, k and r decayed in A's blocks off the diagonal and A in A^T dO.
 
 With ``--layers N --rows R`` the step runs N layers over R rows and, with
 ``--norms``, prints only the gradients' global norms (no f32 run: at all
 32 layers its weights and gradients would not fit).
 
 Run on a card:  python3 wkv6_split_probe.py kernel scan parts:2222 parts:2232
+                python3 wkv6_split_probe.py bwd_ref bwd:2222 bwd:3333
                 python3 wkv6_split_probe.py --layers 32 --rows 4 --norms kernel
 """
 from __future__ import annotations
@@ -52,11 +61,21 @@ def split(torch, x, n: int):
     return parts
 
 
-def product(torch, a, b, n: int):
-    """a @ b from n-part operands, less the products of order below the
-    last part's (as the kernel's hi*hi + hi*lo + lo*hi at n = 2)."""
-    pa, pb = split(torch, a, n), split(torch, b, n)
-    return sum(pa[i] @ pb[j] for i in range(n) for j in range(n) if i + j < n)
+def product(torch, a, b, na: int, nb: int, order: int):
+    """a @ b from na- and nb-part operands, less the products of order
+    ``order`` and above (as the kernel's hi*hi + hi*lo + lo*hi at 2)."""
+    pa, pb = split(torch, a, na), split(torch, b, nb)
+    return sum(pa[i] @ pb[j] for i in range(na) for j in range(nb) if i + j < order)
+
+
+def bwd_parts(torch, spec: str):
+    """The ``mm`` of ``wkv6_bwd_chunk_ref`` for ``bwd:IPQA`` (see above)."""
+    i, p, q, a = (int(c) for c in spec)
+    shapes = {"inter_r": (1, i, i), "inter_k": (1, i, i), "inter_v": (i, i, i),
+              "state": (p, 1, p), "dstate": (p, 1, p), "dA": (1, 1, 1),
+              "dr_intra": (q, q, q), "dk_intra": (q, q, q), "A": (a, a, a),
+              "dv_intra": (a, 1, a)}
+    return lambda name, x, y: product(torch, x, y, *shapes[name])
 
 
 def chunk_parts(torch, F, r, k, v, logw, u, state, parts, chunk=64, sub=16):
@@ -78,7 +97,7 @@ def chunk_parts(torch, F, r, k, v, logw, u, state, parts, chunk=64, sub=16):
         cum = torch.cumsum(lw2[:, :, c0:c0 + chunk], dim=2)
         excl = F.pad(cum[:, :, :-1], (0, 0, 1, 0))
         last = cum[:, :, -1:]
-        o = product(torch, rc * torch.exp2(excl), s, n_inter)
+        o = product(torch, rc * torch.exp2(excl), s, n_inter, n_inter, n_inter)
         A = rc.new_zeros(B, H, chunk, chunk)
         for i in range(0, chunk, sub):
             ti = slice(i, i + sub)
@@ -90,11 +109,11 @@ def chunk_parts(torch, F, r, k, v, logw, u, state, parts, chunk=64, sub=16):
                 bnd = cum[:, :, i - 1:i]
                 rq = rc[:, :, ti] * torch.exp2(excl[:, :, ti] - bnd)
                 kq = kc[:, :, :i] * torch.exp2(bnd - cum[:, :, :i])
-                A[:, :, ti, :i] = product(torch, rq, kq.transpose(-1, -2), n_a)
-        outs.append(o + product(torch, A, vc, n_av) + bonus[:, :, c0:c0 + chunk] * vc)
+                A[:, :, ti, :i] = product(torch, rq, kq.transpose(-1, -2), n_a, n_a, n_a)
+        outs.append(o + product(torch, A, vc, n_av, n_av, n_av) + bonus[:, :, c0:c0 + chunk] * vc)
         kdec = kc * torch.exp2(last - cum)
         s = (s * torch.exp2(last).transpose(-1, -2)
-             + product(torch, kdec.transpose(-1, -2), vc, n_state))
+             + product(torch, kdec.transpose(-1, -2), vc, n_state, n_state, n_state))
     return torch.cat(outs, dim=2)[:, :, :S].to(r.dtype), s
 
 
@@ -113,7 +132,7 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import common
     from repro_torch.kernels.rwkv6_scan import ops
-    from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunk_ref
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_chunk_ref, wkv6_chunk_ref
     from repro_torch.models import build_model
     from repro_torch.training.data import DataConfig, SyntheticCorpus
 
@@ -133,6 +152,7 @@ def main() -> int:
                                        seed=cs.SEED + 7)).batch_at(0)
     tokens, labels = (torch.from_numpy(batch[k]).to(dev) for k in ("tokens", "labels"))
     launch, kernel_for = ops._launch_forward, ops.kernel_for
+    backward = ops.wkv6_bwd_op
 
     def forward(name):
         """The forward of variant ``name``, in ``_launch_forward``'s form."""
@@ -153,15 +173,26 @@ def main() -> int:
                                    parts=tuple(int(c) for c in name.split(":")[1]))
         return lambda r, k, v, logw, u, state, out_state: fn(r, k, v, logw, u, state)
 
+    def swapped_backward(name):
+        """``wkv6_bwd_op`` as variant ``name`` computes it."""
+        mm = {} if name == "bwd_ref" else {"mm": bwd_parts(torch, name.split(":")[1])}
+
+        def run(r, k, v, logw, u, state, dout, *, need_dstate=True):
+            dr, dk, dv, dlogw, du, ds = wkv6_bwd_chunk_ref(r, k, v, logw, u, state, dout, **mm)
+            return dr, dk, dv, dlogw, du, ds if need_dstate else None
+        return run
+
     def grads(dtype, name=None):
         model = cs.seeded_model(torch, np, cfg, dev, build_model, dtype)
         model.plain_kernels = name is None
         model.requires_grad_(True)
-        ops._launch_forward = forward(name) if name else launch
+        is_bwd = bool(name) and name.startswith("bwd")
+        ops._launch_forward = forward(name) if name and not is_bwd else launch
+        ops.wkv6_bwd_op = swapped_backward(name) if is_bwd else backward
         try:
             model.forward_loss(tokens, labels).backward()
         finally:
-            ops._launch_forward = launch
+            ops._launch_forward, ops.wkv6_bwd_op = launch, backward
         out = {n: p.grad.float() for n, p in model.named_parameters()}
         del model
         torch.cuda.empty_cache()
