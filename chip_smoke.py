@@ -130,7 +130,19 @@ WKV6 backward kernel), and prints one JSON object per phase:
    loss and backward at full depth, the VLM's 48 layers over 4 x 512
    tokens (96 forwards and 48 backwards) and rwkv6-7b's 32 over 4 x 2048
    (64 and 32), with the loss, grad norm and peak memory;
-12. ``plan``: Scepsy's planner
+12. ``train_resume``: checkpoint, resume and int8 compression of
+   qwen2.5-3b's training at full width and PARITY_LAYERS layers (4 x 2048
+   tokens, one microbatch): run U takes 8 steps and saves a checkpoint
+   (``training.checkpoint``, about 5.6 GB) after 4 into a temporary
+   directory under ``build/``, U2 repeats U, R (a model drawn from another
+   seed) restores it and takes steps 4-7, C takes 8 steps with
+   ``compress=True``; it fails unless the restored weights, moments and
+   step, U2 and R (every loss, the final weights and moments) are
+   bit-equal to U's, every step launches exactly ``train_launches``, C's
+   losses are finite and ``compress_tree`` of the tied embedding's gradient
+   is bit-equal on the card and on the CPU; with the checkpoint's bytes,
+   save and restore seconds and GB/s, the compression's ms and peak memory;
+13. ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
    its allocations, predicted latency and throughput and its placement,
@@ -2014,7 +2026,187 @@ def train_phase(torch, np, F, flash_ops, wkv6_ops, dev, gen, build_model, common
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the planner on H100 hosts
+# phase 12: checkpoint, resume and compression
+# ---------------------------------------------------------------------------
+
+# train_resume: qwen2.5-3b at full width and PARITY_LAYERS layers, 4 x 2048
+# tokens in one microbatch, 8 steps with a checkpoint after RESUME_AT of them
+RESUME = TrainSpec("qwen2.5-3b", 4, 2048, 1, 8, layers=PARITY_LAYERS)
+RESUME_AT = 4
+
+
+def _state_copy(torch, model, state) -> dict:
+    """A copy on the card of every weight, moment and the step, by the
+    checkpoint's keys."""
+    out = {f"param/{n}": p.detach().clone() for n, p in model.named_parameters()}
+    out.update({f"m/{n}": t.clone() for n, t in state.m.items()})
+    out.update({f"v/{n}": t.clone() for n, t in state.v.items()})
+    out["step"] = state.step.clone()
+    return out
+
+
+def _unequal(torch, a: dict, b: dict) -> list:
+    """The keys of two ``_state_copy``s (or of one and a live state) whose
+    tensors differ in dtype, shape or any bit."""
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not torch.equal(a[k], b[k]))
+
+
+def resume_phase(torch, np, cfg, dev, build_model, common):
+    """Checkpoint, resume and compression on the card (``RESUME``): bf16
+    weights from SEED, ``SyntheticCorpus`` batches by step, AdamW through
+    ``make_train_step``.  Run U takes RESUME.steps steps and saves a
+    checkpoint (``training.checkpoint``) after RESUME_AT of them into a
+    directory under ``build/`` that is removed at the end; U2 repeats U; R,
+    a model drawn from another seed, restores that checkpoint and takes the
+    remaining steps; C takes U's steps with ``compress=True``.  ``ok``
+    needs the restored weights, moments and step bit-equal to U's at the
+    save, U2 and R bit-equal to U in every loss and in the final weights
+    and moments, every step's launches exactly ``train_launches``, C's
+    losses finite, and ``compress_tree`` of the largest gradient (the tied
+    embedding's) with a seeded error bit-equal on the card and on the
+    CPU."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed.compression import compress_tree
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    spec = RESUME
+    data = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, spec.batch, seed=SEED))
+    per_step = train_launches(cfg, spec.microbatches)
+    expected = {name: per_step.get(name, 0) for name in common.KERNELS}
+    launches_ok, totals = [], Counter()
+
+    def steps(model, state, step_fn, start, stop, at=None):
+        """Steps start..stop-1; with ``at``, calls ``at(state)`` after step
+        RESUME_AT - 1."""
+        losses = []
+        for step in range(start, stop):
+            torch.cuda.synchronize()
+            common.reset_launch_counts()
+            state, metrics = step_fn(state, data.batch_at(step))
+            losses.append(float(metrics["loss"]))
+            launches_ok.append(dict(common.launch_counts) == expected)
+            totals.update(common.launch_counts)
+            if at is not None and step + 1 == RESUME_AT:
+                at(state)
+        return state, losses
+
+    def fresh(seed, compress=False):
+        model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+        model.init_params(torch.Generator(device=dev).manual_seed(seed))
+        step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP),
+                                  compress=compress)
+        return model, init_state(dict(model.named_parameters())), step_fn
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_resume_", dir=build_dir)
+    torch.cuda.reset_peak_memory_stats()
+    io = {}
+    try:
+        model_u, state, step_fn = fresh(SEED)
+        n_params = sum(p.numel() for p in model_u.parameters())
+
+        def save(state):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = ckpt.save_checkpoint(ckpt_dir, RESUME_AT, model_u, state,
+                                        extra={"arch": cfg.name})
+            io["save_s"] = time.perf_counter() - t
+            io["bytes"] = sum(f.stat().st_size for f in Path(path).iterdir())
+            io["at_save"] = _state_copy(torch, model_u, state)
+
+        state_u, losses_u = steps(model_u, state, step_fn, 0, spec.steps, at=save)
+        final_u = _state_copy(torch, model_u, state_u)
+        embed_grad = model_u.embed.grad.detach().clone()
+        compress_shape = list(embed_grad.shape)
+        del step_fn, state, state_u
+        model_u = None
+
+        model, state, step_fn = fresh(SEED)
+        state, losses_u2 = steps(model, state, step_fn, 0, spec.steps)
+        u2_diff = _unequal(torch, final_u, _state_copy(torch, model, state))
+        del model, state, step_fn
+
+        model, state, step_fn = fresh(SEED + 1)
+        before = _unequal(torch, io["at_save"], _state_copy(torch, model, state))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, at_step, extra = ckpt.restore_checkpoint(ckpt_dir, model, state)
+        torch.cuda.synchronize()
+        io["restore_s"] = time.perf_counter() - t
+        restored_diff = _unequal(torch, io.pop("at_save"), _state_copy(torch, model, state))
+        state, losses_r = steps(model, state, step_fn, at_step, spec.steps)
+        r_diff = _unequal(torch, final_u, _state_copy(torch, model, state))
+        del model, state, step_fn, final_u
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model, state, step_fn = fresh(SEED, compress=True)
+        state, losses_c = steps(model, state, step_fn, 0, spec.steps)
+        del model, state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # compress_tree of the embedding's gradient on the card and on the CPU,
+    # with an f32 error of 1% of the gradient's RMS drawn from a seed
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rms = embed_grad.float().square().mean().sqrt()
+    error = torch.randn(embed_grad.shape, generator=gen, device=dev) * (0.01 * rms)
+    grads, errors = {"embed": embed_grad}, {"embed": error}
+    compress_tree(grads, errors)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    sent, new_error = compress_tree(grads, errors)
+    end.record()
+    torch.cuda.synchronize()
+    compress_ms = start.elapsed_time(end)
+    t = time.perf_counter()
+    sent_cpu, error_cpu = compress_tree({"embed": embed_grad.cpu()}, {"embed": error.cpu()})
+    compress_cpu_s = time.perf_counter() - t
+    compress_equal = (torch.equal(sent["embed"].cpu(), sent_cpu["embed"])
+                      and torch.equal(new_error["embed"].cpu(), error_cpu["embed"]))
+    del sent, new_error, sent_cpu, error_cpu, error, embed_grad, grads, errors
+
+    result = {
+        "phase": "train_resume", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "params": n_params, "batch": spec.batch,
+        "seq": spec.seq, "microbatches": spec.microbatches, "steps": spec.steps,
+        "checkpoint_at": RESUME_AT, "restored_step": at_step, "extra": extra,
+        "checkpoint_bytes": io["bytes"], "save_s": io["save_s"],
+        "save_gb_per_s": io["bytes"] / io["save_s"] / 1e9,
+        "restore_s": io["restore_s"],
+        "restore_gb_per_s": io["bytes"] / io["restore_s"] / 1e9,
+        "fresh_model_differs_before_restore": bool(before),
+        "restored_unequal": restored_diff, "uninterrupted_again_unequal": u2_diff,
+        "resumed_unequal": r_diff,
+        "losses_uninterrupted": losses_u, "losses_uninterrupted_again": losses_u2,
+        "losses_resumed": losses_r, "losses_compressed": losses_c,
+        "launches_per_step_expected": {k: n for k, n in expected.items() if n},
+        "steps_with_expected_launches": f"{sum(launches_ok)}/{len(launches_ok)}",
+        "launches": {k: n for k, n in totals.items() if n},
+        "compress_shape": compress_shape,
+        "compress_ms": compress_ms, "compress_cpu_s": compress_cpu_s,
+        "compress_card_equals_cpu": compress_equal,
+        "max_memory_allocated_bytes": peak}
+    result["ok"] = (bool(before) and not restored_diff and not u2_diff and not r_diff
+                    and at_step == RESUME_AT and losses_u2 == losses_u
+                    and losses_r == losses_u[RESUME_AT:] and all(launches_ok)
+                    and bool(np.isfinite(losses_c).all()) and compress_equal)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the planner on H100 hosts
 # ---------------------------------------------------------------------------
 
 PLAN_RATE = 0.4  # req/s, the launcher's default target
@@ -2398,6 +2590,15 @@ def run():
     engines["flash_attention_bwd"] = train
     engines["wkv6_bwd"] = rwkv_train = trained[RWKV_ARCH]
 
+    # checkpoint, resume and int8 compression of qwen2.5-3b's training, on
+    # a card free of the training runs
+    resume = resume_phase(torch, np, dataclasses.replace(
+        get_config(RESUME.arch), num_layers=RESUME.layers), dev, build_model, common)
+    emit(resume)
+    if not resume["ok"]:
+        raise SmokeFailure("train_resume: a restored or resumed run is not "
+                           "bit-equal to the uninterrupted one, or compression failed")
+
     plan_phase(torch, flash_ops, checks, predicted, steps)
 
     summary = []
@@ -2431,6 +2632,9 @@ def run():
     flash_row["launches_train"] = train["launches"]["flash_attention"]
     bwd_row = next(r for r in summary if r["name"] == "flash_attention_bwd")
     bwd_row["launches_per_step"] = train["launches_per_step_expected"]["flash_attention_bwd"]
+    # the train_resume phase's four runs (U, U2, R, C)
+    for row in (flash_row, bwd_row):
+        row["launches_resume"] = resume["launches"][row["name"]]
     # the other attention families' training runs, per arch
     for row, name in ((flash_row, "flash_attention"), (bwd_row, "flash_attention_bwd")):
         row["launches_train_families"] = {arch: r["launches"][name]

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` nor its root
 scripts ``chip_smoke.py``, ``kernel_ab.py`` and ``wkv6_split_probe.py``
-imports JAX or anything of the JAX package, and its entry points run on
+nor its example ``examples/train_model_torch.py`` imports JAX or anything of the JAX package, and its entry points run on
 the card unless the caller names the CPU."""
 import ast
 from pathlib import Path
@@ -18,7 +18,8 @@ from repro_torch.serving.engine import ServingEngine
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "kernel_ab.py", REPO / "wkv6_split_probe.py"]
+    [REPO / "chip_smoke.py", REPO / "kernel_ab.py", REPO / "wkv6_split_probe.py",
+     REPO / "examples" / "train_model_torch.py"]
 
 
 def _imported_roots(path: Path):
@@ -49,7 +50,9 @@ def test_scan_finds_the_port():
             "chip_smoke.py", "bridge.py", "hw.py", "scheduler.py",
             "profiler.py", "tile_plan.py", "hymba.py", "vision.py",
             "encdec.py", "optimizer.py", "train_loop.py", "train.py",
-            "data.py"} <= names
+            "data.py", "checkpoint.py", "compression.py",
+            "fault_tolerance.py", "registry.py",
+            "train_model_torch.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):
@@ -75,6 +78,8 @@ def test_training_entry_points_default_to_the_card():
         pytest.skip("checks the behaviour where there is no card")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--steps", "1", "--ckpt-dir", "unused", "--resume"])
     cfg = reduced_config(get_config("qwen2.5-3b"))
     model = DenseLM(cfg, device="cpu")
     step = make_train_step(model)

@@ -23,23 +23,43 @@ import repro.configs.registry as ref_registry
 import repro.core.profiler as ref_profiler
 import repro.core.scepsy as ref_scepsy
 import repro.hw as ref_hw
+import repro.serving.simulator as ref_simulator
+import repro.workflows.baselines as ref_baselines
 import repro.workflows.beam_search as ref_beam
+import repro.workflows.debate as ref_debate
+import repro.workflows.map_reduce as ref_map_reduce
 import repro.workflows.rag_reranker as ref_rag
+import repro.workflows.react_agent as ref_react
+import repro.workflows.registry as ref_registry_wf
+import repro.workflows.runtime as ref_runtime
+import repro.workflows.session as ref_session
 from repro_torch import hw
 from repro_torch.configs.registry import REGISTRY
 from repro_torch.core import profiler as scepsy_profiler
 from repro_torch.core import scepsy
 from repro_torch.core.profiler import extract_groups
 from repro_torch.kernels.tile_plan import SMEM_PER_BLOCK, tile_plan
+from repro_torch.distributed.fault_tolerance import FaultToleranceController
 from repro_torch.serving import costmodel as cm
+from repro_torch.serving import simulator
+from repro_torch.workflows import baselines, registry, runtime
 from repro_torch.workflows.beam_search import BEAM_SEARCH
+from repro_torch.workflows.debate import DEBATE
+from repro_torch.workflows.map_reduce import MAP_REDUCE
 from repro_torch.workflows.rag_reranker import RAG_RERANKER
+from repro_torch.workflows.react_agent import REACT_AGENT
+from repro_torch.workflows.session import RECURSIVE_AGENT, SESSION_CHAT
 
 REPO = Path(__file__).resolve().parent.parent
 REL = 1e-9
 SMALL = dict(n_trace_requests=10, tp_degrees=(1, 2), max_profile_groups=8)
 WORKFLOWS = {"beam_search": (BEAM_SEARCH, ref_beam.BEAM_SEARCH),
-             "rag_reranker": (RAG_RERANKER, ref_rag.RAG_RERANKER)}
+             "rag_reranker": (RAG_RERANKER, ref_rag.RAG_RERANKER),
+             "react_agent": (REACT_AGENT, ref_react.REACT_AGENT),
+             "debate": (DEBATE, ref_debate.DEBATE),
+             "map_reduce": (MAP_REDUCE, ref_map_reduce.MAP_REDUCE),
+             "session_chat": (SESSION_CHAT, ref_session.SESSION_CHAT),
+             "recursive_agent": (RECURSIVE_AGENT, ref_session.RECURSIVE_AGENT)}
 
 # the modules copied verbatim: their source is the reference's with
 # ``repro.`` rewritten to ``repro_torch.``
@@ -47,7 +67,11 @@ VERBATIM = ("serving/eventloop.py", "serving/radix.py", "serving/simulator.py",
             "serving/deploy.py", "core/trace.py", "core/aggregate.py",
             "core/pipeline.py", "core/placement.py", "core/scheduler.py",
             "qos/slo.py", "qos/policy.py", "workflows/runtime.py",
-            "workflows/beam_search.py", "workflows/rag_reranker.py")
+            "workflows/beam_search.py", "workflows/rag_reranker.py",
+            "workflows/react_agent.py", "workflows/debate.py",
+            "workflows/map_reduce.py", "workflows/session.py",
+            "workflows/registry.py", "workflows/traffic.py",
+            "workflows/baselines.py", "distributed/fault_tolerance.py")
 # the copies that are edited for the port, and why
 EDITED = {
     "hw.py": "the h100 class is the default; H100 host layouts",
@@ -287,7 +311,7 @@ H100_HOST_8_PLANS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(WORKFLOWS))
+@pytest.mark.parametrize("name", sorted(H100_HOST_8_PLANS))
 def test_full_deploy_on_an_h100_host_matches_the_reference(name, ref_h100):
     """The port's own full deploy on one 8-GPU host against the reference
     with the H100 registered beside its v5e default (it binds the plan to
@@ -354,6 +378,95 @@ def test_serve_launcher_plans_and_serves_on_8_gpus():
     assert re.search(r"gen: replicas=1 tp=4 fraction=1\.00", out.stdout)
     assert re.search(r"ver: replicas=1 tp=4 fraction=1\.00", out.stdout)
     assert "== served 20 requests" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the workflow registry, the paper's baselines and fault tolerance
+# ---------------------------------------------------------------------------
+
+
+def test_registry_lists_every_workflow_with_the_reference_slo():
+    assert registry.workflow_names() == ref_registry_wf.workflow_names()
+    assert set(WORKFLOWS) == set(registry.workflow_names())
+    for name in registry.workflow_names():
+        port, ref = registry.get_workflow(name), ref_registry_wf.get_workflow(name)
+        assert dataclasses.asdict(port.slo) == dataclasses.asdict(ref.slo)
+        assert sorted(port.llms) == sorted(ref.llms)
+    with pytest.raises(KeyError, match="unknown workflow"):
+        registry.get_workflow("nope")
+
+
+# (system, its options, workflow, cluster, rate in req/s): the three
+# systems the paper compares Scepsy against, and the autoscaler without
+# prefix caching
+BASELINES = {
+    "k8s-hpa": ("KubernetesHPA", {}, "react_agent", "PAPER_CLUSTER_4", 1.0),
+    "k8s-hpa-no-prefix": ("KubernetesHPA", {"prefix_caching": False},
+                          "session_chat", "PAPER_CLUSTER_4", 1.0),
+    "aegaeon": ("AegaeonLike", {}, "map_reduce", "PAPER_CLUSTER_8", 0.4),
+    "ayo": ("AyoLike", {}, "debate", "PAPER_CLUSTER_4", 0.5),
+}
+
+
+def _baseline_run(hw_mod, sim_mod, base_mod, runtime_mod, wf, case):
+    """(throughput, mean latency, completed) of 20 seeded open-loop
+    requests, as ``tests/test_integration.py`` measures them."""
+    system, options, _, cluster, rate = case
+    loop = sim_mod.EventLoop()
+    sysm = getattr(base_mod, system)(wf, getattr(hw_mod, cluster), loop, **options)
+    recs = runtime_mod.ClusterDriver(wf, sysm.routers, loop).run_open_loop(
+        rate, 20, seed=11, until=1e5)
+    recs = [r for r in recs if r.done >= 0]
+    span = max(r.done for r in recs) - min(r.arrival for r in recs)
+    return len(recs) / span, sum(r.latency for r in recs) / len(recs), len(recs)
+
+
+@pytest.mark.parametrize("name", sorted(BASELINES))
+def test_baseline_run_equals_the_reference(name, monkeypatch):
+    """Each baseline serves the same seeded traffic as the reference's,
+    with the reference's default class (v5e) as the port's default here:
+    the same throughput, mean latency and completed count."""
+    monkeypatch.setattr(hw, "DEFAULT_CHIP_CLASS", hw.V5E)
+    monkeypatch.setattr(hw, "ICI_LINK_BW", hw.V5E.ici_link_bw)
+    assert ref_hw.DEFAULT_CHIP_CLASS.name == "v5e"
+    assert ref_hw.ICI_LINK_BW == hw.V5E.ici_link_bw
+    case = BASELINES[name]
+    wf, ref_wf = WORKFLOWS[case[2]]
+    port = _baseline_run(hw, simulator, baselines, runtime, wf, case)
+    ref = _baseline_run(ref_hw, ref_simulator, ref_baselines, ref_runtime, ref_wf, case)
+    assert port[2] == ref[2] == 20
+    assert all(math.isfinite(x) for x in port)
+    assert _close(port[0], ref[0]) and _close(port[1], ref[1])
+
+
+def test_failure_detection_and_remesh():
+    """The reference's ``test_failure_detection_and_remesh`` on the copy."""
+    ftc = FaultToleranceController(8, grace=10.0, model_ways=16)
+    for w in range(8):
+        ftc.heartbeat(w, 0.0)
+    assert ftc.check(5.0) is None
+    for w in range(7):  # worker 7 goes silent
+        ftc.heartbeat(w, 20.0)
+    plan = ftc.check(28.0)  # 7 last seen at t=0 (>grace); others at t=20
+    assert plan is not None
+    assert plan.dropped_workers == (7,)
+    assert plan.data_ways == 4  # largest pow2 <= 7
+    assert plan.restart_from_checkpoint
+    assert 7 not in ftc.alive_workers()
+
+
+def test_straggler_detection():
+    """The reference's ``test_straggler_detection`` on the copy."""
+    ftc = FaultToleranceController(4, straggler_factor=2.0, patience=2)
+    for t in range(5):
+        for w in range(4):
+            ftc.heartbeat(w, float(t))
+            ftc.report_step(w, 1.0 if w != 2 else 5.0)
+        plan = ftc.check(float(t))
+        if plan:
+            assert 2 in plan.dropped_workers
+            return
+    pytest.fail("straggler never detected")
 
 
 # ---------------------------------------------------------------------------

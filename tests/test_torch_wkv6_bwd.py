@@ -165,7 +165,22 @@ def test_chunk_walks_match_the_token_states():
     assert float(dstates[:, :, -1].abs().max()) == 0.0
 
 
-def test_chunked_dlogw_is_resolved_at_strong_decays():
+@pytest.fixture
+def one_thread():
+    """Torch's intra-op pool cut to one thread for one test.  The plain
+    backward's token loops issue thousands of small operations, and while
+    the suite's other workers hold every core, each operation's hand-off
+    to the pool costs more than its work: S = 512 took about a minute on
+    the default pool and under a second on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_chunked_dlogw_is_resolved_at_strong_decays(one_thread):
     """At strong decays (logw ~ -7 a token) dlogw is ~1e-3 of r . dr~: the
     plain version's running sum of r . dr~ - k . dk~ carries its rounding
     into dlogw, and the chunked form, which sums no growing terms, is at
