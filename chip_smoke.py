@@ -142,7 +142,21 @@ WKV6 backward kernel), and prints one JSON object per phase:
    losses are finite and ``compress_tree`` of the tied embedding's gradient
    is bit-equal on the card and on the CPU; with the checkpoint's bytes,
    save and restore seconds and GB/s, the compression's ms and peak memory;
-13. ``plan``: Scepsy's planner
+13. ``shard``: the per-GPU bytes of every dense config's bf16 weights and
+   f32 moments at model ways 1, 2, 4 and 8 on one 8-GPU host, from the
+   placement tables (``distributed.sharding``) beside the cost model's
+   ``min_fraction_units`` (printed, not checked); then, over
+   ``launch.mesh.single_device_mesh()`` (the (1, 1) mesh of a one-rank
+   NCCL process group, every weight a DTensor): llama-3.1-8b at full width
+   and depth serves the engine phase's first 8 requests, 16 new tokens
+   each, unsharded and then sharded in place, which must give the same
+   tokens and the same flash and decode launch counts with only plain
+   tensors reaching the kernel wrappers; and qwen2.5-3b at full width and
+   18 layers takes 3 train steps (4 x 2048 tokens) unsharded and 3 sharded
+   with ZeRO-1 moments from the same seed, which must be bit-equal in
+   every loss, weight and moment, with exactly ``train_launches`` in every
+   step;
+14. ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
    its allocations, predicted latency and throughput and its placement,
@@ -2206,7 +2220,227 @@ def resume_phase(torch, np, cfg, dev, build_model, common):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the planner on H100 hosts
+# phase 13: the dense decoders sharded over a (1, 1) NCCL mesh
+# ---------------------------------------------------------------------------
+
+# llama-3.1-8b serves the engine phase's first 8 requests, 16 new tokens
+# each; qwen2.5-3b trains 3 steps at full width and 18 of its 36 layers
+# (two runs' weights and f32 moments, 17 GB each, stay on the card at once
+# for the bit comparison; at full depth they would take 62 GB)
+SHARD_REQUESTS, SHARD_NEW = 8, 16
+SHARD_TRAIN = TrainSpec("qwen2.5-3b", 4, 2048, 1, 3, layers=18)
+SHARD_WAYS = (1, 2, 4, 8)
+
+
+def shard_bytes(get_config):
+    """Per-GPU bytes of each dense config's bf16 weights and f32 AdamW
+    moments (ZeRO-1) at model ways SHARD_WAYS on one 8-GPU host (data ways
+    8 / model ways), from the placement tables of a meta-device model,
+    beside the cost model's ``min_fraction_units`` on that host.  Printed,
+    not checked."""
+    import torch
+
+    from repro_torch import hw
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.distributed.sharding import check_shardable, per_gpu_bytes
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.serving.costmodel import min_fraction_units
+
+    rows = []
+    for arch in sorted(n for n, c in REGISTRY.items() if c.family == "dense"):
+        cfg = get_config(arch)
+        model = DenseLM(cfg, device="meta", dtype=torch.bfloat16)
+        row = {"arch": arch, "min_fraction_units": min_fraction_units(
+            cfg, hw.H100_HOST_8), "fractions_per_chip": hw.H100_HOST_8.fractions_per_chip}
+        for ways in SHARD_WAYS:
+            sizes = {"data": 8 // ways, "model": ways}
+            try:
+                check_shardable(cfg, sizes)
+                runs = True
+            except ValueError:
+                runs = False
+            b = per_gpu_bytes(model, sizes)
+            row[f"model_{ways}"] = {"weights_gb": b["weights"] / 1e9,
+                                    "moments_gb": b["moments"] / 1e9,
+                                    "shard_model_runs": runs}
+        rows.append(row)
+    return rows
+
+
+def _recording_kernels(layers, seen):
+    """Wrap the attention wrappers that ``models.layers`` calls so that the
+    types of their tensor arguments land in ``seen``; returns the undo."""
+    names = ("flash_attention_op", "decode_attention_op")
+    saved = {n: getattr(layers, n) for n in names}
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            seen.update(type(a).__name__ for a in args if hasattr(a, "dtype"))
+            return fn(*args, **kwargs)
+        return call
+
+    for n, fn in saved.items():
+        setattr(layers, n, wrap(fn))
+    return lambda: [setattr(layers, n, fn) for n, fn in saved.items()]
+
+
+def shard_serve(torch, np, cfg, dev, build_model, common, mesh):
+    """llama-3.1-8b (full width and depth, bf16 weights from SEED) serves
+    SHARD_REQUESTS requests of the engine phase, SHARD_NEW tokens each,
+    through ``ServingEngine``, unsharded and then sharded in place over
+    ``mesh``.  ``ok`` needs every weight a DTensor, the same tokens, the
+    same flash and decode launch counts, and only plain tensors handed to
+    the kernel wrappers."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import shard_model
+    from repro_torch.models import layers
+    from repro_torch.serving.engine import ServeRequest, ServingEngine
+
+    model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
+    reqs = llama_prompts(np, cfg)[:SHARD_REQUESTS]
+
+    def serve():
+        engine = ServingEngine(model, device=dev, slots=8, max_len=4096)
+        for i, prompt in enumerate(reqs):
+            engine.submit(ServeRequest(i, prompt, max_new_tokens=SHARD_NEW))
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        t = time.perf_counter()
+        done = engine.run_to_completion()
+        torch.cuda.synchronize()
+        return ({r.req_id: list(r.generated) for r in done}, time.perf_counter() - t,
+                dict(common.launch_counts), engine.stats["decode_steps"])
+
+    tokens, wall, launches, steps = serve()
+    shard_model(model, mesh)
+    dtensors = all(isinstance(p, DTensor) for p in model.parameters())
+    seen = set()
+    undo = _recording_kernels(layers, seen)
+    try:
+        tokens_s, wall_s, launches_s, steps_s = serve()
+    finally:
+        undo()
+    names = ("flash_attention", "decode_attention")
+    result = {
+        "run": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "requests": len(reqs), "new_tokens": SHARD_NEW,
+        "every_weight_a_dtensor": dtensors, "kernel_input_types": sorted(seen),
+        "tokens_equal": tokens_s == tokens, "requests_done": len(tokens_s),
+        "decode_steps": steps_s, "wall_s": wall, "wall_s_sharded": wall_s,
+        "launches": {n: launches.get(n, 0) for n in names},
+        "launches_sharded": {n: launches_s.get(n, 0) for n in names}}
+    result["ok"] = (dtensors and result["tokens_equal"] and len(tokens) == len(reqs)
+                    and seen == {"Tensor"} and steps == steps_s
+                    and result["launches"] == result["launches_sharded"]
+                    and all(result["launches"][n] > 0 for n in names))
+    del model
+    return result
+
+
+def shard_train(torch, np, cfg, dev, build_model, common, mesh):
+    """SHARD_TRAIN: qwen2.5-3b at full width and SHARD_TRAIN.layers layers,
+    bf16 weights from SEED, SyntheticCorpus batches, 3 AdamW steps
+    unsharded (U), then 3 from the same seed sharded over ``mesh`` with
+    ZeRO-1 moments (S).  ``ok`` needs S's losses, weights, moments and step
+    bit-equal to U's, and exactly ``train_launches`` in every step of
+    both."""
+    from repro_torch.distributed.sharding import local, shard_model
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    spec = SHARD_TRAIN
+    data = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, spec.batch, seed=SEED))
+    per_step = train_launches(cfg, spec.microbatches)
+    expected = {name: per_step.get(name, 0) for name in common.KERNELS}
+
+    def run(sharded):
+        model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
+        if sharded:
+            shard_model(model, mesh)
+        step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP),
+                                  num_microbatches=spec.microbatches)
+        state = init_state(dict(model.named_parameters()))
+        losses, ms, launches_ok, totals = [], [], True, Counter()
+        for step in range(spec.steps):
+            torch.cuda.synchronize()
+            common.reset_launch_counts()
+            t = time.perf_counter()
+            state, metrics = step_fn(state, data.batch_at(step))
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches_ok = launches_ok and dict(common.launch_counts) == expected
+            totals.update(common.launch_counts)
+        tensors = {f"param/{n}": local(p).detach() for n, p in model.named_parameters()}
+        tensors.update({f"m/{n}": local(t) for n, t in state.m.items()})
+        tensors.update({f"v/{n}": local(t) for n, t in state.v.items()})
+        tensors["step"] = state.step
+        return losses, ms, launches_ok, totals, tensors
+
+    losses_u, ms_u, ok_u, totals_u, tensors = run(False)
+    final_u = {k: t.clone() for k, t in tensors.items()}
+    del tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses_s, ms_s, ok_s, totals_s, tensors = run(True)
+    unequal = _unequal(torch, final_u, tensors)
+    del final_u, tensors
+    result = {
+        "run": "train", "arch": cfg.name, "layers": cfg.num_layers,
+        "batch": spec.batch, "seq": spec.seq, "microbatches": spec.microbatches,
+        "steps": spec.steps, "losses": losses_u, "losses_sharded": losses_s,
+        "step_ms": ms_u, "step_ms_sharded": ms_s, "unequal": unequal[:8],
+        "unequal_count": len(unequal),
+        "launches_per_step_expected": {k: n for k, n in expected.items() if n},
+        "launches": {k: n for k, n in totals_u.items() if n},
+        "launches_sharded": {k: n for k, n in totals_s.items() if n}}
+    result["ok"] = (losses_s == losses_u and not unequal and ok_u and ok_s
+                    and bool(np.isfinite(losses_u).all()))
+    return result
+
+
+def shard_phase(torch, np, dev, build_model, common, get_config):
+    """The ``shard`` phase: the per-GPU bytes table, then ``shard_serve`` and
+    ``shard_train`` over ``single_device_mesh()`` (a one-rank NCCL process
+    group, destroyed at the end); one line per run, then the phase's
+    seconds (the two runs, not the table) and launches by kernel, which
+    it returns."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import single_device_mesh
+
+    emit({"phase": "shard", "run": "bytes", "host_gpus": 8,
+          "per_gpu": shard_bytes(get_config)})
+    t0 = time.perf_counter()
+    mesh = single_device_mesh()
+    try:
+        results = [shard_serve(torch, np, get_config(ARCH), dev, build_model, common, mesh)]
+        emit({"phase": "shard", "mesh": list(mesh.shape), **results[-1]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(SHARD_TRAIN.arch), num_layers=SHARD_TRAIN.layers)
+        results.append(shard_train(torch, np, cfg, dev, build_model, common, mesh))
+        emit({"phase": "shard", "mesh": list(mesh.shape), **results[-1]})
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    for r in results:
+        if not r["ok"]:
+            raise SmokeFailure(f"shard: the sharded {r['run']} run of {r['arch']} "
+                               "differs from the unsharded one")
+    launches = Counter()
+    for r in results:
+        launches.update(r["launches_sharded"])
+    summary = {"seconds": time.perf_counter() - t0, "launches": dict(launches)}
+    emit({"phase": "shard", "run": "summary", **summary})
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the planner on H100 hosts
 # ---------------------------------------------------------------------------
 
 PLAN_RATE = 0.4  # req/s, the launcher's default target
@@ -2599,6 +2833,10 @@ def run():
         raise SmokeFailure("train_resume: a restored or resumed run is not "
                            "bit-equal to the uninterrupted one, or compression failed")
 
+    # the dense decoders sharded over a (1, 1) NCCL mesh, on a card free of
+    # the resume runs
+    shard = shard_phase(torch, np, dev, build_model, common, get_config)
+
     plan_phase(torch, flash_ops, checks, predicted, steps)
 
     summary = []
@@ -2641,6 +2879,10 @@ def run():
                                           for arch, r in trained.items()
                                           if arch != TRAIN_RUNS[0].arch
                                           and r["launches"].get(name)}
+    # the shard phase's sharded runs (llama-3.1-8b served, qwen2.5-3b trained)
+    for row in summary:
+        if row["name"] in shard["launches"]:
+            row["launches_shard"] = shard["launches"][row["name"]]
     # rwkv6-7b's training run (the wkv6_bwd row's ``launches``)
     chunk_row = next(r for r in summary if r["name"] == "wkv6_chunk")
     chunk_row["launches_train"] = rwkv_train["launches"]["wkv6_chunk"]

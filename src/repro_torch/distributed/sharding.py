@@ -1,0 +1,529 @@
+"""Sharding conventions and helpers, the counterpart of
+``repro.distributed.sharding`` over a torch ``DeviceMesh``.
+
+Axes: ``pod`` (between hosts), ``data`` (the batch, and ZeRO-1 moments),
+``model`` (tensor parallelism).  A spec is a tuple with one entry per
+tensor dim: ``None``, an axis name or a tuple of axis names (the
+reference's ``PartitionSpec`` as a plain tuple, which needs no JAX).
+Each model class says the spec of every weight by the port's parameter
+names (``spec_tree``); this module holds the rules that cross the
+families:
+
+* ``adapt_spec`` / ``fit_spec`` / ``zero_opt_specs``: the reference's
+  rules, on the port's specs (drop absent axes; drop the innermost axis
+  until the product divides the dim; a moment gains ``data`` on its first
+  unsharded dim that divides into the data ways);
+* ``fit_param_specs``: ``fit_spec`` of every weight, except that a head is
+  never split: where ``num_kv_heads`` does not divide into the model ways,
+  the KV projections stay whole on every rank, which uses the KV heads its
+  query heads map to;
+* ``shard_model``: every weight of a dense decoder replaced in place by a
+  ``DTensor`` of its placement (the counterpart of ``tree_shardings``);
+* the Megatron collectives the dense layers call (``copy_to_model``,
+  ``reduce_from_model``, ``gather_from_model``, each autograd-aware) and
+  ``local``, which hands a kernel or a product the plain tensor of this
+  rank's shard; its gradient is marked ``Partial`` over ``data`` (and over
+  ``model`` for a replicated KV projection) until ``reduce_gradients``
+  sums it;
+* the data-parallel and ZeRO-1 pieces of a train step: ``data_rows``,
+  ``data_mean``, ``reduce_gradients``, ``zero_slice``, ``zero_write``,
+  ``zero_moment`` and ``sum_over_model``.
+
+A plain tensor passes through every helper unchanged, so an unsharded
+model runs the same code with no collective.  Importing this module
+touches no device and no process group.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+POD, DATA, MODEL = "pod", "data", "model"
+AXES = (DATA, MODEL)
+
+Spec = Tuple  # of None | str | Tuple[str, ...], one entry per tensor dim
+
+# the attention weights that hold KV heads: whole on every rank where the
+# KV heads do not divide into the model ways
+KV_PROJECTIONS = ("attn.wk", "attn.wv", "attn.bk", "attn.bv")
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: ways} of a ``DeviceMesh``, or of a mapping that already
+    is one (the tests' stand-in for a production mesh)."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _entry(axes) -> Optional[object]:
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+# ---------------------------------------------------------------------------
+# Specs: the reference's rules
+# ---------------------------------------------------------------------------
+
+
+def adapt_spec(spec, mesh) -> Spec:
+    """Drop the axes a spec names that the mesh lacks (a single-host mesh
+    has no ``pod``)."""
+    if spec is None:
+        return ()
+    names = set(axis_sizes(mesh))
+    return tuple(_entry(tuple(a for a in _axes(e) if a in names)) for e in spec)
+
+
+def fit_spec(spec, shape, mesh) -> Spec:
+    """``adapt_spec``, then per dim drop the innermost axis until the
+    product of the axes' ways divides the dim (a batch of 1 cannot shard
+    over ``data``)."""
+    sizes = axis_sizes(mesh)
+    entries = list(adapt_spec(spec, mesh))
+    entries += [None] * (len(shape) - len(entries))
+    fixed = []
+    for dim, e in zip(shape, entries[:len(shape)]):
+        axes = list(_axes(e))
+        while axes and dim % math.prod(sizes[a] for a in axes):
+            axes.pop()
+        fixed.append(_entry(axes))
+    return tuple(fixed)
+
+
+def _zero_dim(spec, shape, data_ways: int) -> Optional[int]:
+    """The dim on which a moment of a weight of ``spec`` and ``shape``
+    gains ``data``: its first unsharded dim that divides into
+    ``data_ways`` and is no smaller."""
+    entries = list(spec) + [None] * (len(shape) - len(tuple(spec)))
+    for i, (e, dim) in enumerate(zip(entries, shape)):
+        if e is None and dim % data_ways == 0 and dim >= data_ways:
+            return i
+    return None
+
+
+def zero_opt_specs(param_specs: Mapping[str, Spec],
+                   param_shapes: Mapping[str, tuple], data_ways: int):
+    """AdamW's moments sharded over ``data`` too (ZeRO-1): each weight's
+    spec with ``data`` on its ``_zero_dim``.  Returns an ``AdamWState`` of
+    specs (``step`` replicated, ``m`` and ``v`` by name)."""
+    from repro_torch.training.optimizer import AdamWState
+
+    def widen(spec, shape):
+        entries = list(spec) + [None] * (len(shape) - len(tuple(spec)))
+        i = _zero_dim(spec, shape, data_ways)
+        if i is not None:
+            entries[i] = DATA
+        return tuple(entries)
+
+    m = {name: widen(spec, tuple(param_shapes[name]))
+         for name, spec in param_specs.items()}
+    return AdamWState(step=(), m=m, v=m)
+
+
+def placements(spec, mesh) -> List:
+    """DTensor placements of a spec: ``Shard(d)`` on each mesh dim that
+    the spec's entry for tensor dim d names, ``Replicate()`` on the rest."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, e in enumerate(spec):
+        for a in _axes(e):
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a ``shape`` tensor of ``spec``."""
+    sizes = axis_sizes(mesh)
+    return tuple(dim // math.prod(sizes[a] for a in _axes(e))
+                 for dim, e in zip(shape, list(spec) + [None] * len(shape)))
+
+
+# ---------------------------------------------------------------------------
+# A model's placement table
+# ---------------------------------------------------------------------------
+
+
+def param_specs(model: nn.Module) -> Dict[str, Spec]:
+    """The spec of every weight of ``model`` by its parameter name, from
+    the model's ``spec_tree()``: a nested dict that mirrors the module
+    tree, with a layer list's index left out (``layers.3.attn.wq`` is
+    ``["layers"]["attn"]["wq"]``)."""
+    tree = model.spec_tree()
+    out = {}
+    for name, p in model.named_parameters():
+        node = tree
+        for part in name.split("."):
+            if not part.isdigit():
+                node = node[part]
+        if not isinstance(node, tuple) or len(node) != p.ndim:
+            raise ValueError(f"{name}: spec {node!r} for a {p.ndim}-dim weight")
+        out[name] = node
+    return out
+
+
+def fit_param_specs(model: nn.Module, mesh) -> Dict[str, Spec]:
+    """``fit_spec`` of every weight's spec at ``mesh``, with one rule of the
+    port's own: a head is never split, so where ``num_kv_heads`` does not
+    divide into the model ways the KV projections (``KV_PROJECTIONS``)
+    are replicated over ``model``.  (The reference's ``fit_spec`` checks
+    only that the dim divides, and would split a KV head.)"""
+    cfg = model.cfg
+    ways = axis_sizes(mesh).get(MODEL, 1)
+    specs = param_specs(model)
+    out = {}
+    for name, p in model.named_parameters():
+        spec = fit_spec(specs[name], tuple(p.shape), mesh)
+        if name.endswith(KV_PROJECTIONS) and cfg.num_kv_heads % ways:
+            spec = (None,) * p.ndim
+        out[name] = spec
+    return out
+
+
+def per_gpu_bytes(model: nn.Module, mesh) -> Dict[str, int]:
+    """Bytes one rank holds of ``model``'s weights (in their dtypes) and of
+    AdamW's two f32 moments under ZeRO-1, from the placement table alone
+    (``mesh`` may be a mapping of axis sizes; a model on the meta device
+    allocates nothing)."""
+    sizes = axis_sizes(mesh)
+    specs = fit_param_specs(model, mesh)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    moments = zero_opt_specs(specs, shapes, sizes.get(DATA, 1)).m
+    weights = moment = 0
+    for name, p in model.named_parameters():
+        weights += math.prod(local_shape(shapes[name], specs[name], sizes)) * p.element_size()
+        moment += 2 * 4 * math.prod(local_shape(shapes[name], moments[name], sizes))
+    return {"weights": weights, "moments": moment}
+
+
+def check_shardable(cfg, mesh) -> None:
+    """Raise unless ``shard_model`` runs ``cfg`` on ``mesh``: a dense decoder
+    without experts, a mesh of ``data`` and ``model`` only, and query heads
+    that split whole into the model ways, each rank's onto whole KV heads
+    or into one."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: sharded execution covers the "
+                                  f"dense decoders; not the {cfg.family} family")
+    sizes = axis_sizes(mesh)
+    if set(sizes) - set(AXES):
+        raise ValueError(f"mesh axes {sorted(sizes)}: sharded execution takes "
+                         f"{AXES} only")
+    ways = sizes.get(MODEL, 1)
+    if cfg.num_heads % ways:
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} query heads do not "
+                         f"split into {ways} model ways (a head is never split)")
+    local, group = cfg.num_heads // ways, cfg.num_heads // cfg.num_kv_heads
+    if local % group and group % local:
+        raise ValueError(f"{cfg.name}: {local} query heads a rank do not map "
+                         f"onto whole KV heads of {group} query heads")
+
+
+@torch.no_grad()
+def shard_model(model: nn.Module, mesh) -> nn.Module:
+    """Replace every weight of ``model`` in place by a ``DTensor`` on
+    ``mesh`` of its placement (``fit_param_specs``), whose local tensor is
+    this rank's contiguous shard of the weight it replaces.  Every rank
+    must hold the same weights.  Returns the model."""
+    check_shardable(model.cfg, mesh)
+    specs = fit_param_specs(model, mesh)
+    for name, p in list(model.named_parameters()):
+        if isinstance(p, DTensor):
+            raise ValueError(f"{name} is sharded already")
+        place = placements(specs[name], mesh)
+        shard = p.detach()
+        for i, pl in enumerate(place):
+            if pl.is_shard():
+                size = shard.shape[pl.dim] // mesh.size(i)
+                shard = shard.narrow(pl.dim, mesh.get_local_rank(i) * size, size)
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        module.register_parameter(leaf, nn.Parameter(
+            DTensor.from_local(shard.contiguous(), mesh, place, run_check=False),
+            requires_grad=p.requires_grad))
+    return model
+
+
+def model_mesh(model: nn.Module):
+    """The mesh of a model that ``shard_model`` sharded, else None."""
+    p = next(model.parameters())
+    return p.device_mesh if isinstance(p, DTensor) else None
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the collectives of the dense layers
+# ---------------------------------------------------------------------------
+
+
+_AVG, _SUM = Partial("avg"), Partial("sum")
+
+
+class ModelShard(NamedTuple):
+    group: object  # the ``model`` axis's process group
+    ways: int
+    rank: int  # this rank's coordinate along ``model``
+
+
+def _axis(mesh, name: str):
+    """(mesh dim, group, ways, this rank's coordinate) of axis ``name``, or
+    None where the mesh lacks it.  Kept on the mesh: the layers ask for it
+    several times a layer and every call."""
+    axes = mesh.__dict__.setdefault("_axes_by_name", {})
+    if name not in axes:
+        names = list(mesh.mesh_dim_names)
+        i = names.index(name) if name in names else None
+        axes[name] = None if i is None else (
+            i, mesh.get_group(i), mesh.size(i), mesh.get_coordinate()[i])
+    return axes[name]
+
+
+def model_shard(w) -> Optional[ModelShard]:
+    """The ``model`` axis over which the DTensor ``w`` is sharded, or None
+    for a plain tensor or one replicated over ``model``."""
+    if not isinstance(w, DTensor):
+        return None
+    axis = _axis(w.device_mesh, MODEL)
+    if axis is None or not w.placements[axis[0]].is_shard():
+        return None
+    return ModelShard(*axis[1:])
+
+
+def local(w, *, partial_over_model: bool = False) -> torch.Tensor:
+    """This rank's shard of ``w`` as a plain tensor (``w`` itself where it
+    is one).  Its gradient reaches ``w.grad`` marked ``Partial`` over
+    ``data`` (each data rank's gradient comes from its own rows) and, with
+    ``partial_over_model``, over ``model`` too (a replicated weight of
+    which each model rank uses a part); ``reduce_gradients`` sums them."""
+    if not isinstance(w, DTensor):
+        return w
+    if not torch.is_grad_enabled():
+        return w.to_local()
+    grads = [pl if pl.is_shard()
+             else _AVG if name == DATA
+             else _SUM if partial_over_model else pl
+             for name, pl in zip(w.device_mesh.mesh_dim_names, w.placements)]
+    return w.to_local(grad_placements=grads)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``model`` (Megatron's f,
+    at the input of a column-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial sums of a row-parallel product summed over ``model`` in
+    place; the gradient passes through (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        dist.all_reduce(y, group=group)
+        ctx.mark_dirty(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The last dim's shards gathered over ``model``; the gradient's own
+    shard goes back."""
+
+    @staticmethod
+    def forward(ctx, y, group, ways, rank):
+        ctx.ways, ctx.rank = ways, rank
+        parts = [torch.empty_like(y) for _ in range(ways)]
+        dist.all_gather(parts, y.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.ways, dim=-1)[ctx.rank].contiguous(), None, None, None
+
+
+def copy_to_model(x: torch.Tensor, w) -> torch.Tensor:
+    """``x`` entering a product with ``w``'s column shard: unchanged, and
+    its gradient summed over ``model`` where ``w`` is sharded over it."""
+    tp = model_shard(w) if torch.is_grad_enabled() else None
+    if tp is None:
+        return x
+    return _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(y: torch.Tensor, w) -> torch.Tensor:
+    """``y``, a partial sum of a product with ``w``'s row shard, summed
+    over ``model`` (in place) where ``w`` is sharded over it."""
+    tp = model_shard(w)
+    if tp is None:
+        return y
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _ReduceFromModel.apply(y, tp.group)
+    dist.all_reduce(y, group=tp.group)
+    return y
+
+
+def gather_from_model(y: torch.Tensor, w) -> torch.Tensor:
+    """``y``'s last dim, this rank's part of a product with ``w``'s row
+    shard (the vocabulary of the LM head), gathered over ``model``."""
+    tp = model_shard(w)
+    if tp is None:
+        return y
+    return _GatherFromModel.apply(y, tp.group, tp.ways, tp.rank)
+
+
+def attention_heads(p, cfg) -> Tuple[int, Optional[int]]:
+    """(KV heads this rank holds, first KV head of a replicated projection
+    or None) of an attention group ``p``: every KV head unsharded, its
+    ``num_kv_heads / ways`` where ``wk`` is sharded over ``model``, else the
+    one KV head its query heads map to (``h // G``)."""
+    tp = model_shard(p["wq"])
+    if tp is None:
+        return cfg.num_kv_heads, None
+    if model_shard(p["wk"]) is not None:
+        return cfg.num_kv_heads // tp.ways, None
+    group = cfg.num_heads // cfg.num_kv_heads
+    return 1, tp.rank * (cfg.num_heads // tp.ways) // group
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism and ZeRO-1
+# ---------------------------------------------------------------------------
+
+
+def data_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This data rank's consecutive rows of a batch tensor."""
+    axis = _axis(mesh, DATA)
+    if axis is None:
+        return t
+    _, _, ways, rank = axis
+    if t.shape[0] % ways:
+        raise ValueError(f"{t.shape[0]} rows do not split into {ways} data ways")
+    return t.chunk(ways)[rank]
+
+
+def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over the data ranks."""
+    axis = _axis(mesh, DATA)
+    if axis is None:
+        return x
+    _, group, ways, _ = axis
+    x = x.detach().clone()
+    dist.all_reduce(x, group=group)
+    return x / ways
+
+
+@torch.no_grad()
+def reduce_gradients(params) -> None:
+    """Sum each DTensor weight's gradient over the mesh dims on which
+    ``local`` marked it ``Partial`` (dividing an average by the ways), and
+    leave it with its weight's placements."""
+    for p in params:
+        g = p.grad
+        if not isinstance(g, DTensor):
+            continue
+        t = g.to_local().contiguous()
+        mesh = g.device_mesh
+        for i, pl in enumerate(g.placements):
+            if pl.is_partial():
+                dist.all_reduce(t, group=mesh.get_group(i))
+                if pl.reduce_op == "avg":
+                    t.div_(mesh.size(i))
+        p.grad = DTensor.from_local(t, mesh, p.placements, run_check=False)
+
+
+def _sharded_dims(t: DTensor):
+    return {pl.dim for pl in t.placements if pl.is_shard()}
+
+
+def _zero(t: DTensor):
+    """(tensor dim, group, ways, rank) of the ZeRO-1 slice of a weight (or
+    of its gradient, which has its placements) over ``data``, or None."""
+    axis = _axis(t.device_mesh, DATA)
+    if axis is None:
+        return None
+    _, group, ways, rank = axis
+    spec = [DATA if d in _sharded_dims(t) else None for d in range(t.ndim)]
+    dim = _zero_dim(spec, tuple(t.shape), ways)
+    return None if dim is None else (dim, group, ways, rank)
+
+
+def zero_slice(t) -> torch.Tensor:
+    """The part of a weight or gradient that this rank's moments cover: a
+    view of its local shard's slice over ``data`` (the whole of a plain
+    tensor, or of a weight without a ZeRO dim)."""
+    if not isinstance(t, DTensor):
+        return t
+    shard = t.to_local()
+    z = _zero(t)
+    if z is None:
+        return shard
+    dim, _, ways, rank = z
+    return shard.chunk(ways, dim=dim)[rank]
+
+
+@torch.no_grad()
+def zero_write(p, new: torch.Tensor) -> None:
+    """Write ``new``, the updated ``zero_slice(p)``, into the weight ``p``
+    in its dtype: gathered over ``data`` into the local shard."""
+    if not isinstance(p, DTensor):
+        p.copy_(new)
+        return
+    shard = p.to_local()
+    z = _zero(p)
+    if z is None:
+        shard.copy_(new)
+        return
+    dim, group, ways, _ = z
+    new = new.to(shard.dtype).contiguous()
+    parts = [torch.empty_like(new) for _ in range(ways)]
+    dist.all_gather(parts, new, group=group)
+    shard.copy_(torch.cat(parts, dim=dim))
+
+
+def zero_moment(p: DTensor) -> DTensor:
+    """A zero f32 moment of the DTensor weight ``p`` with the ZeRO-1
+    placements: ``p``'s, plus ``Shard`` over ``data`` on its ZeRO dim."""
+    local_zeros = torch.zeros(zero_slice(p).shape, dtype=torch.float32,
+                              device=p.device)
+    place = list(p.placements)
+    z = _zero(p)
+    if z is not None:
+        place[list(p.device_mesh.mesh_dim_names).index(DATA)] = Shard(z[0])
+    return DTensor.from_local(local_zeros, p.device_mesh, place, run_check=False)
+
+
+def sum_over_model(values: torch.Tensor, tensors) -> torch.Tensor:
+    """``values[i]``, a sum over the local shard of ``tensors[i]``, summed
+    over ``model`` where that tensor is sharded over it; the entries of
+    tensors replicated over ``model`` are counted once."""
+    shards = [model_shard(t) for t in tensors]
+    first = next((s for s in shards if s is not None), None)
+    if first is None:
+        return values
+    mask = torch.tensor([s is not None for s in shards], device=values.device)
+    summed = values * mask
+    dist.all_reduce(summed, group=first.group)
+    return torch.where(mask, summed, values)
+

@@ -39,7 +39,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (attention_block_decode,
+from repro_torch.distributed.sharding import MODEL
+from repro_torch.models.layers import (ATTENTION_SPECS, MLP_SPECS, NORM_SPEC,
+                                       VOCAB_SPEC, attention_block_decode,
                                        attention_block_prefill,
                                        bidirectional_attention,
                                        decode_attention, embed_lookup,
@@ -48,7 +50,13 @@ from repro_torch.models.layers import (attention_block_decode,
                                        rms_norm)
 from repro_torch.models.transformer import (CACHE_DTYPE, EncoderLayer, _param,
                                             attention_params, dense_mlp,
-                                            init_like_reference)
+                                            init_like_reference, layer_specs)
+
+# the reference's placements of ``dec_layer_defs``' weights
+DEC_LAYER_SPECS = {"ln1": NORM_SPEC, "self_attn": ATTENTION_SPECS,
+                   "ln_x": NORM_SPEC, "wq_x": (None, MODEL),
+                   "wk_x": (None, MODEL), "wv_x": (None, MODEL),
+                   "wo_x": (MODEL, None), "ln2": NORM_SPEC, "mlp": MLP_SPECS}
 
 
 class EncDecLayer(nn.Module):
@@ -144,6 +152,12 @@ class EncDecLM(nn.Module):
         """Seeded weights by the reference's rules (``init_like_reference``)."""
         init_like_reference(self, generator)
         return self
+
+    def spec_tree(self) -> dict:
+        """The reference's placements by the port's names."""
+        return {"embed": VOCAB_SPEC, "enc_layers": layer_specs(self.cfg),
+                "enc_norm": NORM_SPEC, "dec_layers": DEC_LAYER_SPECS,
+                "final_norm": NORM_SPEC, "lm_head": VOCAB_SPEC}
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()

@@ -53,11 +53,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (ACC_DTYPE, attention_block_decode,
+from repro_torch.distributed.sharding import MODEL
+from repro_torch.models.layers import (ACC_DTYPE, ATTENTION_SPECS, MLP_SPECS,
+                                       NORM_SPEC, attention_block_decode,
                                        attention_block_prefill, embed_lookup,
                                        matmul, mlp_block, model_logits,
                                        model_loss, remat, rms_norm)
-from repro_torch.models.rwkv import ParamDef, _param, instantiate_all, model_defs
+from repro_torch.models.rwkv import (MODEL_SPECS, ParamDef, _param,
+                                     instantiate_all, model_defs)
 from repro_torch.models.transformer import CACHE_DTYPE
 
 SSM_CHUNK = 128
@@ -85,6 +88,13 @@ def mamba_defs(cfg: ArchConfig) -> dict:
         "d_skip": ParamDef((h,), "ones"),
         "w_out": ParamDef((h, d)),
     }
+
+
+# the reference's placements of ``mamba_defs``' weights
+MAMBA_SPECS = {"w_in": (None, MODEL), "conv_w": (MODEL, None),
+               "w_xdbc": (MODEL, None), "w_dt": (None, MODEL),
+               "dt_bias": (MODEL,), "a_log": (MODEL, None), "d_skip": (MODEL,),
+               "w_out": (MODEL, None)}
 
 
 def _ssm_inputs(p, x: torch.Tensor, n: int):
@@ -348,6 +358,14 @@ class HymbaLM(nn.Module):
         for layer in self.layers:
             instantiate_all(layer, layer_defs, generator)
         return self
+
+    def spec_tree(self) -> dict:
+        """The reference's placements by the port's names: every layer's, a
+        full-attention singleton's or a window run's, are the same."""
+        layer = {"ln1": NORM_SPEC, "attn": ATTENTION_SPECS,
+                 "mamba": MAMBA_SPECS, "fuse_na": NORM_SPEC,
+                 "fuse_ns": NORM_SPEC, "ln2": NORM_SPEC, "mlp": MLP_SPECS}
+        return {**MODEL_SPECS, "layers": layer}
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()

@@ -20,6 +20,17 @@ compare the two, passes it.
 
 Training shares two helpers: ``remat`` runs a layer under
 ``torch.utils.checkpoint`` and ``model_loss`` ends a decoder's loss.
+
+Tensor parallelism (``distributed.sharding.shard_model``) makes the dense
+decoder's weights DTensors; the functions here then follow the Megatron
+pattern and hand every product and kernel plain local tensors of whole
+heads: ``attention_qkv`` and ``mlp_block`` multiply by column shards, the
+attention kernels run on the local heads, ``wo`` and ``w_down`` give
+partial sums that are summed over ``model``, the vocab-sharded
+``embed_lookup`` zeroes the tokens outside its rows and sums, and
+``lm_head_logits`` gathers the logits' vocabulary.  A plain weight takes
+none of these steps.  ``ATTENTION_SPECS``, ``MLP_SPECS``, ``NORM_SPEC`` and
+``VOCAB_SPEC`` are the reference's placements of these weights.
 """
 from __future__ import annotations
 
@@ -29,12 +40,26 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (MODEL, attention_heads,
+                                             copy_to_model, gather_from_model,
+                                             local, model_shard,
+                                             reduce_from_model)
 from repro_torch.kernels.decode_attention import (decode_attention_op,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_op,
                                                  flash_attention_ref)
 
 ACC_DTYPE = torch.float32
+
+# the reference's ParamDef specs (``attention_defs``, ``mlp_defs``, the
+# norms and the vocab-sharded tables), by the port's names
+NORM_SPEC = (None,)
+VOCAB_SPEC = (MODEL, None)
+ATTENTION_SPECS = {"wq": (None, MODEL), "wk": (None, MODEL),
+                   "wv": (None, MODEL), "wo": (MODEL, None),
+                   "bq": (MODEL,), "bk": (MODEL,), "bv": (MODEL,)}
+MLP_SPECS = {"w_gate": (None, MODEL), "w_up": (None, MODEL),
+             "w_down": (MODEL, None)}
 
 
 # ---------------------------------------------------------------------------
@@ -47,7 +72,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.to(ACC_DTYPE)
     var = xf.square().mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
-    return (normed * (1.0 + scale.to(ACC_DTYPE))).to(x.dtype)
+    return (normed * (1.0 + local(scale).to(ACC_DTYPE))).to(x.dtype)
 
 
 def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -69,7 +94,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, table)
+    """Rows ``tokens`` of ``table``.  A table sharded over ``model`` by rows
+    gives zeros for the tokens outside its rows, summed over ``model``."""
+    tp = model_shard(table)
+    if tp is None:
+        return F.embedding(tokens, local(table))
+    rows = local(table)
+    idx = tokens - tp.rank * rows.shape[0]
+    outside = (idx < 0) | (idx >= rows.shape[0])
+    x = F.embedding(idx.clamp(0, rows.shape[0] - 1), rows)
+    return reduce_from_model(x.masked_fill(outside[..., None], 0), table)
 
 
 class _F32Logits(torch.autograd.Function):
@@ -97,7 +131,12 @@ def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
     """f32 logits of x against the (V_padded, d) table (possibly tied).
 
     Padded vocab rows (table rows >= valid_vocab) are masked to -1e30.
+    A table sharded over ``model`` by rows gives its rows' logits, gathered
+    over ``model``.
     """
+    sharded = table
+    x = copy_to_model(x, sharded)
+    table = local(sharded)
     if x.dtype == ACC_DTYPE and table.dtype == ACC_DTYPE:
         logits = torch.matmul(x, table.t())
     elif x.is_cuda and x.dtype == table.dtype:
@@ -108,7 +147,8 @@ def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
         logits = logits.reshape(*x.shape[:-1], table.shape[0])
     else:
         logits = torch.matmul(x.to(ACC_DTYPE), table.to(ACC_DTYPE).t())
-    if valid_vocab is not None and valid_vocab < table.shape[0]:
+    logits = gather_from_model(logits, sharded)
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         logits[..., valid_vocab:] = -1e30
     return logits
 
@@ -234,18 +274,27 @@ def full_lengths(cache: torch.Tensor) -> torch.Tensor:
 
 def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,KV,D), rope applied."""
+    """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,KV,D), rope applied.
+
+    With ``wq`` sharded over ``model``, H and KV are this rank's heads
+    (``sharding.attention_heads``): a replicated KV projection gives only
+    the columns of the KV head its query heads map to."""
     B, S, _ = x.shape
-    q = matmul(x, p["wq"])
-    k = matmul(x, p["wk"])
-    v = matmul(x, p["wv"])
+    D = cfg.head_dim
+    x = copy_to_model(x, p["wq"])
+    kv_heads, first = attention_heads(p, cfg)
+    cols = slice(None) if first is None else slice(first * D, (first + 1) * D)
+    replicated = first is not None
+    q = matmul(x, local(p["wq"]))
+    k = matmul(x, local(p["wk"], partial_over_model=replicated)[:, cols])
+    v = matmul(x, local(p["wv"], partial_over_model=replicated)[:, cols])
     if "bq" in p:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        q = q + local(p["bq"])
+        k = k + local(p["bk"], partial_over_model=replicated)[cols]
+        v = v + local(p["bv"], partial_over_model=replicated)[cols]
+    q = q.reshape(B, S, -1, D)
+    k = k.reshape(B, S, kv_heads, D)
+    v = v.reshape(B, S, kv_heads, D)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -262,8 +311,8 @@ def attention_block_prefill(p, x: torch.Tensor, cfg, *, window: int = 0,
     positions = torch.arange(S, device=x.device)
     q, k, v = attention_qkv(p, x, positions, cfg)
     out = causal_flash_attention(q, k, v, window=window, plain=plain)
-    out = matmul(out.reshape(B, S, cfg.q_dim), p["wo"])
-    return out, (k.transpose(1, 2), v.transpose(1, 2))
+    out = matmul(out.reshape(B, S, -1), local(p["wo"]))
+    return reduce_from_model(out, p["wo"]), (k.transpose(1, 2), v.transpose(1, 2))
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
@@ -306,8 +355,8 @@ def attention_block_decode(p, x: torch.Tensor, kv_cache, pos, cfg, *,
     write_kv(v_cache, v.transpose(1, 2), write_idx)
     cache_len = torch.where(active, (pos + 1).clamp(max=Smax), 0)
     out = decode_attention(q[:, 0], k_cache, v_cache, cache_len, plain=plain)
-    out = matmul(out.reshape(B, cfg.q_dim), p["wo"])
-    return out, (k_cache, v_cache)
+    out = matmul(out.reshape(B, -1), local(p["wo"]))
+    return reduce_from_model(out, p["wo"]), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +365,10 @@ def attention_block_decode(p, x: torch.Tensor, kv_cache, pos, cfg, *,
 
 
 def mlp_block(p, x: torch.Tensor, activation: str) -> torch.Tensor:
+    x = copy_to_model(x, p["w_up"])
     if "w_gate" in p:
-        h = activate(matmul(x, p["w_gate"]), activation) * matmul(x, p["w_up"])
+        h = (activate(matmul(x, local(p["w_gate"])), activation)
+             * matmul(x, local(p["w_up"])))
     else:
-        h = activate(matmul(x, p["w_up"]), activation)
-    return matmul(h, p["w_down"])
+        h = activate(matmul(x, local(p["w_up"])), activation)
+    return reduce_from_model(matmul(h, local(p["w_down"])), p["w_down"])

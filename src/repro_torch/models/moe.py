@@ -29,7 +29,13 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import MODEL
 from repro_torch.models.layers import ACC_DTYPE, activate, matmul
+
+# the reference's ``moe_defs`` placements: the experts' f over ``model``,
+# the router whole
+MOE_SPECS = {"router": (None, None), "w_gate": (None, None, MODEL),
+             "w_up": (None, None, MODEL), "w_down": (None, MODEL, None)}
 
 
 def moe_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:

@@ -40,9 +40,11 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
-from repro_torch.models.layers import (ACC_DTYPE, activate, embed_lookup,
-                                       matmul, model_logits, model_loss,
-                                       remat, rms_norm)
+from repro_torch.distributed.sharding import MODEL
+from repro_torch.models.layers import (ACC_DTYPE, NORM_SPEC, VOCAB_SPEC,
+                                       activate, embed_lookup, matmul,
+                                       model_logits, model_loss, remat,
+                                       rms_norm)
 
 LORA_R = 64  # decay lora rank
 DDLERP_R = 32  # data-dependent lerp rank
@@ -91,6 +93,24 @@ def rwkv_layer_defs(cfg: ArchConfig) -> dict:
             "wr": ParamDef((d, d)),
         },
     }
+
+
+# the reference's placements of ``rwkv_layer_defs``' weights
+LAYER_SPECS = {
+    "ln1": NORM_SPEC,
+    "tm": {"mu_x": (None,), "mu": (None, None), "ddl_w1": (None, None),
+           "ddl_w2": (None, None, None), "wr": (None, MODEL),
+           "wk": (None, MODEL), "wv": (None, MODEL), "wg": (None, MODEL),
+           "wo": (MODEL, None), "w0": (MODEL,), "w_lora1": (None, None),
+           "w_lora2": (None, MODEL), "u": (MODEL,), "gn_scale": (MODEL,),
+           "gn_bias": (MODEL,)},
+    "ln2": NORM_SPEC,
+    "cm": {"mu_k": (None,), "mu_r": (None,), "wk": (None, MODEL),
+           "wv": (MODEL, None), "wr": (None, None)},
+}
+# ``model_defs``' placements (hymba's embed, final_norm and lm_head too)
+MODEL_SPECS = {"embed": VOCAB_SPEC, "final_norm": NORM_SPEC,
+               "lm_head": VOCAB_SPEC}
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -326,6 +346,10 @@ class RWKVLM(nn.Module):
         for layer in self.layers:
             instantiate_all(layer, layer_defs, generator)
         return self
+
+    def spec_tree(self) -> dict:
+        """The reference's placements by the port's names."""
+        return {**MODEL_SPECS, "layers": LAYER_SPECS}
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()

@@ -44,12 +44,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (attention_block_decode,
+from repro_torch.distributed.sharding import attention_heads
+from repro_torch.models.layers import (ATTENTION_SPECS, MLP_SPECS, NORM_SPEC,
+                                       VOCAB_SPEC, attention_block_decode,
                                        attention_block_prefill, attention_qkv,
                                        bidirectional_attention, embed_lookup,
                                        matmul, mlp_block, model_logits,
                                        model_loss, remat, rms_norm)
-from repro_torch.models.moe import moe_block, moe_shapes
+from repro_torch.models.moe import MOE_SPECS, moe_block, moe_shapes
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -129,6 +131,12 @@ def dense_mlp(cfg: ArchConfig, device, dtype) -> nn.ParameterDict:
                              for k, s in shapes.items()})
 
 
+def layer_specs(cfg: ArchConfig) -> dict:
+    """The placements of a ``_Block``'s weights (``decoder_layer_defs``)."""
+    return {"ln1": NORM_SPEC, "ln2": NORM_SPEC, "attn": ATTENTION_SPECS,
+            "mlp": MOE_SPECS if cfg.is_moe else MLP_SPECS}
+
+
 class _Block(nn.Module):
     """One layer's weights, named as the reference names them: ``ln1``,
     ``attn`` (wq, wk, wv, wo and the optional biases), ``ln2``, ``mlp``
@@ -184,13 +192,14 @@ class DenseLM(nn.Module):
     and ``repro_torch.bridge.load_reference_params`` copies them from the
     reference's parameter tree.  Setting ``plain_kernels`` to True runs
     the plain PyTorch versions of the attention kernels (for comparisons
-    only).
+    only).  On the meta device (``device="meta"``) the weights are shapes
+    alone, for placement tables (``distributed.sharding.per_gpu_bytes``).
     """
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        dev = resolve_device(device)
+        dev = torch.device("meta") if device == "meta" else resolve_device(device)
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
@@ -206,6 +215,12 @@ class DenseLM(nn.Module):
         """Seeded weights by the reference's rules (``init_like_reference``)."""
         init_like_reference(self, generator)
         return self
+
+    def spec_tree(self) -> dict:
+        """The reference's placements (``dense_lm_defs``) by the port's
+        names (``distributed.sharding.param_specs``)."""
+        return {"embed": VOCAB_SPEC, "lm_head": VOCAB_SPEC,
+                "final_norm": NORM_SPEC, "layers": layer_specs(self.cfg)}
 
     # -- model-facing helpers --
     def _embed_in(self, tokens):
@@ -263,8 +278,12 @@ class DenseLM(nn.Module):
         return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
+        """(k, v), each (L, batch, KV, max_len, D) bf16 zeros; KV is this
+        rank's KV heads in a sharded model (the reference's "heads"
+        layout)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        kv_heads, _ = attention_heads(self.layers[0].attn, cfg)
+        shape = (cfg.num_layers, batch, kv_heads, max_len, cfg.head_dim)
         return (torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
                 torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE))
 
@@ -308,6 +327,11 @@ class EncoderLM(nn.Module):
         """Seeded weights by the reference's rules (``init_like_reference``)."""
         init_like_reference(self, generator)
         return self
+
+    def spec_tree(self) -> dict:
+        """The reference's placements (``make_encoder``'s defs)."""
+        return {"embed": VOCAB_SPEC, "final_norm": NORM_SPEC,
+                "layers": layer_specs(self.cfg)}
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()

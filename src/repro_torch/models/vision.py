@@ -38,13 +38,21 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (bidirectional_attention,
+from repro_torch.distributed.sharding import MODEL
+from repro_torch.models.layers import (MLP_SPECS, NORM_SPEC, VOCAB_SPEC,
+                                       bidirectional_attention,
                                        decode_attention, embed_lookup,
                                        full_lengths, matmul, mlp_block,
                                        model_logits, model_loss, remat,
                                        rms_norm)
 from repro_torch.models.transformer import (CACHE_DTYPE, DecoderLayer, _param,
-                                            dense_mlp, init_like_reference)
+                                            dense_mlp, init_like_reference,
+                                            layer_specs)
+
+# the reference's placements of ``cross_layer_defs``' weights
+CROSS_SPECS = {"ln": NORM_SPEC, "wq": (None, MODEL), "wk": (None, MODEL),
+               "wv": (None, MODEL), "wo": (MODEL, None), "gate": (),
+               "ln_mlp": NORM_SPEC, "mlp": MLP_SPECS, "gate_mlp": ()}
 
 
 class CrossLayer(nn.Module):
@@ -139,6 +147,12 @@ class VisionLM(nn.Module):
         """Seeded weights by the reference's rules (``init_like_reference``)."""
         init_like_reference(self, generator)
         return self
+
+    def spec_tree(self) -> dict:
+        """The reference's placements by the port's names."""
+        return {"embed": VOCAB_SPEC, "final_norm": NORM_SPEC,
+                "lm_head": VOCAB_SPEC, "self_layers": layer_specs(self.cfg),
+                "cross_layers": CROSS_SPECS}
 
     def _groups(self):
         """(self layers, cross layer) of each group, in order."""

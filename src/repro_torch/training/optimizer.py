@@ -8,6 +8,13 @@ bias correction and decoupled weight decay; each weight is written back in
 its own dtype.  Unlike the reference, whose update returns new trees, the
 port updates the weights and the moments in place, so that a step holds
 no second copy of either.
+
+A model sharded by ``distributed.sharding.shard_model`` takes the same
+steps on DTensors: its moments are sharded over ``data`` too (ZeRO-1),
+each data rank updates its slice of every weight (``zero_slice``) and
+gathers the new weight over ``data`` (``zero_write``), and the global norm
+counts every element once (``sum_over_model``).  A plain tensor passes
+through those helpers unchanged.
 """
 from __future__ import annotations
 
@@ -15,6 +22,11 @@ from dataclasses import dataclass
 from typing import Dict, Iterable, Mapping, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (local, sum_over_model,
+                                              zero_moment, zero_slice,
+                                              zero_write)
 
 
 class AdamWState(NamedTuple):
@@ -34,22 +46,30 @@ class AdamWConfig:
     warmup_steps: int = 100
 
 
+def _zeros(p: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, DTensor):
+        return zero_moment(p)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init_state(params: Mapping[str, torch.Tensor]) -> AdamWState:
-    """Zero moments in f32 beside each weight, and step 0."""
+    """Zero moments in f32 beside each weight (with the ZeRO-1 placements
+    of a DTensor weight), and step 0."""
     device = next(iter(params.values())).device
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        m={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for n, p in params.items()},
-        v={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for n, p in params.items()})
+        m={n: _zeros(p) for n, p in params.items()},
+        v={n: _zeros(p) for n, p in params.items()})
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (a 0-dim tensor
-    on the tensors' device; no host sync)."""
-    sq = [t.float().square().sum() for t in tensors]
-    return torch.stack(sq).sum().sqrt()
+    on the tensors' device; no host sync).  A DTensor's local shard counts,
+    summed over ``model`` where it is sharded over it, so every element
+    counts once on every rank."""
+    tensors = list(tensors)
+    sq = torch.stack([local(t).float().square().sum() for t in tensors])
+    return sum_over_model(sq, tensors).sum().sqrt()
 
 
 @torch.no_grad()
@@ -68,11 +88,11 @@ def apply_updates(params: Mapping[str, torch.Tensor],
     bc1 = 1 - torch.tensor(cfg.b1, device=t.device) ** t
     bc2 = 1 - torch.tensor(cfg.b2, device=t.device) ** t
     for name, p in params.items():
-        g = grads[name].float() * scale
-        m, v = state.m[name], state.v[name]
+        g = zero_slice(grads[name]).float() * scale
+        m, v = local(state.m[name]), local(state.v[name])
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
-        p32 = p.float()
+        p32 = zero_slice(p).float()
         delta = (m / bc1) / ((v / bc2).sqrt() + cfg.eps) + cfg.weight_decay * p32
-        p.copy_(p32 - lr * delta)
+        zero_write(p, p32 - lr * delta)
     return AdamWState(step=step, m=state.m, v=state.v)

@@ -9,6 +9,8 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.compression import compress_one, init_error
+from repro_torch.distributed.sharding import (data_mean, data_rows,
+                                              model_mesh, reduce_gradients)
 from repro_torch.models.transformer import make_microbatched_loss
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             apply_updates)
@@ -30,7 +32,17 @@ def make_train_step(model: nn.Module, opt_cfg: AdamWConfig = AdamWConfig(),
     With ``compress``, the gradients go through int8 compression with
     error feedback before the update, as the reference's launcher does
     (``distributed.compression``, one weight at a time); the f32 error
-    lives in this closure from zeros, and no checkpoint holds it."""
+    lives in this closure from zeros, and no checkpoint holds it.
+
+    A model sharded by ``distributed.sharding.shard_model`` takes the same
+    batch on every rank: each data rank runs its own rows, the gradients
+    are averaged over ``data`` (and a replicated KV projection's summed
+    over ``model``) before the update, and the loss is the mean over the
+    data ranks."""
+    mesh = model_mesh(model)
+    if compress and mesh is not None:
+        raise NotImplementedError("int8 compression of a sharded model's "
+                                  "gradients is not ported")
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     loss_fn = make_microbatched_loss(model.forward_loss, num_microbatches)
@@ -44,7 +56,12 @@ def make_train_step(model: nn.Module, opt_cfg: AdamWConfig = AdamWConfig(),
         for p in params.values():
             p.grad = None
         tensors = {name: to_device(a) for name, a in batch.items()}
+        if mesh is not None:
+            tensors = {name: data_rows(t, mesh) for name, t in tensors.items()}
         loss = loss_fn(tensors)
+        if mesh is not None:
+            reduce_gradients(params.values())
+            loss = data_mean(loss, mesh)
         if error is not None:
             with torch.no_grad():
                 for n, p in params.items():

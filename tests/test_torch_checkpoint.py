@@ -20,23 +20,11 @@ from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, SyntheticCorpus
 from repro_torch.training.optimizer import AdamWConfig, init_state
 from repro_torch.training.train_loop import make_train_step
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CFG = reduced_config(get_config("qwen2.5-3b"))
 OPT = AdamWConfig(lr=1e-3, warmup_steps=2)
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Torch's intra-op pool cut to one thread: these small models' steps
-    issue thousands of tiny operations, and while the suite's other
-    workers hold every core each one's hand-off to the pool costs more
-    than its work."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _model(seed):

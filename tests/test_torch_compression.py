@@ -23,6 +23,7 @@ from repro_torch.launch.train import main as train_main
 from repro_torch.models import build_model
 from repro_torch.training import optimizer as opt
 from repro_torch.training.train_loop import make_train_step
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SHAPES = [(1,), (255,), (256,), (1000,), (64, 64)]
 DTYPES = ["float32", "bfloat16"]
@@ -30,19 +31,6 @@ DTYPES = ["float32", "bfloat16"]
 # number of compression blocks
 WIDE = 1024
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Torch's intra-op pool cut to one thread: these small models' steps
-    issue thousands of tiny operations, and while the suite's other
-    workers hold every core each one's hand-off to the pool costs more
-    than its work."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _inputs(shape, dtype, seed, zero_block=False):

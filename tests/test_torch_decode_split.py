@@ -21,6 +21,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 H100_SMS = 132  # the card the planner is sized for

@@ -35,6 +35,7 @@ from repro_torch.models import build_model
 from repro_torch.models.encdec import EncDecLayer, EncDecLM
 from repro_torch.models.transformer import EncoderLayer
 from repro_torch.serving.engine import ServingEngine, _merge_slot
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ARCH = "seamless-m4t-large-v2"
 TOL = 1e-4

@@ -25,6 +25,7 @@ from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import build_model
 from repro_torch.models.transformer import EncoderLayer, EncoderLM
 from repro_torch.serving.engine import ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 ENCODERS = ["e5-base-v2", "reranker-minilm"]

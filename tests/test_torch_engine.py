@@ -20,6 +20,7 @@ from repro_torch.bridge import load_reference_params
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import build_model
 from repro_torch.serving.engine import ServeRequest, ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # Both engines keep KV in bf16.  Where the f32 k/v of the two sides (equal
 # to ~1e-7) straddle a bf16 rounding boundary, one cache element rounds one

@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_lse_ref,
                                                      flash_attention_ref)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 # (B, Sq, Sk, H, KV, D, window, causal): G of 1, 4 and 8, D of 32, 64 and

@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_ref, flash_attention_bwd_split_ref,
     flash_attention_fwd_lse_ref)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:

@@ -52,6 +52,7 @@ from repro_torch.models import hymba as hymba_module
 from repro_torch.models.hymba import (HymbaLM, layer_groups, mamba_decode,
                                       mamba_prefill)
 from repro_torch.serving.engine import ServeRequest, ServingEngine, _merge_slot
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ARCH = "hymba-1.5b"
 LAYOUT = dict(num_layers=6, full_attn_layers=(0, 3), d_model=80, num_heads=5,

@@ -14,6 +14,7 @@ from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DenseLM
 from repro_torch.models.vision import VisionLM
 from repro_torch.serving.engine import ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
@@ -51,7 +52,7 @@ def test_scan_finds_the_port():
             "profiler.py", "tile_plan.py", "hymba.py", "vision.py",
             "encdec.py", "optimizer.py", "train_loop.py", "train.py",
             "data.py", "checkpoint.py", "compression.py",
-            "fault_tolerance.py", "registry.py",
+            "fault_tolerance.py", "registry.py", "sharding.py", "mesh.py",
             "train_model_torch.py"} <= names
 
 

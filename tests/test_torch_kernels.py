@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rwkv6_scan import kernel_for, wkv6_op, wkv6_scan_ref
 from repro_torch.kernels.tile_plan import tile_plan
 from repro_torch.models import layers as TL
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

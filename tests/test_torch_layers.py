@@ -11,6 +11,7 @@ from repro.configs.registry import reduced_config as jax_reduced_config
 from repro.models import layers as JL
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import layers as TL
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 

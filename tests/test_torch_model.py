@@ -19,6 +19,7 @@ from repro.models import build_model as jax_build_model
 from repro_torch.bridge import load_reference_params
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import build_model
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]

@@ -30,6 +30,7 @@ from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import build_model
 from repro_torch.models import moe
 from repro_torch.models.transformer import DenseLM
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}

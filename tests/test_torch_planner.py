@@ -49,6 +49,7 @@ from repro_torch.workflows.map_reduce import MAP_REDUCE
 from repro_torch.workflows.rag_reranker import RAG_RERANKER
 from repro_torch.workflows.react_agent import REACT_AGENT
 from repro_torch.workflows.session import RECURSIVE_AGENT, SESSION_CHAT
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 REL = 1e-9

@@ -39,6 +39,7 @@ from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
 from repro_torch.models import build_model
 from repro_torch.models.rwkv import RWKVLM
 from repro_torch.serving.engine import ServeRequest, ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ARCH = "rwkv6-7b"
 CHUNKED_TOL = 1e-4

@@ -35,6 +35,7 @@ from repro_torch.models.layers import cross_entropy_from_logits
 from repro_torch.models.transformer import make_microbatched_loss
 from repro_torch.training import optimizer as opt
 from repro_torch.training.train_loop import make_train_step
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-4

@@ -45,6 +45,7 @@ from repro_torch.models import build_model
 from repro_torch.models.transformer import make_microbatched_loss
 from repro_torch.training import optimizer as opt
 from repro_torch.training.train_loop import make_train_step
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 # arch -> (reduced_config arguments, fields replaced after it)

@@ -35,6 +35,7 @@ from repro_torch.launch.serve_model import generate
 from repro_torch.models import build_model
 from repro_torch.models.vision import CrossLayer, VisionLM
 from repro_torch.serving.engine import ServingEngine, _merge_slot
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ARCH = "llama-3.2-vision-11b"
 TOL = 1e-4

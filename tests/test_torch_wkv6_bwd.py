@@ -32,6 +32,7 @@ from repro_torch.kernels.rwkv6_scan import (WKV6Fn, wkv6_bwd_chunk_ref, wkv6_bwd
                                             wkv6_bwd_ref, wkv6_op, wkv6_scan_ref)
 from repro_torch.kernels.rwkv6_scan import ops as wkv6_ops
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_chunk_states
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate")
 TOL = {torch.float64: 1e-6, torch.float32: 2e-5}
@@ -164,20 +165,6 @@ def test_chunk_walks_match_the_token_states():
     _close(dstate, ds, 1e-12, "dstate")
     assert float(dstates[:, :, -1].abs().max()) == 0.0
 
-
-@pytest.fixture
-def one_thread():
-    """Torch's intra-op pool cut to one thread for one test.  The plain
-    backward's token loops issue thousands of small operations, and while
-    the suite's other workers hold every core, each operation's hand-off
-    to the pool costs more than its work: S = 512 took about a minute on
-    the default pool and under a second on one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def test_chunked_dlogw_is_resolved_at_strong_decays(one_thread):

@@ -26,6 +26,7 @@ from repro_torch.kernels import common
 from repro_torch.kernels.rwkv6_scan import (kernel_for, wkv6_chunk_ref,
                                             wkv6_op, wkv6_scan_ref)
 from repro_torch.kernels.rwkv6_scan.ref import CHUNK, LOG2E
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

@@ -1,0 +1,143 @@
+"""The ranks of ``tests/test_torch_sharding.py``'s sharded runs: processes
+of one gloo group on the CPU that run a sharded ``DenseLM`` on every case
+and return numpy results.  It imports no JAX: the parent bridges the
+reference's weights and hands them over as numpy arrays.
+
+Each case is a dict: ``key``, ``mesh`` (data, model), ``cfg``, ``params``
+(the reference's tree with numpy leaves), ``batch`` (tokens and labels),
+``prompts`` (B, S) and ``decode`` (steps, B) tokens, and ``requests`` (the
+engine's prompts).  ``run_case`` computes the same results for an
+unsharded model when it is given no mesh.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+OPT = dict(lr=1e-3, warmup_steps=2)
+STEPS = 3
+MICROBATCHES = 2
+CACHE_LEN = 32
+MAX_NEW = 6
+
+
+def _full(t) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    return t.detach().float().numpy().copy()
+
+
+def _model(case, mesh):
+    from repro_torch.bridge import load_reference_params
+    from repro_torch.distributed.sharding import shard_model
+    from repro_torch.models.transformer import DenseLM
+
+    model = DenseLM(case["cfg"], device="cpu", dtype=torch.float32)
+    load_reference_params(model, case["params"])
+    return model if mesh is None else shard_model(model, mesh)
+
+
+def start_weights(case) -> dict:
+    """The case's weights by the port's names, before any step."""
+    return {n: _full(p) for n, p in _model(case, None).named_parameters()}
+
+
+def run_case(case, mesh=None) -> dict:
+    """Loss and gradients, STEPS train steps, prefill and decode logits and
+    the engine's tokens of one case, on ``mesh`` or unsharded."""
+    from repro_torch.distributed.sharding import (data_mean, data_rows,
+                                                  reduce_gradients)
+    from repro_torch.serving.engine import (ServeRequest, ServingEngine,
+                                            _merge_slot)
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    out = {}
+    batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+
+    # one loss and backward, each data rank on its own rows
+    model = _model(case, mesh)
+    model.requires_grad_(True)
+    rows = batch if mesh is None else {k: data_rows(v, mesh) for k, v in batch.items()}
+    loss = model.forward_loss(**rows)
+    loss.backward()
+    if mesh is not None:
+        reduce_gradients(model.parameters())
+        loss = data_mean(loss, mesh)
+    out["loss"] = float(loss)
+    out["grads"] = {n: _full(p.grad) for n, p in model.named_parameters()}
+
+    # STEPS train steps in MICROBATCHES microbatches
+    model = _model(case, mesh)
+    params = dict(model.named_parameters())
+    step = make_train_step(model, AdamWConfig(**OPT), num_microbatches=MICROBATCHES)
+    state = init_state(params)
+    out["losses"] = []
+    for _ in range(STEPS):
+        state, metrics = step(state, batch)
+        out["losses"].append(float(metrics["loss"]))
+    out["weights"] = {n: _full(p) for n, p in params.items()}
+    out["m"] = {n: _full(t) for n, t in state.m.items()}
+    out["v"] = {n: _full(t) for n, t in state.v.items()}
+    out["numel"] = {n: (p.to_local().numel() if mesh is not None else p.numel(),
+                        state.m[n].to_local().numel() if mesh is not None
+                        else state.m[n].numel()) for n, p in params.items()}
+
+    # a prefill of the prompts, then decode steps over a longer cache
+    model = _model(case, mesh)
+    prompts = torch.as_tensor(case["prompts"])
+    logits, small = model.prefill(prompts)
+    cache = model.init_cache(prompts.shape[0], CACHE_LEN)
+    for b in range(prompts.shape[0]):
+        _merge_slot(cache, tuple(t[:, b:b + 1] for t in small), b)
+    seq = [logits]
+    for i, tokens in enumerate(case["decode"]):
+        logits, cache = model.decode_step(cache, tokens, prompts.shape[1] + i)
+        seq.append(logits)
+    out["serve_logits"] = torch.stack(seq).float().numpy()
+    out["cache_heads"] = cache[0].shape[2]
+
+    engine = ServingEngine(model, device="cpu", slots=len(case["requests"]),
+                           max_len=CACHE_LEN)
+    for i, prompt in enumerate(case["requests"]):
+        engine.submit(ServeRequest(i, prompt, max_new_tokens=MAX_NEW))
+    out["tokens"] = {r.req_id: list(r.generated) for r in engine.run_to_completion()}
+    return out
+
+
+def _recording(fn, seen):
+    def wrapper(*args, **kwargs):
+        seen.update(type(a).__name__ for a in args if isinstance(a, torch.Tensor))
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def rank_main(rank: int, world: int, store_path: str, cases, queue) -> None:
+    """One rank: a gloo group over a ``FileStore``, then every case on its
+    own mesh; puts (rank, {key: results}) or (rank, the error) on
+    ``queue``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                                rank=rank, world_size=world)
+        # every tensor handed to a kernel wrapper, by type
+        seen = set()
+        layers.flash_attention_op = _recording(layers.flash_attention_op, seen)
+        layers.decode_attention_op = _recording(layers.decode_attention_op, seen)
+        results = {}
+        for case in cases:
+            mesh = make_mesh(case["mesh"], ("data", "model"), device_type="cpu")
+            results[case["key"]] = run_case(case, mesh)
+            results[case["key"]]["kernel_input_types"] = sorted(seen)
+        dist.destroy_process_group()
+        queue.put((rank, results))
+    except Exception:  # reported to the parent, which fails the tests
+        queue.put((rank, traceback.format_exc()))
