@@ -156,13 +156,29 @@ WKV6 backward kernel), and prints one JSON object per phase:
    with ZeRO-1 moments from the same seed, which must be bit-equal in
    every loss, weight and moment, with exactly ``train_launches`` in every
    step;
-14. ``plan``: Scepsy's planner
+14. ``dryrun``: the dry-run's counts (``launch.dryrun.count_step``, the
+   meta device under a fake process group, in a process of its own
+   started after the build) held to the card over the ``shard`` phase's
+   (1, 1) mesh: qwen2.5-3b's train step of TRAIN_RUNS[0] (8 x 2048 tokens,
+   4 microbatches) must call each kernel exactly as often as the card
+   launches it in each of 3 measured steps (288 flash forwards, 144
+   backwards) and count a peak within 10% of ``max_memory_allocated``;
+   the counted FLOPs over the best step time as TFLOP/s and a share of
+   989, beside the ``nvidia-smi`` line; llama-3.1-8b's prefill of 1000
+   tokens, the same call equality; then the production cell qwen2.5-3b
+   ``train_4k`` at ``gpu32x8`` (256 GPUs) counted: its per-GPU peak and
+   collective bytes;
+15. ``plan``: Scepsy's planner
    (``repro_torch.core.scepsy.deploy``) plans beam_search and rag_reranker
    at 0.4 req/s on one 8-GPU H100 host and on four, each plan printed with
    its allocations, predicted latency and throughput and its placement,
    which must validate, keep every TP group inside one NVLink domain and
    fit every model in the h100 class's HBM (itself within the card's
-   memory); the host's Hopper tile plan of every flash shape the kernel
+   memory); ``deploy_multi(online=True)`` of both on four hosts, its
+   controller stepped over arrivals at the planned rate and then at 2.5x
+   beam_search's (at least one feasible re-plan), and one traced
+   ``ClusterDriver`` run of rag_reranker (every request completed, its
+   spans counted); the host's Hopper tile plan of every flash shape the kernel
    checks ran against the plan the kernel library reports (``flash_attention_plan``)
    with the card's SM count; and the cost model's decode-step and prefill
    times (h100, tp=1) at the llama, rwkv, olmoe and hymba engine phases'
@@ -518,24 +534,6 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def wkv6_chunk_work(B, S, H, D):
-    """Tensor-core operations and exponentials of the chunked WKV6 form for
-    this call's tokens (the last chunk's padding not counted), per
-    ``csrc/wkv6_chunk.cu``: per (b, h) and chunk of C tokens, the
-    inter-chunk (C x D x D) product, the 6 off-diagonal (16 x 16 x D)
-    sub-chunk products, A v over the 10 sub-chunk blocks at or below the
-    diagonal, and the (D x C x D) state update, each once (the kernel
-    takes three bf16 products for each, its operands split into two or
-    three bf16 parts, which are not counted); the exponentials are those of the decayed operands and the
-    diagonal sub-chunks' pairs, once per head (the two column blocks of a
-    head share them)."""
-    C, SUB = 64, 16
-    chunks = B * H * S / C
-    ops = 2.0 * D * (C * D + 6 * SUB * SUB + 10 * SUB * SUB + C * D) * chunks
-    exps = D * (2 * C + (C - SUB) + 6 * SUB + 4 * SUB * (SUB - 1) // 2)
-    return ops, exps * chunks
-
-
 # logw = -exp(N(mean, 0.5)) per decay: the model's mild decays (~-0.4 per
 # token), strong ones (~-7, as published RWKV6 weights have, where
 # exp(-cum) over a chunk overflows f32) and slow ones (~-0.02, where tokens
@@ -555,6 +553,7 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
     Beside TOL, each output row and each state row is held to ROW_REL_TOL
     against the plain version run on the same inputs in f32 (no output
     rounding)."""
+    from repro_torch.analysis.op_stats import wkv6_chunk_work
     from repro_torch.kernels.rwkv6_scan import wkv6_scan_ref
 
     dt = getattr(torch, dtype)
@@ -630,31 +629,6 @@ def check_wkv6(torch, ops_mod, dev, gen, B, S, H, D, dtype, split=0,
     return result
 
 
-def wkv6_bwd_work(B, S, H, D):
-    """Operations and bytes of the WKV6 backward for this call's tokens
-    (the last chunk's padding not counted): (the chunked form's products,
-    the token-by-token form's f32 operations, the function's bytes).
-
-    The products, per ``csrc/wkv6_bwd.cu``, per (b, h) and chunk of C
-    tokens, each once and before its bf16 parts: the two walks' (D x C x
-    D) state updates, the three inter-chunk (C x D x D) products (dO S0^T,
-    v dSe^T, k decayed by dSe), and over the 10 sub-chunk blocks at or
-    below the diagonal dA, A and A^T dO, over the 6 below it dr's dA kq
-    and dk's dA^T rE (16 x 16 x D each).  The token-by-token form takes 12
-    D^2 f32 operations per token and head (the state rebuilt, 3; dr~, 2;
-    dS carried, 3; dk~ and dv, 2 each).  Bytes: r, k, v, dO (bf16), logw,
-    u and the state read, dr, dk, dv (bf16), dlogw, du and the state's
-    gradient written, each once; the kernel's scratch of chunk states is
-    its own cost, not the function's."""
-    C, SUB = 64, 16
-    chunks = B * H * S / C
-    blocks = SUB * SUB * D
-    products = 2.0 * (5 * C * D * D + 3 * 10 * blocks + 2 * 6 * blocks) * chunks
-    f32_ops = 12.0 * B * H * S * D * D
-    nbytes = B * H * S * D * (4 * 2 + 4 + 3 * 2 + 4) + 2 * 4 * (B * H * D * D + H * D)
-    return products, f32_ops, nbytes
-
-
 def check_wkv6_bwd(torch, ops_mod, dev, gen, B, S, H, D, decay="mild"):
     """The WKV6 backward kernel against its plain version: bf16 r, k, v
     and dO as (B, S, H, D) projections seen as (B, H, S, D), as the model
@@ -673,6 +647,7 @@ def check_wkv6_bwd(torch, ops_mod, dev, gen, B, S, H, D, decay="mild"):
     (``wkv6_bwd_work``) is the larger of the function's bytes and the
     chunked form's products at the bf16 tensor-core rate; the token-by-
     token form's f32 operations at the f32 rate are reported beside it."""
+    from repro_torch.analysis.op_stats import wkv6_bwd_work
     from repro_torch.kernels.rwkv6_scan import wkv6_bwd_chunk_ref, wkv6_bwd_ref
 
     dt = torch.bfloat16
@@ -1683,79 +1658,6 @@ PARITY_LAYERS = 2
 PARITY_ROWS = 2
 
 
-def train_launches(cfg, microbatches: int = 1) -> dict:
-    """Kernel launches of one loss and backward over ``microbatches``
-    microbatches, by kernel, nothing else: per layer and microbatch, the
-    forward kernel twice (the forward and the checkpoint's recompute) and
-    the backward once; rwkv6-7b's WKV6 kernels (the chunked forward: bf16
-    prompts of 2048 tokens), every other family's flash kernels, once per
-    attention call: one per layer, plus the VLM's cross layers, plus
-    seamless's encoder and cross-attention."""
-    if cfg.family == "ssm":
-        return {"wkv6_chunk": 2 * cfg.num_layers * microbatches,
-                "wkv6_bwd": cfg.num_layers * microbatches}
-    calls = cfg.num_layers
-    if cfg.family == "vlm":
-        calls += cfg.num_layers // cfg.cross_attn_every
-    elif cfg.family == "audio":
-        calls = cfg.encoder_layers + 2 * cfg.num_layers
-    return {"flash_attention": 2 * calls * microbatches,
-            "flash_attention_bwd": calls * microbatches}
-
-
-def attention_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
-    """Unmasked (query, key) pairs of one row and head: causal S(S+1)/2,
-    a window of W over S, or non-causal Sq x Sk."""
-    if not causal:
-        return sq * sk
-    if 0 < window < sq:
-        return window * (window + 1) // 2 + (sq - window) * window
-    return sq * (sq + 1) // 2
-
-
-def train_flops(model, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step of ``batch`` rows of ``seq`` tokens
-    (the recompute not counted): 6 per weight and token it multiplies (the
-    enc-dec's encoder and its cross K/V projections over the frames, the
-    VLM's cross K/V projections over the image embeddings, every other
-    weight over the tokens; an embedding table that is not also the LM head
-    is a lookup and counts none), and 3 x 4 D per unmasked (query, key)
-    pair and head of every attention call (forward, and a backward of twice
-    its products), by ``attention_pairs``; rwkv6-7b has no pairs, and its
-    WKV6 3 x 4 D^2 per token, head and layer (the forward's r S and state
-    update, a backward of twice that)."""
-    cfg = model.cfg
-    ctx = {"vlm": cfg.num_image_tokens, "audio": cfg.num_audio_frames}.get(cfg.family, 0)
-    lookup = cfg.family == "encoder" or getattr(model, "lm_head", None) is not None
-    weights = 0.0
-    for name, p in model.named_parameters():
-        if name == "embed" and lookup:
-            continue
-        leaf = name.rsplit(".", 1)[-1]
-        over_ctx = (name.startswith("enc_layers.") or leaf in ("wk_x", "wv_x")
-                    or (name.startswith("cross_layers.") and leaf in ("wk", "wv")))
-        weights += p.numel() * (ctx if over_ctx else seq)
-    causal = attention_pairs(seq, seq, True)
-    L = cfg.num_layers
-    if cfg.family == "encoder":
-        pairs = L * attention_pairs(seq, seq, False)
-    elif cfg.family == "hybrid":
-        full = sum(i < L for i in cfg.full_attn_layers)
-        pairs = full * causal + (L - full) * attention_pairs(seq, seq, True,
-                                                             cfg.sliding_window)
-    elif cfg.family == "vlm":
-        pairs = L * causal + (L // cfg.cross_attn_every) * attention_pairs(seq, ctx, False)
-    elif cfg.family == "audio":
-        pairs = (cfg.encoder_layers * attention_pairs(ctx, ctx, False)
-                 + L * (causal + attention_pairs(seq, ctx, False)))
-    elif cfg.family == "ssm":
-        return (6.0 * weights * batch
-                + 12.0 * cfg.head_dim ** 2 * cfg.num_heads * L * batch * seq)
-    else:
-        pairs = L * causal
-    return 6.0 * weights * batch + 12.0 * cfg.head_dim * cfg.num_heads * batch * pairs
-
-
 def parity_config(cfg):
     """``cfg`` at full width and PARITY_LAYERS layers (the VLM: one group,
     its self layers and a cross layer; the enc-dec: PARITY_LAYERS encoder
@@ -1800,6 +1702,7 @@ def train_run(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     TRAIN_LOSS_RATIO of the first 5's, and, in every step, exactly the
     launches of ``train_launches``.  An extra step is profiled
     (``device_breakdown``)."""
+    from repro_torch.analysis.op_stats import train_flops, train_launches
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import (AdamWConfig, global_norm,
                                                 init_state)
@@ -1893,6 +1796,7 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     noise, is held as the loss is: within TOL of the plain bf16 run's.
     The kernel run launches exactly ``train_launches``, the plain runs
     nothing."""
+    from repro_torch.analysis.op_stats import train_launches
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import AdamWConfig, init_state
     from repro_torch.training.train_loop import make_train_step
@@ -1963,6 +1867,7 @@ def grad_run(torch, np, cfg, dev, build_model, common):
     of FULL_GRADS' rows x seq tokens (over seeded image embeddings for the
     VLM), bf16 weights and gradients, no optimiser state.  ``ok`` needs a
     finite loss and gradient norm and exactly ``train_launches``."""
+    from repro_torch.analysis.op_stats import train_launches
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import global_norm
 
@@ -2081,6 +1986,7 @@ def resume_phase(torch, np, cfg, dev, build_model, common):
     losses finite, and ``compress_tree`` of the largest gradient (the tied
     embedding's) with a seeded error bit-equal on the card and on the
     CPU."""
+    from repro_torch.analysis.op_stats import train_launches
     import shutil
     import tempfile
 
@@ -2345,6 +2251,7 @@ def shard_train(torch, np, cfg, dev, build_model, common, mesh):
     ZeRO-1 moments (S).  ``ok`` needs S's losses, weights, moments and step
     bit-equal to U's, and exactly ``train_launches`` in every step of
     both."""
+    from repro_torch.analysis.op_stats import train_launches
     from repro_torch.distributed.sharding import local, shard_model
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import AdamWConfig, init_state
@@ -2401,20 +2308,14 @@ def shard_train(torch, np, cfg, dev, build_model, common, mesh):
     return result
 
 
-def shard_phase(torch, np, dev, build_model, common, get_config):
+def shard_phase(torch, np, dev, build_model, common, get_config, mesh):
     """The ``shard`` phase: the per-GPU bytes table, then ``shard_serve`` and
-    ``shard_train`` over ``single_device_mesh()`` (a one-rank NCCL process
-    group, destroyed at the end); one line per run, then the phase's
-    seconds (the two runs, not the table) and launches by kernel, which
-    it returns."""
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import single_device_mesh
-
+    ``shard_train`` over ``mesh``, ``single_device_mesh()`` (a one-rank NCCL
+    process group); one line per run, then the phase's seconds (the two
+    runs, not the table) and launches by kernel, which it returns."""
     emit({"phase": "shard", "run": "bytes", "host_gpus": 8,
           "per_gpu": shard_bytes(get_config)})
     t0 = time.perf_counter()
-    mesh = single_device_mesh()
     try:
         results = [shard_serve(torch, np, get_config(ARCH), dev, build_model, common, mesh)]
         emit({"phase": "shard", "mesh": list(mesh.shape), **results[-1]})
@@ -2424,7 +2325,6 @@ def shard_phase(torch, np, dev, build_model, common, get_config):
         results.append(shard_train(torch, np, cfg, dev, build_model, common, mesh))
         emit({"phase": "shard", "mesh": list(mesh.shape), **results[-1]})
     finally:
-        dist.destroy_process_group()
         gc.collect()
         torch.cuda.empty_cache()
     for r in results:
@@ -2440,7 +2340,215 @@ def shard_phase(torch, np, dev, build_model, common, get_config):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the planner on H100 hosts
+# phase 14: the dry-run's counts held to the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_PREFILL = 1000  # llama-3.1-8b's prompt tokens in the dryrun phase
+DRYRUN_PEAK_TOL = 0.10  # the counted peak against max_memory_allocated
+DRYRUN_STEPS = 3  # measured train steps, after one warm-up step
+DRYRUN_CELL = ("qwen2.5-3b", "train_4k", "gpu32x8")
+DRYRUN_COUNTS = ROOT / "build" / "dryrun" / "chip_counts.json"
+DRYRUN_WAIT_S = 600  # the most the phase waits for the counting process
+
+# the processes the script starts, stopped at its end (``main``)
+CHILDREN = []
+
+
+def dryrun_counts():
+    """The dry-run's counts (``launch.dryrun.count_step`` on the meta
+    device) of the phase's two steps on the (1, 1) mesh of a one-rank fake
+    process group, qwen2.5-3b's train step at TRAIN_RUNS[0]'s shape and
+    llama-3.1-8b's prefill of one DRYRUN_PREFILL-token prompt, then
+    DRYRUN_CELL's record (``launch.dryrun.run_cell``, 256 fake ranks),
+    written to DRYRUN_COUNTS.  It runs in a process of its own on the host
+    (``start_dryrun_counts``), beside the card's phases: it computes
+    nothing on the card, and a fake process group cannot share the
+    process with the card's NCCL group."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import AXES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    spec = TRAIN_RUNS[0]
+    out = {}
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), AXES, device_type="cpu")
+        for run, cfg, shape, mb in (
+                ("train", get_config(spec.arch),
+                 InputShape("chip_train", spec.seq, spec.batch, "train"),
+                 spec.microbatches),
+                ("prefill", get_config(ARCH),
+                 InputShape("chip_prefill", DRYRUN_PREFILL, 1, "prefill"), None)):
+            t0 = time.perf_counter()
+            out[run] = dryrun.count_step(cfg, shape, mesh, num_microbatches=mb)
+            out[run]["count_s"] = time.perf_counter() - t0
+            del out[run]["trace"]
+    out["cell"] = dryrun.run_cell(*DRYRUN_CELL, out_dir=DRYRUN_COUNTS.parent, force=True)
+    DRYRUN_COUNTS.write_text(json.dumps(out))
+
+
+def start_dryrun_counts():
+    """``dryrun_counts`` in a spawned process (no CUDA state inherited),
+    started now and joined by the ``dryrun`` phase."""
+    import multiprocessing
+
+    DRYRUN_COUNTS.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_COUNTS.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(target=dryrun_counts)
+    proc.start()
+    CHILDREN.append(proc)
+    return proc
+
+
+def dryrun_card(torch, np, dev, build_model, common, get_config, mesh):
+    """The same two steps on the card, sharded over ``mesh``: qwen2.5-3b
+    from SEED, one warm-up step on SyntheticCorpus, then DRYRUN_STEPS steps
+    with the peak memory reset before the first (the previous step's
+    gradients dropped first, as the step itself drops them) and the launch
+    counts set to 0 before each step and read after it; then llama-3.1-8b's
+    prefill of a seeded prompt, its counts read the same way."""
+    from repro_torch.distributed.sharding import shard_model
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    spec = TRAIN_RUNS[0]
+    cfg = get_config(spec.arch)
+    model = shard_model(seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16), mesh)
+    params = dict(model.named_parameters())
+    step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP),
+                              num_microbatches=spec.microbatches)
+    state = init_state(params)
+    data = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, spec.batch, seed=SEED))
+    state, _ = step_fn(state, data.batch_at(0))
+    for p in params.values():
+        p.grad = None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, launches, losses = [], [], []
+    for step in range(1, DRYRUN_STEPS + 1):
+        batch = data.batch_at(step)
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        launches.append({k: n for k, n in common.launch_counts.items() if n})
+    train = {"step_ms": ms, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+             "launches": launches, "losses": losses}
+    del model, params, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(ARCH)
+    model = shard_model(seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16), mesh)
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(1, DRYRUN_PREFILL))
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    logits, _ = model.prefill(prompt)
+    torch.cuda.synchronize()
+    prefill = {"launches": {k: n for k, n in common.launch_counts.items() if n},
+               "finite": bool(torch.isfinite(logits).all())}
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train, prefill
+
+
+def dryrun_phase(torch, np, dev, build_model, common, get_config, counting, mesh):
+    """The ``dryrun`` phase: the dry-run's counts held to the card.  The
+    qwen2.5-3b train step counted on the meta device must call each kernel
+    exactly as often as the card launches it in every measured step (288
+    flash forwards and 144 backwards, ``train_launches``), and its counted
+    peak must lie within DRYRUN_PEAK_TOL of ``max_memory_allocated``; the
+    counted FLOPs over the measured step time are printed as TFLOP/s and as
+    a share of 989.  llama-3.1-8b's prefill: the same call equality.  Then
+    one production cell (DRYRUN_CELL, 256 GPUs under a fake process group)
+    counted on the meta device: its per-GPU peak and collective bytes.  The
+    counts come from ``counting`` (``start_dryrun_counts``); the card runs
+    over ``mesh``.  Returns the card runs' launches."""
+    from repro_torch.analysis.op_stats import train_launches
+
+    t0 = time.perf_counter()
+    counting.join(DRYRUN_WAIT_S)
+    if counting.exitcode != 0 or not DRYRUN_COUNTS.exists():
+        raise SmokeFailure(f"dryrun: the counting process ended with "
+                           f"{counting.exitcode}")
+    counted = json.loads(DRYRUN_COUNTS.read_text())
+    cell = counted["cell"]
+    waited_s = time.perf_counter() - t0
+    card, card_prefill = dryrun_card(torch, np, dev, build_model, common,
+                                     get_config, mesh)
+    smi = nvidia_smi_line()
+    spec = TRAIN_RUNS[0]
+    stats, mem = counted["train"]["op_stats"], counted["train"]["memory"]
+    calls = {k: v["calls"] for k, v in stats["kernels"].items()}
+    want = train_launches(get_config(spec.arch), spec.microbatches)
+    peak = card["max_memory_allocated_bytes"]
+    best_s = min(card["step_ms"]) / 1e3
+    train = {
+        "phase": "dryrun", "run": "train", "arch": spec.arch, "mesh": [1, 1],
+        "batch": spec.batch, "seq": spec.seq, "microbatches": spec.microbatches,
+        "count_s": counted["train"]["count_s"], "counted_calls": calls,
+        "card_launches": card["launches"], "train_launches": want,
+        "counted_memory": mem, "counted_peak_bytes": mem["peak_bytes"],
+        "max_memory_allocated_bytes": peak,
+        "peak_rel_err": (mem["peak_bytes"] - peak) / peak, "peak_tol": DRYRUN_PEAK_TOL,
+        "counted_flops": stats["total_flops"], "counted_aten_flops": stats["flops"],
+        "counted_kernel_flops": stats["kernel_flops"], "counted_bytes": stats["total_bytes"],
+        "counted_collectives": stats["collectives"],
+        "step_ms": card["step_ms"], "losses": card["losses"], "waited_s": waited_s,
+        "tflops_per_s": stats["total_flops"] / best_s * 1e-12,
+        "share_of_989": stats["total_flops"] / best_s / PEAK_OPS["bfloat16"],
+        "nvidia_smi": smi}
+    train["ok"] = (all(launches == calls for launches in card["launches"])
+                   and calls == want and abs(train["peak_rel_err"]) <= DRYRUN_PEAK_TOL
+                   and bool(np.isfinite(card["losses"]).all()))
+    emit(train)
+    p_calls = {k: v["calls"] for k, v in counted["prefill"]["op_stats"]["kernels"].items()}
+    prefill = {"phase": "dryrun", "run": "prefill", "arch": ARCH, "mesh": [1, 1],
+               "tokens": DRYRUN_PREFILL, "count_s": counted["prefill"]["count_s"],
+               "counted_calls": p_calls, "card_launches": card_prefill["launches"],
+               "counted_memory": counted["prefill"]["memory"],
+               "counted_flops": counted["prefill"]["op_stats"]["total_flops"],
+               "finite": card_prefill["finite"]}
+    prefill["ok"] = p_calls == card_prefill["launches"] and card_prefill["finite"]
+    emit(prefill)
+    row = {"phase": "dryrun", "run": "cell", "arch": cell["arch"], "shape": cell["shape"],
+           "mesh": cell["mesh"], "status": cell["status"]}
+    if cell["status"] == "ok":
+        row.update({"num_devices": cell["num_devices"], "count_s": cell["count_s"],
+                    "microbatches": cell["microbatches"],
+                    "per_gpu_peak_gb": cell["memory"]["peak_bytes"] / 1e9,
+                    "per_gpu_collective_gb": cell["collectives"]["total_bytes"] / 1e9,
+                    "collectives": cell["collectives"],
+                    "per_gpu_tflop": cell["op_stats"]["total_flops"] / 1e12,
+                    "per_gpu_gb_moved": cell["op_stats"]["total_bytes"] / 1e9,
+                    "memory": cell["memory"]})
+    else:
+        row["error"] = cell.get("error", cell.get("reason"))
+    emit(row)
+    for r in (train, prefill):
+        if not r["ok"]:
+            raise SmokeFailure(f"dryrun: the counted {r['run']} of {r['arch']} "
+                               "differs from the card")
+    if cell["status"] != "ok":
+        raise SmokeFailure(f"dryrun: the {'/'.join(DRYRUN_CELL)} cell is {cell['status']}")
+    return {"flash_attention": card["launches"][0].get("flash_attention", 0)
+            + card_prefill["launches"].get("flash_attention", 0),
+            "flash_attention_bwd": card["launches"][0].get("flash_attention_bwd", 0)}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the planner on H100 hosts
 # ---------------------------------------------------------------------------
 
 PLAN_RATE = 0.4  # req/s, the launcher's default target
@@ -2503,6 +2611,66 @@ def plan_deploys(torch):
                             and hw.H100.hbm_bytes <= card_bytes)
             results.append(result)
     return results
+
+
+PLAN_ONLINE_REQUESTS = 40  # the traced ClusterDriver run's requests
+
+
+def plan_online():
+    """``deploy_multi(online=True)`` of beam_search and rag_reranker at
+    PLAN_RATE each on ``H100_CLUSTER_32``; its controller stepped after
+    arrivals at the planned rate, then at 2.5x beam_search's (its re-plans
+    counted); then one ``ClusterDriver`` run of rag_reranker on its share
+    with a ``Tracer`` installed (the spans counted)."""
+    import math
+
+    from repro_torch import hw
+    from repro_torch.core.scepsy import deploy_multi
+    from repro_torch.obs import Tracer, install_tracer
+    from repro_torch.serving.deploy import routers_from_allocations
+    from repro_torch.serving.simulator import EventLoop
+    from repro_torch.workflows.beam_search import BEAM_SEARCH
+    from repro_torch.workflows.rag_reranker import RAG_RERANKER
+    from repro_torch.workflows.runtime import ClusterDriver
+
+    t0 = time.perf_counter()
+    lams = {wf.name: PLAN_RATE for wf in (BEAM_SEARCH, RAG_RERANKER)}
+    dep = deploy_multi([BEAM_SEARCH, RAG_RERANKER], hw.H100_CLUSTER_32, lams,
+                       online=True, n_trace_requests=10, max_profile_groups=8,
+                       seed=SEED)
+    ctrl = dep.controller
+    plan_s = time.perf_counter() - t0
+    t, actions = 0.0, []
+    for factor, n in ((1.0, 100), (2.5, 400)):
+        for _ in range(n):
+            ctrl.monitor.record_arrival(BEAM_SEARCH.name, t)
+            t += 1.0 / (PLAN_RATE * factor)
+        act = ctrl.step()
+        actions.append(None if act is None else
+                       {"rung": act.rung, "reason": act.reason, "feasible": act.feasible,
+                        "lam_targets": act.lam_targets})
+    replans = [h.rung for h in ctrl.history]
+
+    loop = EventLoop()
+    allocs = dep.schedule.per_workflow[RAG_RERANKER.name].allocations
+    drv = ClusterDriver(RAG_RERANKER, routers_from_allocations(RAG_RERANKER, allocs, loop), loop)
+    tracer = Tracer(sample_per_workflow=16, seed=SEED)
+    install_tracer(tracer, drivers=[drv])
+    drv.schedule_open_loop(PLAN_RATE, PLAN_ONLINE_REQUESTS, seed=SEED, arrival_seed=SEED + 100)
+    loop.run(math.inf)
+    export = tracer.export()
+    traces = export["traces"]
+    spans = {"traces": len(traces), "phases": sum(len(tr["phases"]) for tr in traces),
+             "calls": sum(len(tr["calls"]) for tr in traces)}
+    result = {"phase": "plan", "online": True, "workflows": sorted(lams),
+              "gpus": hw.H100_CLUSTER_32.num_chips, "plan_s": plan_s,
+              "actions": actions, "replans": len(replans), "rungs": replans,
+              "lam_targets": ctrl.lam_targets,
+              "traced_requests": PLAN_ONLINE_REQUESTS, "completed": drv.n_completed,
+              "spans": spans, "exposition_lines": len(export["exposition"].splitlines())}
+    result["ok"] = (bool(replans) and all(a is None or a["feasible"] for a in actions)
+                    and drv.n_completed == PLAN_ONLINE_REQUESTS and spans["calls"] > 0)
+    return result
 
 
 def plan_tiles(torch, flash_ops, checks):
@@ -2578,6 +2746,10 @@ def plan_phase(torch, flash_ops, checks, engine_results, steps):
         if not result["ok"]:
             raise SmokeFailure(f"plan of {result['workflow']} on "
                                f"{result['gpus']} GPUs failed its checks")
+    result = plan_online()
+    emit(result)
+    if not result["ok"]:
+        raise SmokeFailure("the online deploy or the traced run failed its checks")
     result = plan_tiles(torch, flash_ops, checks)
     emit(result)
     if not result["ok"]:
@@ -2618,6 +2790,7 @@ def run():
                              "ptxas": ptxas_summary(r["ptxas"])}
                       for name, r in reports.items()},
           "cached": sorted(set(common.KERNELS) - set(reports))})
+    counting = start_dryrun_counts()
     for name in common.KERNELS:
         result = sass_counts(common, name)
         emit(result)
@@ -2834,8 +3007,20 @@ def run():
                            "bit-equal to the uninterrupted one, or compression failed")
 
     # the dense decoders sharded over a (1, 1) NCCL mesh, on a card free of
-    # the resume runs
-    shard = shard_phase(torch, np, dev, build_model, common, get_config)
+    # the resume runs; then, over the same mesh on a card free of the shard
+    # runs, the dry-run's counts against the card (one NCCL group a process:
+    # torch's meshes do not survive its destruction and a new one)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import single_device_mesh
+
+    mesh = single_device_mesh()
+    try:
+        shard = shard_phase(torch, np, dev, build_model, common, get_config, mesh)
+        dryrun_launches = dryrun_phase(torch, np, dev, build_model, common,
+                                       get_config, counting, mesh)
+    finally:
+        dist.destroy_process_group()
 
     plan_phase(torch, flash_ops, checks, predicted, steps)
 
@@ -2883,6 +3068,10 @@ def run():
     for row in summary:
         if row["name"] in shard["launches"]:
             row["launches_shard"] = shard["launches"][row["name"]]
+    # the dryrun phase's card runs (one measured train step, the prefill)
+    for row in summary:
+        if row["name"] in dryrun_launches:
+            row["launches_dryrun"] = dryrun_launches[row["name"]]
     # rwkv6-7b's training run (the wkv6_bwd row's ``launches``)
     chunk_row = next(r for r in summary if r["name"] == "wkv6_chunk")
     chunk_row["launches_train"] = rwkv_train["launches"]["wkv6_chunk"]
@@ -2901,6 +3090,11 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
+    finally:
+        for proc in CHILDREN:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
     return 0
 
 

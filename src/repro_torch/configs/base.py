@@ -1,14 +1,42 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
 The port keeps its own ``ArchConfig`` so that it imports nothing of the JAX
-package.  Fields and derived quantities are the same as the reference's; the
-input-shape table of the reference (dry-run cells) is not needed here.
+package.  Fields and derived quantities are the same as the reference's, and
+so is the input-shape table that sets the dry-run's cells
+(:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned shape set for the LM family)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One (seq_len, global_batch) cell plus which step it lowers."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Tuple[InputShape, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -92,6 +120,11 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic attention (SSM / hybrid w/ sliding window)."""
+        return self.attn_free or self.ssm_state > 0
+
     def layer_param_count(self) -> int:
         """Parameters of one decoder layer (attention + FFN + norms).  An
         attention-free layer (rwkv6) counts its r, k, v, g, o projections,
@@ -148,3 +181,17 @@ class ArchConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+# Shapes each family actually runs (assignment rules):
+#  - long_500k only for sub-quadratic archs,
+#  - decode shapes for all (no encoder-only archs among the 10).
+def shapes_for(cfg: ArchConfig) -> Tuple[InputShape, ...]:
+    out = []
+    for s in ALL_SHAPES:
+        if s.name == "long_500k" and not cfg.supports_long_context:
+            continue  # quadratic attention: no 512k context
+        if s.kind == "decode" and cfg.family == "encoder":
+            continue  # encoder-only: no decode step
+        out.append(s)
+    return tuple(out)

@@ -14,11 +14,17 @@ The modules chain into the paper's Fig. 2 flow:
   or a fleet (§5);
 * :mod:`repro_torch.core.placement` — hierarchical topology-aware
   placement over hosts and NVLink (or ICI) domains (§6);
+* :mod:`repro_torch.core.telemetry` / :mod:`repro_torch.core.drift` /
+  :mod:`repro_torch.core.forecast` / :mod:`repro_torch.core.replan` —
+  online drift detection and arrival forecasts driving the three-rung
+  re-plan ladder;
 * :mod:`repro_torch.core.scepsy` — the ``deploy`` / ``deploy_multi``
-  facade (offline plans; the online re-plan path is not ported yet).
+  facade.
 
 It is host code: it imports nothing of torch.  Sibling subpackages supply
 the substrates: :mod:`repro_torch.serving` (the discrete-event runtime and
-cost model), :mod:`repro_torch.workflows` (beam_search and rag_reranker),
-:mod:`repro_torch.qos` (SLO classes and queue disciplines).
+cost model), :mod:`repro_torch.workflows` (the servable workflows),
+:mod:`repro_torch.qos` (SLO classes, queue disciplines and admission
+control) and :mod:`repro_torch.obs` (spans, metrics and accuracy
+reports).
 """

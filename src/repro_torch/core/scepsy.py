@@ -4,11 +4,11 @@ place (paper Fig. 2 end-to-end flow).
 Inputs are :class:`~repro_torch.workflows.runtime.Workflow` programs plus a
 :class:`repro_torch.hw.ClusterSpec` and arrival-rate targets; outputs are
 deployment objects bundling the chosen allocation, its concrete
-placement and (optionally) QoS contexts; the reference's online re-plan
-controller is not in the port yet.  :func:`deploy` serves one workflow;
-:func:`deploy_multi` serves a fleet — partitioned (disjoint chips,
-co-placed in one pass over the real topology via
-:func:`~repro_torch.core.placement.place_fleet`), pooled (LLMs are tenants, workflows hold routing tables into a shared
+placement and (optionally) QoS contexts and an online re-plan
+controller.  :func:`deploy` serves one workflow; :func:`deploy_multi`
+serves a fleet — partitioned (disjoint chips, co-placed in one pass
+over the real topology via :func:`~repro_torch.core.placement.place_fleet`),
+pooled (LLMs are tenants, workflows hold routing tables into a shared
 replica set — ROADMAP "Cross-workflow LLM sharing"), or auto
 (whichever wins on welfare).
 """
@@ -154,8 +154,8 @@ class ScepsyFleetDeployment:
     fleet_placement: Optional[Placement] = None
     tenant_placement: Optional[Placement] = None
     routing: Optional[Dict[str, Dict[str, Dict[str, float]]]] = None
-    # online drift handling: None in the port (deploy_multi(...,
-    # online=True) raises NotImplementedError)
+    # online drift handling (deploy_multi(..., online=True)): a
+    # ReplanController wired to a DriftMonitor over this deployment
     controller: Optional[object] = None
     # per-workflow request-level QoS contexts (workflow name ->
     # repro_torch.qos.slo.WorkflowQoS); empty when no workflow carries a tier
@@ -220,11 +220,22 @@ def deploy_multi(wfs: Sequence[Workflow], spec: hw.ClusterSpec,
     ``welfare`` overrides ``scheduler_config.welfare`` (egalitarian /
     weighted / proportional).
 
-    ``online=True`` (the online re-scheduling controller over drift and
-    forecast telemetry) is not in the port yet: it raises
-    :class:`NotImplementedError`, and ``drift_config``, ``forecast`` and
-    ``replan_cooldown_s``, which only it reads, are ignored.  The returned
-    deployment's ``controller`` is None.
+    ``online=True`` attaches an online re-scheduling controller
+    (``.controller``): a :class:`repro_torch.core.drift.DriftMonitor` primed
+    with this deployment's profiled expectations (feed it to the cluster
+    executor as ``telemetry=``) plus a
+    :class:`repro_torch.core.replan.ReplanController` whose escalation ladder
+    re-plans incrementally against this deployment's warm state.
+    ``drift_config`` is an optional :class:`repro_torch.core.drift.DriftConfig`;
+    ``replan_cooldown_s`` sets the controller's rung hysteresis (drift
+    events inside the window only act if they escalate the rung).
+    ``forecast`` (a :class:`repro_torch.core.forecast.ForecastConfig`, or
+    ``True`` for defaults) additionally arms the proactive trigger: an
+    :class:`~repro_torch.core.forecast.ArrivalForecaster` fed by the monitor's
+    arrival telemetry plus a
+    :class:`~repro_torch.core.forecast.ForecastTrigger` the controller polls —
+    the ladder then reacts ``lead_s`` *before* a forecast capacity
+    crossing instead of after it.
 
     ``slos`` overrides per-workflow SLO classes (default: each
     workflow's own ``Workflow.slo``); resolved classes + pipeline work
@@ -234,12 +245,6 @@ def deploy_multi(wfs: Sequence[Workflow], spec: hw.ClusterSpec,
     import dataclasses as dc
 
     from repro_torch.core.placement import place_fleet, split_fleet, tenant_routing
-
-    if online:
-        raise NotImplementedError(
-            "deploy_multi(online=True): the online re-plan path "
-            "(core/drift.py, core/replan.py, core/forecast.py) is not in the "
-            "port yet (ROADMAP A6, online re-plan)")
 
     cfg = scheduler_config or SchedulerConfig(max_tp=spec.hb_domain_size)
     if welfare is not None:
@@ -268,6 +273,46 @@ def deploy_multi(wfs: Sequence[Workflow], spec: hw.ClusterSpec,
         if q is not None:
             qos_by_name[name] = q
 
+    def _controller(placement=None):
+        if not online:
+            return None
+        from repro_torch.core.drift import DriftConfig, DriftMonitor, \
+            expectation_from
+        from repro_torch.core.replan import ReplanController
+
+        forecaster = trigger = None
+        if forecast:
+            from repro_torch.core.forecast import (ArrivalForecaster,
+                                             ForecastConfig, ForecastTrigger)
+            fc = forecast if isinstance(forecast, ForecastConfig) \
+                else ForecastConfig()
+            forecaster = ArrivalForecaster(list(pipelines), fc)
+            trigger = ForecastTrigger(forecaster, dict(lam_targets),
+                                      headroom=fc.headroom)
+        monitor = DriftMonitor(
+            {n: expectation_from(
+                pipelines[n], lam_targets[n], stats_by_name.get(n),
+                slo=(qos_by_name[n].slo if n in qos_by_name else None))
+             for n in pipelines},
+            drift_config or DriftConfig(),
+            forecaster=forecaster)
+
+        def refresh(name: str) -> AggregateLLMPipeline:
+            # a cold (rung-3) re-plan re-runs trace -> profile ->
+            # synthesize at the same fidelity the deployment was built at;
+            # warm rungs reuse the deployed pipelines
+            pipe, _, _ = build_pipeline(
+                wf_by_name[name], n_trace_requests=n_trace_requests,
+                tp_degrees=_default_tp_degrees(spec), seed=seed,
+                max_profile_groups=max_profile_groups)
+            return pipe
+
+        return ReplanController(pipelines, spec, lam_targets, cfg,
+                                result=multi, placement=placement,
+                                monitor=monitor, forecast=trigger,
+                                pipeline_refresh=refresh,
+                                cooldown_s=replan_cooldown_s)
+
     if multi.alloc_mode == "pooled":
         pooled = multi.pooled
         placement = place(pooled.allocations, spec)
@@ -283,7 +328,7 @@ def deploy_multi(wfs: Sequence[Workflow], spec: hw.ClusterSpec,
                                      mode="pooled",
                                      tenant_placement=placement,
                                      routing=routing,
-                                     controller=None,
+                                     controller=_controller(placement),
                                      qos=qos_by_name)
 
     # a placement-aware search that found NO placeable split returns
@@ -320,5 +365,5 @@ def deploy_multi(wfs: Sequence[Workflow], spec: hw.ClusterSpec,
                                  multi.welfare, multi, spec=spec,
                                  chip_offsets={n: 0 for n in deployments},
                                  fleet_placement=incumbent,
-                                 controller=None,
+                                 controller=_controller(incumbent),
                                  qos=qos_by_name)

@@ -2,9 +2,11 @@
 ``repro.distributed.sharding`` over a torch ``DeviceMesh``.
 
 Axes: ``pod`` (between hosts), ``data`` (the batch, and ZeRO-1 moments),
-``model`` (tensor parallelism).  A spec is a tuple with one entry per
-tensor dim: ``None``, an axis name or a tuple of axis names (the
-reference's ``PartitionSpec`` as a plain tuple, which needs no JAX).
+``model`` (tensor parallelism).  ``pod`` and ``data`` together are the
+data-parallel group: the batch's rows, the gradients' average and the
+ZeRO-1 slices run over their product, pod-major.  A spec is a tuple with
+one entry per tensor dim: ``None``, an axis name or a tuple of axis names
+(the reference's ``PartitionSpec`` as a plain tuple, which needs no JAX).
 Each model class says the spec of every weight by the port's parameter
 names (``spec_tree``); this module holds the rules that cross the
 families:
@@ -22,9 +24,9 @@ families:
 * the Megatron collectives the dense layers call (``copy_to_model``,
   ``reduce_from_model``, ``gather_from_model``, each autograd-aware) and
   ``local``, which hands a kernel or a product the plain tensor of this
-  rank's shard; its gradient is marked ``Partial`` over ``data`` (and over
-  ``model`` for a replicated KV projection) until ``reduce_gradients``
-  sums it;
+  rank's shard; its gradient is marked ``Partial`` over ``pod`` and
+  ``data`` (and over ``model`` for a replicated KV projection) until
+  ``reduce_gradients`` sums it;
 * the data-parallel and ZeRO-1 pieces of a train step: ``data_rows``,
   ``data_mean``, ``reduce_gradients``, ``zero_slice``, ``zero_write``,
   ``zero_moment`` and ``sum_over_model``.
@@ -45,6 +47,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 POD, DATA, MODEL = "pod", "data", "model"
 AXES = (DATA, MODEL)
+# the axes of the data-parallel group, outer first
+DATA_AXES = (POD, DATA)
 
 Spec = Tuple  # of None | str | Tuple[str, ...], one entry per tensor dim
 
@@ -115,17 +119,20 @@ def _zero_dim(spec, shape, data_ways: int) -> Optional[int]:
 
 
 def zero_opt_specs(param_specs: Mapping[str, Spec],
-                   param_shapes: Mapping[str, tuple], data_ways: int):
+                   param_shapes: Mapping[str, tuple], data_ways: int,
+                   axes=DATA):
     """AdamW's moments sharded over ``data`` too (ZeRO-1): each weight's
-    spec with ``data`` on its ``_zero_dim``.  Returns an ``AdamWState`` of
-    specs (``step`` replicated, ``m`` and ``v`` by name)."""
+    spec with ``axes`` (``data``, or ``("pod", "data")`` on a mesh with
+    pods, whose product is ``data_ways``) on its ``_zero_dim``.  Returns an
+    ``AdamWState`` of specs (``step`` replicated, ``m`` and ``v`` by
+    name)."""
     from repro_torch.training.optimizer import AdamWState
 
     def widen(spec, shape):
         entries = list(spec) + [None] * (len(shape) - len(tuple(spec)))
         i = _zero_dim(spec, shape, data_ways)
         if i is not None:
-            entries[i] = DATA
+            entries[i] = axes
         return tuple(entries)
 
     m = {name: widen(spec, tuple(param_shapes[name]))
@@ -200,7 +207,9 @@ def per_gpu_bytes(model: nn.Module, mesh) -> Dict[str, int]:
     sizes = axis_sizes(mesh)
     specs = fit_param_specs(model, mesh)
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    moments = zero_opt_specs(specs, shapes, sizes.get(DATA, 1)).m
+    dp = tuple(a for a in DATA_AXES if a in sizes)
+    moments = zero_opt_specs(specs, shapes, math.prod(sizes[a] for a in dp),
+                             _entry(dp)).m
     weights = moment = 0
     for name, p in model.named_parameters():
         weights += math.prod(local_shape(shapes[name], specs[name], sizes)) * p.element_size()
@@ -210,16 +219,16 @@ def per_gpu_bytes(model: nn.Module, mesh) -> Dict[str, int]:
 
 def check_shardable(cfg, mesh) -> None:
     """Raise unless ``shard_model`` runs ``cfg`` on ``mesh``: a dense decoder
-    without experts, a mesh of ``data`` and ``model`` only, and query heads
-    that split whole into the model ways, each rank's onto whole KV heads
-    or into one."""
+    without experts, a mesh of ``pod``, ``data`` and ``model`` only, and
+    query heads that split whole into the model ways, each rank's onto
+    whole KV heads or into one."""
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name}: sharded execution covers the "
                                   f"dense decoders; not the {cfg.family} family")
     sizes = axis_sizes(mesh)
-    if set(sizes) - set(AXES):
+    if set(sizes) - {POD, DATA, MODEL}:
         raise ValueError(f"mesh axes {sorted(sizes)}: sharded execution takes "
-                         f"{AXES} only")
+                         f"{(POD, DATA, MODEL)} only")
     ways = sizes.get(MODEL, 1)
     if cfg.num_heads % ways:
         raise ValueError(f"{cfg.name}: {cfg.num_heads} query heads do not "
@@ -249,8 +258,11 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
                 shard = shard.narrow(pl.dim, mesh.get_local_rank(i) * size, size)
         owner, _, leaf = name.rpartition(".")
         module = model.get_submodule(owner) if owner else model
+        # a copy of its own: a shard of rows is a contiguous view, which
+        # would keep the whole weight's storage alive
+        shard = shard.clone(memory_format=torch.contiguous_format)
         module.register_parameter(leaf, nn.Parameter(
-            DTensor.from_local(shard.contiguous(), mesh, place, run_check=False),
+            DTensor.from_local(shard, mesh, place, run_check=False),
             requires_grad=p.requires_grad))
     return model
 
@@ -302,15 +314,16 @@ def model_shard(w) -> Optional[ModelShard]:
 def local(w, *, partial_over_model: bool = False) -> torch.Tensor:
     """This rank's shard of ``w`` as a plain tensor (``w`` itself where it
     is one).  Its gradient reaches ``w.grad`` marked ``Partial`` over
-    ``data`` (each data rank's gradient comes from its own rows) and, with
-    ``partial_over_model``, over ``model`` too (a replicated weight of
-    which each model rank uses a part); ``reduce_gradients`` sums them."""
+    ``pod`` and ``data`` (each data rank's gradient comes from its own
+    rows) and, with ``partial_over_model``, over ``model`` too (a
+    replicated weight of which each model rank uses a part);
+    ``reduce_gradients`` sums them."""
     if not isinstance(w, DTensor):
         return w
     if not torch.is_grad_enabled():
         return w.to_local()
     grads = [pl if pl.is_shard()
-             else _AVG if name == DATA
+             else _AVG if name in DATA_AXES
              else _SUM if partial_over_model else pl
              for name, pl in zip(w.device_mesh.mesh_dim_names, w.placements)]
     return w.to_local(grad_placements=grads)
@@ -412,41 +425,80 @@ def attention_heads(p, cfg) -> Tuple[int, Optional[int]]:
 # ---------------------------------------------------------------------------
 
 
+class DataShard(NamedTuple):
+    group: object  # the process group of the ``pod`` x ``data`` ranks
+    ways: int
+    rank: int  # this rank's place among them, pod-major
+
+
+def data_shard(mesh) -> Optional[DataShard]:
+    """The data-parallel group of ``mesh``: its ``data`` axis, or the
+    ``pod`` and ``data`` axes flattened into one, pod-major; None where
+    the mesh has neither.  Kept on the mesh, as ``_axis`` keeps an axis."""
+    axes = mesh.__dict__.setdefault("_axes_by_name", {})
+    if DATA_AXES not in axes:
+        dims = tuple(a for a in DATA_AXES if a in mesh.mesh_dim_names)
+        if not dims:
+            axes[DATA_AXES] = None
+        elif len(dims) == 1:
+            axes[DATA_AXES] = DataShard(*_axis(mesh, dims[0])[1:])
+        else:
+            flat = mesh[dims]._flatten()
+            axes[DATA_AXES] = DataShard(flat.get_group(), flat.size(),
+                                        flat.get_local_rank())
+    return axes[DATA_AXES]
+
+
 def data_rows(t: torch.Tensor, mesh) -> torch.Tensor:
-    """This data rank's consecutive rows of a batch tensor."""
-    axis = _axis(mesh, DATA)
-    if axis is None:
+    """This data rank's consecutive rows of a batch tensor.  Where the rows
+    do not split into the ``pod`` x ``data`` ways, the reference's
+    ``fit_spec`` rule: ``data``, the inner axis, is dropped first, and
+    the rows are split over the axes that are left (``pod`` alone, or
+    none: every rank runs every row)."""
+    dp = data_shard(mesh)
+    if dp is None:
         return t
-    _, _, ways, rank = axis
-    if t.shape[0] % ways:
-        raise ValueError(f"{t.shape[0]} rows do not split into {ways} data ways")
-    return t.chunk(ways)[rank]
+    sizes = axis_sizes(mesh)
+    dims = [a for a in DATA_AXES if a in sizes]
+    while dims and t.shape[0] % math.prod(sizes[a] for a in dims):
+        dims.pop()
+    ways = math.prod(sizes[a] for a in dims)
+    # the rank along the kept (outer) axes: the flattened rank's leading digits
+    rank = dp.rank // (dp.ways // ways)
+    return t.chunk(ways)[rank] if ways > 1 else t
 
 
 def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
     """The mean of ``x`` over the data ranks."""
-    axis = _axis(mesh, DATA)
-    if axis is None:
+    dp = data_shard(mesh)
+    if dp is None:
         return x
-    _, group, ways, _ = axis
     x = x.detach().clone()
-    dist.all_reduce(x, group=group)
-    return x / ways
+    dist.all_reduce(x, group=dp.group)
+    return x / dp.ways
 
 
 @torch.no_grad()
 def reduce_gradients(params) -> None:
     """Sum each DTensor weight's gradient over the mesh dims on which
     ``local`` marked it ``Partial`` (dividing an average by the ways), and
-    leave it with its weight's placements."""
+    leave it with its weight's placements: one all-reduce over the
+    data-parallel group for ``pod`` and ``data``, then one over ``model``
+    where it is partial there too."""
     for p in params:
         g = p.grad
         if not isinstance(g, DTensor):
             continue
         t = g.to_local().contiguous()
         mesh = g.device_mesh
-        for i, pl in enumerate(g.placements):
-            if pl.is_partial():
+        names = mesh.mesh_dim_names
+        partial = [(i, pl) for i, pl in enumerate(g.placements) if pl.is_partial()]
+        if any(names[i] in DATA_AXES for i, _ in partial):
+            dp = data_shard(mesh)
+            dist.all_reduce(t, group=dp.group)
+            t.div_(dp.ways)
+        for i, pl in partial:
+            if names[i] not in DATA_AXES:
                 dist.all_reduce(t, group=mesh.get_group(i))
                 if pl.reduce_op == "avg":
                     t.div_(mesh.size(i))
@@ -459,14 +511,14 @@ def _sharded_dims(t: DTensor):
 
 def _zero(t: DTensor):
     """(tensor dim, group, ways, rank) of the ZeRO-1 slice of a weight (or
-    of its gradient, which has its placements) over ``data``, or None."""
-    axis = _axis(t.device_mesh, DATA)
-    if axis is None:
+    of its gradient, which has its placements) over the data-parallel
+    group, or None."""
+    dp = data_shard(t.device_mesh)
+    if dp is None:
         return None
-    _, group, ways, rank = axis
     spec = [DATA if d in _sharded_dims(t) else None for d in range(t.ndim)]
-    dim = _zero_dim(spec, tuple(t.shape), ways)
-    return None if dim is None else (dim, group, ways, rank)
+    dim = _zero_dim(spec, tuple(t.shape), dp.ways)
+    return None if dim is None else (dim, dp.group, dp.ways, dp.rank)
 
 
 def zero_slice(t) -> torch.Tensor:
@@ -504,13 +556,16 @@ def zero_write(p, new: torch.Tensor) -> None:
 
 def zero_moment(p: DTensor) -> DTensor:
     """A zero f32 moment of the DTensor weight ``p`` with the ZeRO-1
-    placements: ``p``'s, plus ``Shard`` over ``data`` on its ZeRO dim."""
+    placements: ``p``'s, plus ``Shard`` over ``pod`` and ``data`` on its
+    ZeRO dim."""
     local_zeros = torch.zeros(zero_slice(p).shape, dtype=torch.float32,
                               device=p.device)
     place = list(p.placements)
     z = _zero(p)
     if z is not None:
-        place[list(p.device_mesh.mesh_dim_names).index(DATA)] = Shard(z[0])
+        for i, name in enumerate(p.device_mesh.mesh_dim_names):
+            if name in DATA_AXES:
+                place[i] = Shard(z[0])
     return DTensor.from_local(local_zeros, p.device_mesh, place, run_check=False)
 
 

@@ -11,9 +11,16 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code.  ``launch_counts`` holds one integer
 per kernel, which its wrapper bumps where it launches the kernel and
 nowhere else, so a run can show that it went through the kernel.
+
+On the meta device (the dry-run, ``launch/dryrun.py``) a wrapper launches
+nothing: it applies the card's operand checks, under ``card_checks``,
+which turns a refusal into ``Refused``, returns empty outputs of the
+kernel's shapes, and reports the call to the active op counters
+(``count_meta_call``; ``analysis/op_stats.py`` keeps them).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +28,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 import torch
 
@@ -41,6 +48,16 @@ launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+# the op counters a meta-device call reports to: each takes (kernel name,
+# the call's shape as a dict)
+meta_counters: List[Callable[[str, dict], None]] = []
+
+
+class Refused(RuntimeError):
+    """A kernel's operand checks refused a call on the meta device: the
+    card would refuse the same call."""
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
@@ -48,6 +65,27 @@ def reset_launch_counts() -> None:
 
 def count_launch(name: str) -> None:
     launch_counts[name] += 1
+
+
+def count_meta_call(name: str, **shape) -> None:
+    """A meta-device call of kernel ``name`` at ``shape``, reported to every
+    active op counter.  ``launch_counts`` stays as it is: nothing was
+    launched."""
+    for counter in meta_counters:
+        counter(name, shape)
+
+
+@contextlib.contextmanager
+def card_checks(t: torch.Tensor):
+    """Runs the card's operand checks of a call on ``t``'s device: on the
+    meta device a refusal is raised as ``Refused``; on the card it is
+    raised as it is."""
+    try:
+        yield
+    except (RuntimeError, ValueError) as exc:
+        if t.device.type == "meta":
+            raise Refused(str(exc)) from exc
+        raise
 
 
 def refuse_grad(wrapper: str, *tensors: torch.Tensor) -> None:

@@ -3,7 +3,11 @@
 A CPU tensor goes to the plain version in ``ref.py``.  A CUDA tensor goes
 to the kernel of ``csrc/decode_attention.cu``, or the wrapper raises.  With
 q and the caches in bf16 that is the split-K kernel pair, planned on the
-host by ``plan_splits``; otherwise the single-pass f32 kernel.
+host by ``plan_splits``; otherwise the single-pass f32 kernel.  A meta
+tensor (the dry-run) takes the card's checks and allocations, with
+``hw.H100``'s SM count for the plan, launches nothing and reports the call
+to the op counters; its lengths are not known there, so every row counts
+its whole cache of ``Smax`` positions.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels import common
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -63,21 +68,22 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q.reshape(B, KV, G, D), k_cache, v_cache,
                                     lengths).reshape(B, H, D)
-    common.refuse_grad("decode_attention_op", q, k_cache, v_cache)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
-    for t in (q, k_cache):
-        if t.dtype not in common.DTYPE_CODES:
-            raise ValueError(f"{NAME}: unsupported dtype {t.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head_dim {D} not in {HEAD_DIMS}")
-    if G > MAX_GROUP:
-        raise ValueError(f"{NAME}: group size {G} > {MAX_GROUP}")
-    if not q.is_contiguous():
-        raise ValueError(f"{NAME}: q must be contiguous")
-    common.check_operand(NAME, q, q.device, q.dtype)
-    for t in (k_cache, v_cache):
-        common.check_operand(NAME, t, q.device, k_cache.dtype)
+    with common.card_checks(q):
+        common.refuse_grad("decode_attention_op", q, k_cache, v_cache)
+        for t in (q, k_cache):
+            if t.dtype not in common.DTYPE_CODES:
+                raise ValueError(f"{NAME}: unsupported dtype {t.dtype}")
+        if D not in HEAD_DIMS:
+            raise ValueError(f"{NAME}: head_dim {D} not in {HEAD_DIMS}")
+        if G > MAX_GROUP:
+            raise ValueError(f"{NAME}: group size {G} > {MAX_GROUP}")
+        if not q.is_contiguous():
+            raise ValueError(f"{NAME}: q must be contiguous")
+        common.check_operand(NAME, q, q.device, q.dtype)
+        for t in (k_cache, v_cache):
+            common.check_operand(NAME, t, q.device, k_cache.dtype)
     lens = torch.as_tensor(lengths)
     if lens.dtype.is_floating_point or lens.ndim > 1 or lens.numel() not in (1, B):
         raise ValueError(f"{NAME}: lengths must be an integer scalar or (B,)")
@@ -86,16 +92,22 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = common.load_function(NAME, "decode_attention_fwd", _ARGTYPES)
-    strides = [t.stride(i) for t in (k_cache, v_cache) for i in (0, 1, 2)]
     chunk = splits = 0
     scratch = None
     if q.dtype == k_cache.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        sms = (hw.H100.sms if q.device.type == "meta" else
+               torch.cuda.get_device_properties(q.device).multi_processor_count)
         chunk, splits = plan_splits(B * KV, Smax, sms)
         # per (b, kv head, split, g): O[D] unnormalised, then (m, l)
         scratch = torch.empty(B * KV * splits * G * (D + 2),
                               dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        common.count_meta_call(NAME, B=B, H=H, KV=KV, D=D, Smax=Smax,
+                               dtype=str(q.dtype),
+                               cache_dtype=str(k_cache.dtype))
+        return out
+    fn = common.load_function(NAME, "decode_attention_fwd", _ARGTYPES)
+    strides = [t.stride(i) for t in (k_cache, v_cache) for i in (0, 1, 2)]
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, B, KV, G,

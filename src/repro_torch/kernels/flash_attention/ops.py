@@ -17,6 +17,11 @@ launch heaviest first.  The kernel rebuilds the same order on the card
 from its scalar arguments, so a call copies nothing to the card and never
 waits for it.  The wrapper allocates one scratch (``bwd_work_bytes``) for
 the padded lse and D rows, the order and the f32 partials of split tiles.
+
+A meta tensor (the dry-run) takes the card's checks and allocations,
+scratch included, with ``hw.H100``'s SM count for the plan, launches
+nothing and reports the call to the op counters
+(``common.count_meta_call``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch import hw
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_lse_ref,
@@ -66,8 +72,9 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     check_shapes(q, k, v, window, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.device.type == "cuda":
-            check_backward_operands(q)
+        if q.device.type != "cpu":
+            with common.card_checks(q):
+                check_backward_operands(q)
         return FlashAttentionFn.apply(q, k, v, window, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -92,20 +99,27 @@ def check_shapes(q, k, v, window: int, causal: bool) -> None:
         raise ValueError(f"{NAME}: a sliding window needs causal attention")
     if Sk < 1 and Sq > 0:
         raise ValueError(f"{NAME}: no keys to attend over")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
 
 
 def _launch_forward(q, k, v, window: int, causal: bool, with_lse: bool):
     """The forward kernel on CUDA tensors: (out (B, Sq, H, D), and with
-    ``with_lse`` each row's log-sum-exp (B, H, Sq) f32, else None)."""
-    check_kernel_operands(q, k, v)
+    ``with_lse`` each row's log-sum-exp (B, H, Sq) f32, else None).  On
+    meta tensors, the outputs unwritten and the call counted."""
+    with common.card_checks(q):
+        check_kernel_operands(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
+        return out, lse
+    if q.device.type == "meta":
+        common.count_meta_call(NAME, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D,
+                               window=int(window), causal=bool(causal),
+                               dtype=str(q.dtype), lse=with_lse)
         return out, lse
     fn = common.load_function(NAME, "flash_attention_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -128,7 +142,8 @@ def flash_attention_fwd_lse(q, k, v, *, window: int = 0, causal: bool = True):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             window=window, causal=causal)
         return out.transpose(1, 2), lse
-    check_backward_operands(q)
+    with common.card_checks(q):
+        check_backward_operands(q)
     return _launch_forward(q, k, v, window, causal, with_lse=True)
 
 
@@ -212,6 +227,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(device: torch.device) -> int:
+    """The SMs the plan spreads over: the card's, or on the meta device
+    the H100's of ``hw``."""
+    if device.type == "meta":
+        return hw.H100.sms
+    return _sm_count(device.index or 0)
+
+
 def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
                            causal: bool = True):
     """(dq, dk, dv) of the flash forward, in the layouts and dtypes of q, k
@@ -224,7 +247,8 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
     current stream: D and the schedule, dQ, dK/dV, and the merge of split
     tiles.  It copies nothing to the card and does not wait for it, so it
     can be captured in a CUDA graph, and it bumps the backward's launch
-    count once, whatever the number of kernels."""
+    count once, whatever the number of kernels.  Meta tensors get the
+    same checks and allocations, and the call is counted."""
     check_shapes(q, k, v, window, causal)
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_ref(
@@ -232,8 +256,9 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
             out.transpose(1, 2), dout.transpose(1, 2), lse, window=window,
             causal=causal)
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
-    check_backward_operands(q)
-    check_kernel_operands(q, k, v)
+    with common.card_checks(q):
+        check_backward_operands(q)
+        check_kernel_operands(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if dout.shape != q.shape or out.shape != q.shape:
@@ -248,17 +273,23 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
     # a no-op for autograd's gradient of the attention output, which comes
     # back contiguous in the training dtype; a broadcast cotangent is copied
     dout = dout.to(q.dtype).contiguous()
-    for t in (out, dout):
-        common.check_operand(BWD_NAME, t, q.device, q.dtype)
+    with common.card_checks(q):
+        for t in (out, dout):
+            common.check_operand(BWD_NAME, t, q.device, q.dtype)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     plan = plan_bwd_units(B, KV, H // KV, Sq, Sk, int(window), bool(causal),
-                          _sm_count(q.device.index or 0))
+                          _sms(q.device))
     nbytes = bwd_work_bytes(plan, B, H, KV, Sq, D)
     work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    if q.device.type == "meta":
+        common.count_meta_call(BWD_NAME, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D,
+                               window=int(window), causal=bool(causal),
+                               dtype=str(q.dtype), scratch=nbytes)
+        return dq, dk, dv
     fn = common.load_function(BWD_NAME, "flash_attention_bwd", _BWD_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),

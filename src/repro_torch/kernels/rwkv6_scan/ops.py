@@ -11,7 +11,9 @@ A CUDA call that needs a gradient (grad mode on and an input that requires
 grad) goes through ``WKV6Fn``: its forward is the same kernel, and its
 backward the kernel of ``csrc/wkv6_bwd.cu`` (bf16 at D = 64 only; any
 other CUDA call that needs a gradient raises).  On the CPU the plain
-version is an autograd op.
+version is an autograd op.  A meta tensor (the dry-run) takes the card's
+checks and allocations, launches nothing and reports the call to the op
+counters under the name of the kernel the card would run.
 """
 from __future__ import annotations
 
@@ -73,7 +75,8 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, out_state.copy_(s1)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, logw, u, state)):
-        check_backward_operands(r, out_state)
+        with common.card_checks(r):
+            check_backward_operands(r, out_state)
         return WKV6Fn.apply(r, k, v, logw, u, state)
     return _launch_forward(r, k, v, logw, u, state, out_state)
 
@@ -107,28 +110,34 @@ def check_backward_operands(r: torch.Tensor,
 
 
 def _launch_forward(r, k, v, logw, u, state, out_state):
-    """The forward kernel ``kernel_for`` names, on CUDA tensors."""
+    """The forward kernel ``kernel_for`` names, on CUDA tensors (on meta
+    tensors, the outputs unwritten and the call counted)."""
     B, H, S, D = r.shape
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"{NAME}: unsupported device {r.device}")
-    if r.dtype not in common.DTYPE_CODES:
-        raise ValueError(f"{NAME}: unsupported dtype {r.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head_dim {D} not in {HEAD_DIMS}")
+    with common.card_checks(r):
+        if r.dtype not in common.DTYPE_CODES:
+            raise ValueError(f"{NAME}: unsupported dtype {r.dtype}")
+        if D not in HEAD_DIMS:
+            raise ValueError(f"{NAME}: head_dim {D} not in {HEAD_DIMS}")
     if out_state is None:
         out_state = torch.empty_like(state, memory_format=torch.contiguous_format)
-    for t in (k, v):
-        common.check_operand(NAME, t, r.device, r.dtype)
-    for t in (logw, u, state, out_state):
-        common.check_operand(NAME, t, r.device, torch.float32)
-    if not (u.is_contiguous() and state.is_contiguous()
-            and out_state.is_contiguous()):
-        raise ValueError(f"{NAME}: u, state and out_state must be contiguous")
-    common.check_operand(NAME, r, r.device, r.dtype)
+    with common.card_checks(r):
+        for t in (k, v):
+            common.check_operand(NAME, t, r.device, r.dtype)
+        for t in (logw, u, state, out_state):
+            common.check_operand(NAME, t, r.device, torch.float32)
+        if not (u.is_contiguous() and state.is_contiguous()
+                and out_state.is_contiguous()):
+            raise ValueError(f"{NAME}: u, state and out_state must be contiguous")
+        common.check_operand(NAME, r, r.device, r.dtype)
     out = torch.empty_like(r)  # keeps r's strides when r is dense
     if out.numel() == 0:
         return out, out_state.copy_(state)
     name = kernel_for(r.dtype, S, D)
+    if r.device.type == "meta":
+        common.count_meta_call(name, B=B, H=H, S=S, D=D, dtype=str(r.dtype))
+        return out, out_state
     fn = common.load_function(name, f"{name}_fwd", _ARGTYPES)
     # element strides in (batch, head, position) order
     strides = [t.stride(i) for t in (r, k, v, logw, out) for i in (0, 1, 2)]
@@ -162,7 +171,8 @@ def wkv6_bwd_op(r, k, v, logw, u, state, dout, *, need_dstate: bool = True):
     stream (two kernels: the chunks' states, then every chunk) and bumps
     its launch count once; the wrapper allocates the states' scratch, and
     the kernel leaves each chunk's share of du, which one sum adds up.  A
-    CPU call runs ``wkv6_bwd_ref``."""
+    CPU call runs ``wkv6_bwd_ref``; a meta call is counted, with the
+    card's checks and allocations."""
     check_shapes(r, k, v, logw, u, state)
     if dout.shape != r.shape:
         raise ValueError(f"{BWD_NAME}: dout{tuple(dout.shape)} != "
@@ -170,18 +180,20 @@ def wkv6_bwd_op(r, k, v, logw, u, state, dout, *, need_dstate: bool = True):
     if r.device.type == "cpu":
         grads = wkv6_bwd_ref(r, k, v, logw, u, state, dout)
         return grads if need_dstate else grads[:5] + (None,)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"{BWD_NAME}: unsupported device {r.device}")
-    check_backward_operands(r)
+    with common.card_checks(r):
+        check_backward_operands(r)
     B, H, S, D = r.shape
     # autograd's gradient of the output may come in any layout
     dout = _aligned(dout.to(r.dtype))
-    for t in (r, k, v, dout):
-        common.check_operand(BWD_NAME, t, r.device, r.dtype)
-    for t in (logw, u, state):
-        common.check_operand(BWD_NAME, t, r.device, torch.float32)
-    if not (u.is_contiguous() and state.is_contiguous()):
-        raise ValueError(f"{BWD_NAME}: u and state must be contiguous")
+    with common.card_checks(r):
+        for t in (r, k, v, dout):
+            common.check_operand(BWD_NAME, t, r.device, r.dtype)
+        for t in (logw, u, state):
+            common.check_operand(BWD_NAME, t, r.device, torch.float32)
+        if not (u.is_contiguous() and state.is_contiguous()):
+            raise ValueError(f"{BWD_NAME}: u and state must be contiguous")
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dlogw = torch.empty_like(logw)
     chunks = -(-S // CHUNK)
@@ -191,6 +203,10 @@ def wkv6_bwd_op(r, k, v, logw, u, state, dout, *, need_dstate: bool = True):
     if r.numel() == 0:
         return (dr, dk, dv, dlogw.zero_(), u.new_zeros(u.shape),
                 dstate.zero_() if need_dstate else None)
+    if r.device.type == "meta":
+        common.count_meta_call(BWD_NAME, B=B, H=H, S=S, D=D,
+                               dtype=str(r.dtype))
+        return dr, dk, dv, dlogw, du_part.sum((0, 2)), dstate
     strides = (_L * 27)(*[t.stride(i) for t in (r, k, v, logw, dout, dr, dk,
                                                 dv, dlogw) for i in (0, 1, 2)])
     fn = common.load_function(BWD_NAME, BWD_NAME, _BWD_ARGTYPES)

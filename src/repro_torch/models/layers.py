@@ -139,9 +139,10 @@ def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
     table = local(sharded)
     if x.dtype == ACC_DTYPE and table.dtype == ACC_DTYPE:
         logits = torch.matmul(x, table.t())
-    elif x.is_cuda and x.dtype == table.dtype:
+    elif x.device.type in ("cuda", "meta") and x.dtype == table.dtype:
         # bf16 operands, f32 accumulation and f32 output, with no f32 copy
-        # of the table
+        # of the table (the meta device, which the dry-run counts, takes the
+        # card's path)
         x2 = x.reshape(-1, x.shape[-1])
         logits = _F32Logits.apply(x2, table)
         logits = logits.reshape(*x.shape[:-1], table.shape[0])

@@ -183,7 +183,8 @@ def test_wrappers_without_a_backward_refuse_a_gradient_off_the_cpu():
     """``decode_attention_op`` refuses, by the wrapper's name, a call off
     the CPU whose input requires grad, and ``wkv6_op`` one its backward
     kernel cannot take (here f32 at D = 32; checked on the meta device,
-    which needs no card); under no_grad they go on to the device check; on
+    which needs no card); under no_grad the meta device (the dry-run's)
+    takes the card's checks, returns empty outputs and launches nothing; on
     the CPU they stay plain autograd ops."""
     from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.rwkv6_scan import wkv6_op
@@ -197,9 +198,12 @@ def test_wrappers_without_a_backward_refuse_a_gradient_off_the_cpu():
            meta(1, 2, 3, 32), meta(2, 32), meta(1, 2, 32, 32))
     with pytest.raises(RuntimeError, match="wkv6_op"):
         wkv6_op(*wkv)
+    common.reset_launch_counts()
     with torch.no_grad():
-        with pytest.raises(ValueError, match="unsupported device"):
-            wkv6_op(*wkv)
+        out, state = wkv6_op(*wkv)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 2, 3, 32)
+    assert tuple(state.shape) == (1, 2, 32, 32)
+    assert all(n == 0 for n in common.launch_counts.values())
     # on the CPU the plain decode version passes a gradient
     q = torch.randn(2, 4, 16, requires_grad=True)
     out = decode_attention_op(q, torch.randn(2, 2, 8, 16), torch.randn(2, 2, 8, 16), 5)

@@ -53,7 +53,10 @@ def test_scan_finds_the_port():
             "encdec.py", "optimizer.py", "train_loop.py", "train.py",
             "data.py", "checkpoint.py", "compression.py",
             "fault_tolerance.py", "registry.py", "sharding.py", "mesh.py",
-            "train_model_torch.py"} <= names
+            "train_model_torch.py", "op_stats.py", "dryrun.py",
+            "reanalyze.py", "admission.py", "telemetry.py", "drift.py",
+            "forecast.py", "replan.py", "accuracy.py", "metrics.py",
+            "spans.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):

@@ -72,15 +72,18 @@ VERBATIM = ("serving/eventloop.py", "serving/radix.py", "serving/simulator.py",
             "workflows/react_agent.py", "workflows/debate.py",
             "workflows/map_reduce.py", "workflows/session.py",
             "workflows/registry.py", "workflows/traffic.py",
-            "workflows/baselines.py", "distributed/fault_tolerance.py")
+            "workflows/baselines.py", "distributed/fault_tolerance.py",
+            "core/scepsy.py", "core/telemetry.py", "core/drift.py",
+            "core/forecast.py", "core/replan.py", "qos/__init__.py",
+            "qos/admission.py", "obs/__init__.py", "obs/accuracy.py",
+            "obs/metrics.py", "obs/spans.py")
 # the copies that are edited for the port, and why
 EDITED = {
     "hw.py": "the h100 class is the default; H100 host layouts",
-    "configs/base.py": "the trimmed ArchConfig (no dry-run shapes)",
+    "configs/base.py": "ArchConfig raises ValueError; no kv_bytes_per_token",
     "serving/costmodel.py": "docstring names the classes it prices",
     "core/profiler.py": "the Hopper tile plan replaces the TPU autotuner",
-    "core/scepsy.py": "deploy_multi(online=True) is not ported",
-    "core/__init__.py": "lists only what the port has",
+    "core/__init__.py": "names the Hopper tile plan and the port's packages",
     "launch/serve.py": "--gpus builds 8-GPU NVLink hosts",
 }
 
@@ -105,7 +108,7 @@ def test_edited_copies_exist_and_differ_from_the_reference(rel):
 
 
 @pytest.mark.parametrize("rel", VERBATIM + tuple(sorted(EDITED)) + (
-    "kernels/tile_plan.py", "qos/__init__.py", "workflows/__init__.py"))
+    "kernels/tile_plan.py", "workflows/__init__.py"))
 def test_planner_is_host_code(rel):
     """The planner and the tile plan import nothing of torch (the JAX side
     is checked for every port file in test_torch_isolation.py)."""
@@ -358,14 +361,6 @@ def test_uniform_default_spec_profiles_and_plans_on_h100():
     assert dep.schedule.prediction.feasible
     assert all(a.chip_class is None for a in dep.schedule.allocations.values())
     dep.placement.validate()
-
-
-def test_deploy_multi_online_is_not_ported():
-    spec = hw.H100_CLUSTER_32
-    with pytest.raises(NotImplementedError, match="A6"):
-        scepsy.deploy_multi([BEAM_SEARCH, RAG_RERANKER], spec,
-                            {"beam_search": 0.4, "rag_reranker": 0.4},
-                            online=True)
 
 
 def test_serve_launcher_plans_and_serves_on_8_gpus():

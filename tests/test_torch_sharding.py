@@ -210,7 +210,10 @@ def test_shard_model_refuses_what_it_cannot_run():
         sharding.check_shardable(get_config("qwen2-7b"), {"data": 1, "model": 8})
     with pytest.raises(ValueError, match="takes"):
         sharding.check_shardable(get_config("qwen2.5-3b"),
-                                 {"pod": 2, "data": 16, "model": 8})
+                                 {"expert": 2, "data": 16, "model": 8})
+    # the pod axis joins data parallelism
+    sharding.check_shardable(get_config("qwen2.5-3b"),
+                             {"pod": 2, "data": 16, "model": 8})
     sharding.check_shardable(get_config("glm4-9b"), {"data": 1, "model": 8})
 
 

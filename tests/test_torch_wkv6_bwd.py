@@ -222,7 +222,9 @@ def test_cpu_op_with_a_gradient_stays_the_plain_autograd_op():
 def test_backward_operands_refused_off_the_cpu():
     """A call off the CPU that needs a gradient must be bf16 at D = 64 with
     no ``out_state`` (checked on the meta device, which needs no card), and
-    a bf16 D = 64 one goes on to ``WKV6Fn`` and its device check."""
+    a bf16 D = 64 one goes on to ``WKV6Fn``, which on the meta device (the
+    dry-run's) returns empty outputs with a gradient and launches
+    nothing."""
     def meta(*shape, dtype=torch.float32, grad=False):
         return torch.empty(*shape, device="meta", dtype=dtype, requires_grad=grad)
 
@@ -237,8 +239,11 @@ def test_backward_operands_refused_off_the_cpu():
         call(128, torch.bfloat16)
     with pytest.raises(RuntimeError, match="wkv6_op: out_state"):
         call(64, torch.bfloat16, out_state=meta(1, 2, 64, 64))
-    with pytest.raises(ValueError, match="unsupported device"):
-        call(64, torch.bfloat16)
+    common.reset_launch_counts()
+    out, state = call(64, torch.bfloat16)
+    assert out.requires_grad and tuple(out.shape) == (1, 2, 3, 64)
+    assert tuple(state.shape) == (1, 2, 64, 64)
+    assert all(n == 0 for n in common.launch_counts.values())
     assert wkv6_ops.check_backward_operands(meta(1, 1, 1, 64, dtype=torch.bfloat16)) is None
 
 

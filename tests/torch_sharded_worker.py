@@ -3,8 +3,9 @@ of one gloo group on the CPU that run a sharded ``DenseLM`` on every case
 and return numpy results.  It imports no JAX: the parent bridges the
 reference's weights and hands them over as numpy arrays.
 
-Each case is a dict: ``key``, ``mesh`` (data, model), ``cfg``, ``params``
-(the reference's tree with numpy leaves), ``batch`` (tokens and labels),
+Each case is a dict: ``key``, ``mesh`` ((data, model), or (pod, data,
+model)), ``cfg``, ``params`` (the reference's tree with numpy leaves) or
+``seed`` (the port's seeded weights), ``batch`` (tokens and labels),
 ``prompts`` (B, S) and ``decode`` (steps, B) tokens, and ``requests`` (the
 engine's prompts).  ``run_case`` computes the same results for an
 unsharded model when it is given no mesh.
@@ -34,7 +35,10 @@ def _model(case, mesh):
     from repro_torch.models.transformer import DenseLM
 
     model = DenseLM(case["cfg"], device="cpu", dtype=torch.float32)
-    load_reference_params(model, case["params"])
+    if "params" in case:
+        load_reference_params(model, case["params"])
+    else:
+        model.init_params(torch.Generator().manual_seed(case["seed"]))
     return model if mesh is None else shard_model(model, mesh)
 
 
@@ -134,7 +138,8 @@ def rank_main(rank: int, world: int, store_path: str, cases, queue) -> None:
         layers.decode_attention_op = _recording(layers.decode_attention_op, seen)
         results = {}
         for case in cases:
-            mesh = make_mesh(case["mesh"], ("data", "model"), device_type="cpu")
+            axes = ("pod", "data", "model")[-len(case["mesh"]):]
+            mesh = make_mesh(case["mesh"], axes, device_type="cpu")
             results[case["key"]] = run_case(case, mesh)
             results[case["key"]]["kernel_input_types"] = sorted(seen)
         dist.destroy_process_group()
