@@ -147,15 +147,24 @@ WKV6 backward kernel), and prints one JSON object per phase:
    placement tables (``distributed.sharding``) beside the cost model's
    ``min_fraction_units`` (printed, not checked); then, over
    ``launch.mesh.single_device_mesh()`` (the (1, 1) mesh of a one-rank
-   NCCL process group, every weight a DTensor): llama-3.1-8b at full width
-   and depth serves the engine phase's first 8 requests, 16 new tokens
-   each, unsharded and then sharded in place, which must give the same
-   tokens and the same flash and decode launch counts with only plain
-   tensors reaching the kernel wrappers; and qwen2.5-3b at full width and
-   18 layers takes 3 train steps (4 x 2048 tokens) unsharded and 3 sharded
-   with ZeRO-1 moments from the same seed, which must be bit-equal in
-   every loss, weight and moment, with exactly ``train_launches`` in every
-   step;
+   NCCL process group, every weight a DTensor), each run unsharded and
+   then sharded in place, one model on the card at a time: at full width
+   and depth, llama-3.1-8b and olmoe-1b-7b serve the engine phase's first
+   4 requests and rwkv6-7b the rwkv engine phase's, 16 new tokens each,
+   through ``ServingEngine``, and llama-3.2-vision-11b (gates seeded
+   nonzero) and seamless-m4t-large-v2 ``generate`` 16 greedy steps from the
+   generate phase's batch (8 prompts of 512 tokens over seeded stub
+   inputs), each of which must give the same tokens and the same launch
+   counts of every kernel (flash and decode; rwkv6-7b's wkv6_chunk and
+   wkv6_scan) with only plain tensors reaching the kernel wrappers, its
+   wall seconds and step ms printed beside the unsharded run's; then
+   qwen2.5-3b at full width and 18 layers and rwkv6-7b at full width and 8
+   of its 32 layers each take 3 train steps (4 x 2048 tokens, one
+   microbatch) unsharded and 3 sharded with ZeRO-1 moments from the same
+   seed, which must be bit-equal in every loss, weight and moment, with
+   exactly ``train_launches`` in every step; the summary line sums each
+   kernel's launches over the sharded runs (the ``kernels`` line's
+   ``launches_shard``) and lists them by run;
 14. ``dryrun``: the dry-run's counts (``launch.dryrun.count_step``, the
    meta device under a fake process group, in a process of its own
    started after the build) held to the card over the ``shard`` phase's
@@ -2129,12 +2138,20 @@ def resume_phase(torch, np, cfg, dev, build_model, common):
 # phase 13: the dense decoders sharded over a (1, 1) NCCL mesh
 # ---------------------------------------------------------------------------
 
-# llama-3.1-8b serves the engine phase's first 8 requests, 16 new tokens
-# each; qwen2.5-3b trains 3 steps at full width and 18 of its 36 layers
-# (two runs' weights and f32 moments, 17 GB each, stay on the card at once
-# for the bit comparison; at full depth they would take 62 GB)
-SHARD_REQUESTS, SHARD_NEW = 8, 16
-SHARD_TRAIN = TrainSpec("qwen2.5-3b", 4, 2048, 1, 3, layers=18)
+# llama-3.1-8b and olmoe-1b-7b serve the engine phase's first 4 requests
+# (the third takes the first's 1024-token prefix from the cache), rwkv6-7b
+# the rwkv engine phase's first 4, 16 new tokens each (8 requests, three
+# prefix hits whose suffixes decode token by token, took llama 77 s
+# unsharded and sharded on a slow host, the whole script 1150 s of its
+# 1200); the VLM and seamless-m4t generate 16 steps from GENERATE's batch;
+# qwen2.5-3b trains 3 steps at full width and 18 of its 36 layers (two
+# runs' weights and f32 moments, 17 GB each, stay on the card at once for
+# the bit comparison; at full depth they would take 62 GB), rwkv6-7b 3
+# steps of 4 x 2048 tokens at 8 of its 32 layers (23 GB a run)
+SHARD_REQUESTS, SHARD_NEW = 4, 16
+SHARD_SERVE = (ARCH, MOE_ARCHS[0], RWKV_ARCH, *CROSS_ARCHS)
+SHARD_TRAINS = (TrainSpec("qwen2.5-3b", 4, 2048, 1, 3, layers=18),
+                TrainSpec(RWKV_ARCH, 4, 2048, 1, 3, layers=8))
 SHARD_WAYS = (1, 2, 4, 8)
 
 
@@ -2173,11 +2190,15 @@ def shard_bytes(get_config):
     return rows
 
 
-def _recording_kernels(layers, seen):
-    """Wrap the attention wrappers that ``models.layers`` calls so that the
-    types of their tensor arguments land in ``seen``; returns the undo."""
-    names = ("flash_attention_op", "decode_attention_op")
-    saved = {n: getattr(layers, n) for n in names}
+def _recording_kernels(seen):
+    """Wrap the kernel wrappers that the models call (the attention ones in
+    ``models.layers``, the WKV6 one in ``models.rwkv``) so that the types
+    of their tensor arguments land in ``seen``; returns the undo."""
+    from repro_torch.models import layers, rwkv
+
+    targets = [(layers, "flash_attention_op"), (layers, "decode_attention_op"),
+               (rwkv, "wkv6_op")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def wrap(fn):
         def call(*args, **kwargs):
@@ -2185,26 +2206,21 @@ def _recording_kernels(layers, seen):
             return fn(*args, **kwargs)
         return call
 
-    for n, fn in saved.items():
-        setattr(layers, n, wrap(fn))
-    return lambda: [setattr(layers, n, fn) for n, fn in saved.items()]
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(fn))
+    return lambda: [setattr(mod, name, fn) for mod, name, fn in saved]
 
 
-def shard_serve(torch, np, cfg, dev, build_model, common, mesh):
-    """llama-3.1-8b (full width and depth, bf16 weights from SEED) serves
-    SHARD_REQUESTS requests of the engine phase, SHARD_NEW tokens each,
-    through ``ServingEngine``, unsharded and then sharded in place over
-    ``mesh``.  ``ok`` needs every weight a DTensor, the same tokens, the
-    same flash and decode launch counts, and only plain tensors handed to
-    the kernel wrappers."""
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.distributed.sharding import shard_model
-    from repro_torch.models import layers
+def _engine_serve(torch, np, model, dev, common):
+    """A call that serves SHARD_REQUESTS requests of ``model``'s engine
+    phase (the llama traffic for a dense or MoE decoder, the rwkv traffic
+    for rwkv6-7b), SHARD_NEW tokens each, through ``ServingEngine``, the
+    launch counts set to 0 just before; returns (tokens by request, wall
+    s, launches, decode steps, ms a decode step of the wall)."""
     from repro_torch.serving.engine import ServeRequest, ServingEngine
 
-    model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
-    reqs = llama_prompts(np, cfg)[:SHARD_REQUESTS]
+    prompts = rwkv_prompts if model.cfg.family == "ssm" else llama_prompts
+    reqs = prompts(np, model.cfg)[:SHARD_REQUESTS]
 
     def serve():
         engine = ServingEngine(model, device=dev, slots=8, max_len=4096)
@@ -2215,49 +2231,98 @@ def shard_serve(torch, np, cfg, dev, build_model, common, mesh):
         t = time.perf_counter()
         done = engine.run_to_completion()
         torch.cuda.synchronize()
-        return ({r.req_id: list(r.generated) for r in done}, time.perf_counter() - t,
-                dict(common.launch_counts), engine.stats["decode_steps"])
+        wall = time.perf_counter() - t
+        steps = engine.stats["decode_steps"]
+        return ({r.req_id: list(r.generated) for r in done}, wall,
+                dict(common.launch_counts), steps, 1e3 * wall / steps)
 
-    tokens, wall, launches, steps = serve()
+    return serve, len(reqs)
+
+
+def _generate_serve(torch, np, model, common):
+    """A call that runs GENERATE's batch (8 prompts of 512 tokens over
+    seeded stub inputs) through ``generate`` for SHARD_NEW greedy steps,
+    the launch counts set to 0 just before; returns (tokens by row, wall
+    s, launches, decode steps, ms a decode step)."""
+    from repro_torch.launch.serve_model import generate, stub_inputs
+
+    cfg = model.cfg
+    requests, prompt, _ = GENERATE
+    rng = np.random.default_rng(SEED + 6)
+    tokens = rng.integers(0, cfg.vocab_size, size=(requests, prompt))
+    inputs = torch.from_numpy(stub_inputs(cfg, requests, rng)).to(model.device)
+
+    def serve():
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        out, times = generate(model, tokens, inputs, SHARD_NEW)
+        return (dict(enumerate(out.tolist())), times["prefill_s"] + times["decode_s"],
+                dict(common.launch_counts), SHARD_NEW,
+                1e3 * times["decode_s"] / SHARD_NEW)
+
+    return serve, requests
+
+
+def shard_serve(torch, np, cfg, dev, build_model, common, mesh):
+    """``cfg`` at full width and depth (bf16 weights from SEED, a VLM's
+    gates seeded nonzero) serves unsharded, then sharded in place over
+    ``mesh``: the engine (``_engine_serve``) or, for the VLM and the
+    enc-dec, ``generate`` (``_generate_serve``).  ``ok`` needs every weight
+    a DTensor, the same tokens, the same launch counts of every kernel
+    (each of the path's launched), and only plain tensors handed to the
+    kernel wrappers.  The wall seconds and step ms of both runs are
+    printed, not checked."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import shard_model
+
+    model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
+    if cfg.family in ("vlm", "audio"):
+        serve, requests = _generate_serve(torch, np, model, common)
+    else:
+        serve, requests = _engine_serve(torch, np, model, dev, common)
+    names = (("wkv6_chunk", "wkv6_scan") if cfg.family == "ssm"
+             else ("flash_attention", "decode_attention"))
+    tokens, wall, launches, steps, step_ms = serve()
     shard_model(model, mesh)
     dtensors = all(isinstance(p, DTensor) for p in model.parameters())
     seen = set()
-    undo = _recording_kernels(layers, seen)
+    undo = _recording_kernels(seen)
     try:
-        tokens_s, wall_s, launches_s, steps_s = serve()
+        tokens_s, wall_s, launches_s, steps_s, step_ms_s = serve()
     finally:
         undo()
-    names = ("flash_attention", "decode_attention")
     result = {
         "run": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-        "requests": len(reqs), "new_tokens": SHARD_NEW,
+        "requests": requests, "new_tokens": SHARD_NEW,
         "every_weight_a_dtensor": dtensors, "kernel_input_types": sorted(seen),
         "tokens_equal": tokens_s == tokens, "requests_done": len(tokens_s),
         "decode_steps": steps_s, "wall_s": wall, "wall_s_sharded": wall_s,
-        "launches": {n: launches.get(n, 0) for n in names},
-        "launches_sharded": {n: launches_s.get(n, 0) for n in names}}
-    result["ok"] = (dtensors and result["tokens_equal"] and len(tokens) == len(reqs)
+        "step_ms": step_ms, "step_ms_sharded": step_ms_s,
+        "launches": launches, "launches_sharded": launches_s}
+    result["ok"] = (dtensors and result["tokens_equal"] and len(tokens) == requests
                     and seen == {"Tensor"} and steps == steps_s
-                    and result["launches"] == result["launches_sharded"]
-                    and all(result["launches"][n] > 0 for n in names))
+                    and launches == launches_s
+                    and all(launches.get(n, 0) > 0 for n in names))
     del model
     return result
 
 
-def shard_train(torch, np, cfg, dev, build_model, common, mesh):
-    """SHARD_TRAIN: qwen2.5-3b at full width and SHARD_TRAIN.layers layers,
-    bf16 weights from SEED, SyntheticCorpus batches, 3 AdamW steps
-    unsharded (U), then 3 from the same seed sharded over ``mesh`` with
-    ZeRO-1 moments (S).  ``ok`` needs S's losses, weights, moments and step
-    bit-equal to U's, and exactly ``train_launches`` in every step of
-    both."""
+def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config,
+                mesh):
+    """``spec`` (an entry of SHARD_TRAINS): its arch at full width and
+    ``spec.layers`` layers, bf16 weights from SEED, SyntheticCorpus
+    batches, ``spec.steps`` AdamW steps unsharded (U), then as many from
+    the same seed sharded over ``mesh`` with ZeRO-1 moments (S).  ``ok``
+    needs S's losses, weights, moments and step bit-equal to U's, and
+    exactly ``train_launches`` in every step of both."""
     from repro_torch.analysis.op_stats import train_launches
     from repro_torch.distributed.sharding import local, shard_model
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import AdamWConfig, init_state
     from repro_torch.training.train_loop import make_train_step
 
-    spec = SHARD_TRAIN
+    cfg = dataclasses.replace(get_config(spec.arch), num_layers=spec.layers)
     data = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, spec.batch, seed=SEED))
     per_step = train_launches(cfg, spec.microbatches)
     expected = {name: per_step.get(name, 0) for name in common.KERNELS}
@@ -2309,21 +2374,30 @@ def shard_train(torch, np, cfg, dev, build_model, common, mesh):
 
 
 def shard_phase(torch, np, dev, build_model, common, get_config, mesh):
-    """The ``shard`` phase: the per-GPU bytes table, then ``shard_serve`` and
-    ``shard_train`` over ``mesh``, ``single_device_mesh()`` (a one-rank NCCL
-    process group); one line per run, then the phase's seconds (the two
-    runs, not the table) and launches by kernel, which it returns."""
+    """The ``shard`` phase: the per-GPU bytes table, then over ``mesh``,
+    ``single_device_mesh()`` (a one-rank NCCL process group), a
+    ``shard_serve`` of each of SHARD_SERVE and a ``shard_train`` of each of
+    SHARD_TRAINS, one model on the card at a time; one line per run, then
+    the phase's seconds (the runs, not the table) and its sharded runs'
+    launches by kernel, summed over the runs, which it returns."""
     emit({"phase": "shard", "run": "bytes", "host_gpus": 8,
           "per_gpu": shard_bytes(get_config)})
     t0 = time.perf_counter()
-    try:
-        results = [shard_serve(torch, np, get_config(ARCH), dev, build_model, common, mesh)]
-        emit({"phase": "shard", "mesh": list(mesh.shape), **results[-1]})
+    results = []
+
+    def record(result):
+        results.append(result)
+        emit({"phase": "shard", "mesh": list(mesh.shape), **result})
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = dataclasses.replace(get_config(SHARD_TRAIN.arch), num_layers=SHARD_TRAIN.layers)
-        results.append(shard_train(torch, np, cfg, dev, build_model, common, mesh))
-        emit({"phase": "shard", "mesh": list(mesh.shape), **results[-1]})
+
+    try:
+        for arch in SHARD_SERVE:
+            record(shard_serve(torch, np, get_config(arch), dev, build_model,
+                               common, mesh))
+        for spec in SHARD_TRAINS:
+            record(shard_train(torch, np, spec, dev, build_model, common,
+                               get_config, mesh))
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2331,10 +2405,11 @@ def shard_phase(torch, np, dev, build_model, common, get_config, mesh):
         if not r["ok"]:
             raise SmokeFailure(f"shard: the sharded {r['run']} run of {r['arch']} "
                                "differs from the unsharded one")
-    launches = Counter()
-    for r in results:
-        launches.update(r["launches_sharded"])
-    summary = {"seconds": time.perf_counter() - t0, "launches": dict(launches)}
+    # each kernel's launches in every sharded run, summed
+    launches = sum((Counter(r["launches_sharded"]) for r in results), Counter())
+    summary = {"seconds": time.perf_counter() - t0, "launches": dict(launches),
+               "launches_by_run": [{"run": r["run"], "arch": r["arch"],
+                                    **r["launches_sharded"]} for r in results]}
     emit({"phase": "shard", "run": "summary", **summary})
     return summary
 
@@ -3006,8 +3081,8 @@ def run():
         raise SmokeFailure("train_resume: a restored or resumed run is not "
                            "bit-equal to the uninterrupted one, or compression failed")
 
-    # the dense decoders sharded over a (1, 1) NCCL mesh, on a card free of
-    # the resume runs; then, over the same mesh on a card free of the shard
+    # the sharded families over a (1, 1) NCCL mesh, on a card free of the
+    # resume runs; then, over the same mesh on a card free of the shard
     # runs, the dry-run's counts against the card (one NCCL group a process:
     # torch's meshes do not survive its destruction and a new one)
     import torch.distributed as dist
@@ -3064,7 +3139,9 @@ def run():
                                           for arch, r in trained.items()
                                           if arch != TRAIN_RUNS[0].arch
                                           and r["launches"].get(name)}
-    # the shard phase's sharded runs (llama-3.1-8b served, qwen2.5-3b trained)
+    # the shard phase's sharded runs, summed (llama-3.1-8b, olmoe-1b-7b and
+    # rwkv6-7b served, the VLM and seamless generated, qwen2.5-3b and
+    # rwkv6-7b trained)
     for row in summary:
         if row["name"] in shard["launches"]:
             row["launches_shard"] = shard["launches"][row["name"]]

@@ -21,3 +21,12 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def model_device(device="cuda") -> torch.device:
+    """``resolve_device``, or the meta device (``device="meta"``), where a
+    model's weights are shapes alone: placement tables and the dry-run's
+    counts."""
+    if str(device) == "meta":
+        return torch.device("meta")
+    return resolve_device(device)

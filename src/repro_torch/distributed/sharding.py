@@ -19,9 +19,11 @@ families:
   never split: where ``num_kv_heads`` does not divide into the model ways,
   the KV projections stay whole on every rank, which uses the KV heads its
   query heads map to;
-* ``shard_model``: every weight of a dense decoder replaced in place by a
-  ``DTensor`` of its placement (the counterpart of ``tree_shardings``);
-* the Megatron collectives the dense layers call (``copy_to_model``,
+* ``shard_model``: every weight of a model of ``SHARDED_FAMILIES`` (dense
+  and MoE decoders, the encoders, rwkv6, the VLM, the enc-dec) replaced in
+  place by a ``DTensor`` of its placement (the counterpart of
+  ``tree_shardings``);
+* the Megatron collectives the layers call (``copy_to_model``,
   ``reduce_from_model``, ``gather_from_model``, each autograd-aware) and
   ``local``, which hands a kernel or a product the plain tensor of this
   rank's shard; its gradient is marked ``Partial`` over ``pod`` and
@@ -38,6 +40,7 @@ touches no device and no process group.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
@@ -52,9 +55,13 @@ DATA_AXES = (POD, DATA)
 
 Spec = Tuple  # of None | str | Tuple[str, ...], one entry per tensor dim
 
+# the families ``shard_model`` runs
+SHARDED_FAMILIES = ("dense", "moe", "encoder", "ssm", "vlm", "audio")
 # the attention weights that hold KV heads: whole on every rank where the
-# KV heads do not divide into the model ways
-KV_PROJECTIONS = ("attn.wk", "attn.wv", "attn.bk", "attn.bv")
+# KV heads do not divide into the model ways (self-attention, the enc-dec's
+# cross projections, and the VLM's cross layers' ``wk``/``wv``)
+KV_PROJECTIONS = ("attn.wk", "attn.wv", "attn.bk", "attn.bv", "wk_x", "wv_x")
+_CROSS_KV = re.compile(r"(^|\.)cross_layers\.\d+\.w[kv]$")
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -181,10 +188,16 @@ def param_specs(model: nn.Module) -> Dict[str, Spec]:
     return out
 
 
+def holds_kv_heads(name: str) -> bool:
+    """Whether the weight ``name`` projects onto KV heads (its columns, or
+    a bias's entries, are whole KV heads)."""
+    return name.endswith(KV_PROJECTIONS) or bool(_CROSS_KV.search(name))
+
+
 def fit_param_specs(model: nn.Module, mesh) -> Dict[str, Spec]:
     """``fit_spec`` of every weight's spec at ``mesh``, with one rule of the
     port's own: a head is never split, so where ``num_kv_heads`` does not
-    divide into the model ways the KV projections (``KV_PROJECTIONS``)
+    divide into the model ways the KV projections (``holds_kv_heads``)
     are replicated over ``model``.  (The reference's ``fit_spec`` checks
     only that the dim divides, and would split a KV head.)"""
     cfg = model.cfg
@@ -193,7 +206,7 @@ def fit_param_specs(model: nn.Module, mesh) -> Dict[str, Spec]:
     out = {}
     for name, p in model.named_parameters():
         spec = fit_spec(specs[name], tuple(p.shape), mesh)
-        if name.endswith(KV_PROJECTIONS) and cfg.num_kv_heads % ways:
+        if holds_kv_heads(name) and cfg.num_kv_heads % ways:
             spec = (None,) * p.ndim
         out[name] = spec
     return out
@@ -218,20 +231,30 @@ def per_gpu_bytes(model: nn.Module, mesh) -> Dict[str, int]:
 
 
 def check_shardable(cfg, mesh) -> None:
-    """Raise unless ``shard_model`` runs ``cfg`` on ``mesh``: a dense decoder
-    without experts, a mesh of ``pod``, ``data`` and ``model`` only, and
-    query heads that split whole into the model ways, each rank's onto
-    whole KV heads or into one."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: sharded execution covers the "
-                                  f"dense decoders; not the {cfg.family} family")
+    """Raise unless ``shard_model`` runs ``cfg`` on ``mesh``: a family of
+    ``SHARDED_FAMILIES``, a mesh of ``pod``, ``data`` and ``model`` only,
+    and heads that split whole into the model ways.  The query heads of
+    self-attention and of the cross layers (the VLM's, the enc-dec's: the
+    same counts) map each rank's share onto whole KV heads or into one;
+    rwkv6's WKV heads split whole.  The hybrid family is refused: hymba's
+    attention and Mamba heads have no split yet."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid family's head split (its {cfg.num_heads} "
+            f"attention and Mamba heads over the model ways) is not settled; "
+            f"sharded execution covers {', '.join(SHARDED_FAMILIES)}")
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: sharded execution covers "
+                                  f"{', '.join(SHARDED_FAMILIES)}; not the "
+                                  f"{cfg.family} family")
     sizes = axis_sizes(mesh)
     if set(sizes) - {POD, DATA, MODEL}:
         raise ValueError(f"mesh axes {sorted(sizes)}: sharded execution takes "
                          f"{(POD, DATA, MODEL)} only")
     ways = sizes.get(MODEL, 1)
+    kind = "WKV" if cfg.attn_free else "query"
     if cfg.num_heads % ways:
-        raise ValueError(f"{cfg.name}: {cfg.num_heads} query heads do not "
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} {kind} heads do not "
                          f"split into {ways} model ways (a head is never split)")
     local, group = cfg.num_heads // ways, cfg.num_heads // cfg.num_kv_heads
     if local % group and group % local:
@@ -274,7 +297,7 @@ def model_mesh(model: nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism: the collectives of the dense layers
+# Tensor parallelism: the collectives of the layers
 # ---------------------------------------------------------------------------
 
 
@@ -406,15 +429,23 @@ def gather_from_model(y: torch.Tensor, w) -> torch.Tensor:
     return _GatherFromModel.apply(y, tp.group, tp.ways, tp.rank)
 
 
-def attention_heads(p, cfg) -> Tuple[int, Optional[int]]:
+def model_ways(w) -> int:
+    """The model ways over which ``w`` is sharded: 1 for a plain tensor or
+    one replicated over ``model``."""
+    tp = model_shard(w)
+    return 1 if tp is None else tp.ways
+
+
+def attention_heads(wq, wk, cfg) -> Tuple[int, Optional[int]]:
     """(KV heads this rank holds, first KV head of a replicated projection
-    or None) of an attention group ``p``: every KV head unsharded, its
-    ``num_kv_heads / ways`` where ``wk`` is sharded over ``model``, else the
-    one KV head its query heads map to (``h // G``)."""
-    tp = model_shard(p["wq"])
+    or None) of an attention's ``wq`` and ``wk`` (self-attention's, or a
+    cross layer's): every KV head unsharded, its ``num_kv_heads / ways``
+    where ``wk`` is sharded over ``model``, else the one KV head its query
+    heads map to (``h // G``)."""
+    tp = model_shard(wq)
     if tp is None:
         return cfg.num_kv_heads, None
-    if model_shard(p["wk"]) is not None:
+    if model_shard(wk) is not None:
         return cfg.num_kv_heads // tp.ways, None
     group = cfg.num_heads // cfg.num_kv_heads
     return 1, tp.rank * (cfg.num_heads // tp.ways) // group

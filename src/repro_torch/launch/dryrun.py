@@ -56,7 +56,7 @@ from repro_torch.distributed.sharding import (DATA_AXES, axis_sizes,
                                               shard_model)
 from repro_torch.kernels.common import REPO_ROOT, Refused
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.zoo import build_model
 from repro_torch.training.optimizer import init_state
 from repro_torch.training.train_loop import make_train_step
 
@@ -107,16 +107,19 @@ def count_step(cfg: ArchConfig, shape: InputShape, mesh,
     "microbatches", "rows"}; raises what ``check_shardable`` or the
     kernels' checks raise."""
     check_shardable(cfg, mesh)
-    model = shard_model(DenseLM(cfg, device="meta"), mesh)
+    model = shard_model(build_model(cfg, device="meta"), mesh)
     sizes = axis_sizes(mesh)
     params = dict(model.named_parameters())
     B, S = shape.global_batch, shape.seq_len
+    # the VLM's image embeddings or the enc-dec's audio frames, B rows
+    extra = {name: _meta(*dims, dtype=dtype) for name, (dims, dtype)
+             in getattr(model, "extra_inputs", lambda b: {})(B).items()}
     mb = None
     if shape.kind == "train":
         mb = num_microbatches or pick_microbatches(cfg, shape, sizes)
         step = make_train_step(model, num_microbatches=mb)
         state = init_state(params)
-        batch = {"tokens": _meta(B, S), "labels": _meta(B, S)}
+        batch = {"tokens": _meta(B, S), "labels": _meta(B, S), **extra}
         args = [*params.values(), state.step, *state.m.values(),
                 *state.v.values(), *batch.values()]
         rows = data_rows(batch["tokens"], mesh).shape[0]
@@ -125,15 +128,17 @@ def count_step(cfg: ArchConfig, shape: InputShape, mesh,
             return step(state, batch)
     elif shape.kind == "prefill":
         tokens = data_rows(_meta(B, S), mesh)
-        args, rows = [*params.values(), tokens], tokens.shape[0]
+        inputs = {name: data_rows(t, mesh) for name, t in extra.items()}
+        args, rows = [*params.values(), tokens, *inputs.values()], tokens.shape[0]
 
         def run():
-            return model.prefill(tokens)
+            return model.prefill(tokens, **inputs)
     else:
         tokens = data_rows(_meta(B), mesh)
         rows = tokens.shape[0]
         cache = model.init_cache(rows, S)
-        args = [*params.values(), *cache, tokens]
+        leaves = cache.values() if isinstance(cache, dict) else cache
+        args = [*params.values(), *leaves, tokens]
 
         def run():
             # the last position of a full cache

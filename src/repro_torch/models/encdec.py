@@ -38,16 +38,17 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import MODEL
+from repro_torch.device import model_device
+from repro_torch.distributed.sharding import MODEL, attention_heads
 from repro_torch.models.layers import (ATTENTION_SPECS, MLP_SPECS, NORM_SPEC,
                                        VOCAB_SPEC, attention_block_decode,
                                        attention_block_prefill,
                                        bidirectional_attention,
+                                       column_parallel, cross_kv,
                                        decode_attention, embed_lookup,
-                                       full_lengths, matmul, mlp_block,
-                                       model_logits, model_loss, remat,
-                                       rms_norm)
+                                       full_lengths, mlp_block, model_logits,
+                                       model_loss, remat, rms_norm,
+                                       row_parallel)
 from repro_torch.models.transformer import (CACHE_DTYPE, EncoderLayer, _param,
                                             attention_params, dense_mlp,
                                             init_like_reference, layer_specs)
@@ -78,11 +79,9 @@ class EncDecLayer(nn.Module):
         self.mlp = dense_mlp(cfg, device, dtype)
 
     def cross_kv(self, enc_out, cfg):
-        """(B, F, d) encoder output -> k, v (B, F, KV, D)."""
-        B, F, _ = enc_out.shape
-        shape = (B, F, cfg.num_kv_heads, cfg.head_dim)
-        return (matmul(enc_out, self.wk_x).reshape(shape),
-                matmul(enc_out, self.wv_x).reshape(shape))
+        """(B, F, d) encoder output -> k, v (B, F, KV, D), KV this rank's
+        heads (``layers.cross_kv``)."""
+        return cross_kv(enc_out, self.wq_x, self.wk_x, self.wv_x, cfg)
 
     def _mlp(self, x, cfg):
         return x + mlp_block(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
@@ -101,10 +100,10 @@ class EncDecLayer(nn.Module):
             self.self_attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg,
             plain=plain)
         x = x + h
-        q = matmul(rms_norm(x, self.ln_x, cfg.norm_eps), self.wq_x)
+        q = column_parallel(rms_norm(x, self.ln_x, cfg.norm_eps), self.wq_x)
         attn = bidirectional_attention(
-            q.reshape(B, S, cfg.num_heads, cfg.head_dim), ck, cv, plain=plain)
-        x = x + matmul(attn.reshape(B, S, cfg.q_dim), self.wo_x)
+            q.reshape(B, S, -1, cfg.head_dim), ck, cv, plain=plain)
+        x = x + row_parallel(attn.reshape(B, S, -1), self.wo_x)
         return self._mlp(x, cfg), kv
 
     def decode(self, x, kv, ck, cv, pos, lengths, cfg, plain):
@@ -116,10 +115,10 @@ class EncDecLayer(nn.Module):
             self.self_attn, rms_norm(x, self.ln1, cfg.norm_eps), kv, pos, cfg,
             plain=plain)
         x = x + h
-        q = matmul(rms_norm(x, self.ln_x, cfg.norm_eps), self.wq_x)
-        attn = decode_attention(q.reshape(B, cfg.num_heads, cfg.head_dim),
+        q = column_parallel(rms_norm(x, self.ln_x, cfg.norm_eps), self.wq_x)
+        attn = decode_attention(q.reshape(B, -1, cfg.head_dim),
                                 ck, cv, lengths, plain=plain)
-        x = x + matmul(attn.reshape(B, cfg.q_dim), self.wo_x)
+        x = x + row_parallel(attn.reshape(B, -1), self.wo_x)
         return self._mlp(x, cfg)
 
 
@@ -133,7 +132,7 @@ class EncDecLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        dev = resolve_device(device)
+        dev = model_device(device)
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
@@ -232,9 +231,15 @@ class EncDecLM(nn.Module):
         return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
+        """Zero bf16 leaves of the cache layout; KV is this rank's KV heads
+        in a sharded model (``attention_heads``), of the self-attention and
+        of the cross projections."""
         cfg = self.cfg
-        kv = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-        frames = (cfg.num_layers, batch, cfg.num_kv_heads,
+        layer = self.dec_layers[0]
+        heads, _ = attention_heads(layer.self_attn["wq"], layer.self_attn["wk"], cfg)
+        kv = (cfg.num_layers, batch, heads, max_len, cfg.head_dim)
+        heads, _ = attention_heads(layer.wq_x, layer.wk_x, cfg)
+        frames = (cfg.num_layers, batch, heads,
                   cfg.num_audio_frames, cfg.head_dim)
         return {name: torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE)
                 for name, shape in (("k", kv), ("v", kv), ("ck", frames),

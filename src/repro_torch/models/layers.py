@@ -21,12 +21,12 @@ compare the two, passes it.
 Training shares two helpers: ``remat`` runs a layer under
 ``torch.utils.checkpoint`` and ``model_loss`` ends a decoder's loss.
 
-Tensor parallelism (``distributed.sharding.shard_model``) makes the dense
-decoder's weights DTensors; the functions here then follow the Megatron
-pattern and hand every product and kernel plain local tensors of whole
-heads: ``attention_qkv`` and ``mlp_block`` multiply by column shards, the
+Tensor parallelism (``distributed.sharding.shard_model``) makes the
+weights DTensors; the functions here then follow the Megatron pattern and
+hand every product and kernel plain local tensors of whole heads:
+``attention_qkv`` and ``mlp_block`` multiply by column shards, the
 attention kernels run on the local heads, ``wo`` and ``w_down`` give
-partial sums that are summed over ``model``, the vocab-sharded
+partial sums that ``row_parallel`` sums over ``model``, the vocab-sharded
 ``embed_lookup`` zeroes the tokens outside its rows and sums, and
 ``lm_head_logits`` gathers the logits' vocabulary.  A plain weight takes
 none of these steps.  ``ATTENTION_SPECS``, ``MLP_SPECS``, ``NORM_SPEC`` and
@@ -91,6 +91,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         # bf16 products accumulate in f32 on the card and on the CPU
         return torch.matmul(x, w)
     return torch.matmul(x.to(ACC_DTYPE), w.to(ACC_DTYPE)).to(x.dtype)
+
+
+def column_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``matmul(x, w)`` of a weight that may be sharded over ``model`` by
+    columns: this rank's columns, with x (whole on every rank) entering
+    through ``copy_to_model``, so that its gradient is summed over
+    ``model``."""
+    return matmul(copy_to_model(x, w), local(w))
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``matmul(x, w)`` of a weight that may be sharded over ``model`` by
+    rows (x's last dim holds this rank's part): the partial products
+    summed over ``model``."""
+    return reduce_from_model(matmul(x, local(w)), w)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -273,6 +288,18 @@ def full_lengths(cache: torch.Tensor) -> torch.Tensor:
                       device=cache.device)
 
 
+def _kv_columns(wq, wk, cfg) -> Tuple[int, slice, bool]:
+    """(KV heads this rank uses, the columns of this rank's KV projection
+    they are, whether that projection is whole on every rank), by
+    ``sharding.attention_heads``: a whole projection gives only the
+    columns of the KV head the rank's query heads map to."""
+    heads, first = attention_heads(wq, wk, cfg)
+    if first is None:
+        return heads, slice(None), False
+    D = cfg.head_dim
+    return heads, slice(first * D, (first + 1) * D), True
+
+
 def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,KV,D), rope applied.
@@ -283,9 +310,7 @@ def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg
     B, S, _ = x.shape
     D = cfg.head_dim
     x = copy_to_model(x, p["wq"])
-    kv_heads, first = attention_heads(p, cfg)
-    cols = slice(None) if first is None else slice(first * D, (first + 1) * D)
-    replicated = first is not None
+    kv_heads, cols, replicated = _kv_columns(p["wq"], p["wk"], cfg)
     q = matmul(x, local(p["wq"]))
     k = matmul(x, local(p["wk"], partial_over_model=replicated)[:, cols])
     v = matmul(x, local(p["wv"], partial_over_model=replicated)[:, cols])
@@ -301,6 +326,22 @@ def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg
     return q, k, v
 
 
+def cross_kv(src: torch.Tensor, wq, wk, wv, cfg
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V of a cross-attention (the VLM's image, the enc-dec's
+    encoder output) of ``src`` (B, F, d_src): k, v (B, F, KV, D), no rope,
+    KV this rank's heads (``sharding.attention_heads`` of ``wq`` and
+    ``wk``).  ``src`` enters through ``copy_to_model`` wherever ``wq`` is
+    sharded: each rank's K/V columns give a part of its gradient, also
+    where the projections are whole and each rank takes its KV head's
+    columns (their gradient is then summed over ``model`` too)."""
+    B, F, _ = src.shape
+    src = copy_to_model(src, wq)
+    heads, cols, replicated = _kv_columns(wq, wk, cfg)
+    return tuple(matmul(src, local(w, partial_over_model=replicated)[:, cols])
+                 .reshape(B, F, heads, cfg.head_dim) for w in (wk, wv))
+
+
 def attention_block_prefill(p, x: torch.Tensor, cfg, *, window: int = 0,
                             plain: bool = False):
     """Returns (output (B,S,d), (k, v) for the cache, layout (B,KV,S,D)).
@@ -312,8 +353,8 @@ def attention_block_prefill(p, x: torch.Tensor, cfg, *, window: int = 0,
     positions = torch.arange(S, device=x.device)
     q, k, v = attention_qkv(p, x, positions, cfg)
     out = causal_flash_attention(q, k, v, window=window, plain=plain)
-    out = matmul(out.reshape(B, S, -1), local(p["wo"]))
-    return reduce_from_model(out, p["wo"]), (k.transpose(1, 2), v.transpose(1, 2))
+    return (row_parallel(out.reshape(B, S, -1), p["wo"]),
+            (k.transpose(1, 2), v.transpose(1, 2)))
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
@@ -356,8 +397,7 @@ def attention_block_decode(p, x: torch.Tensor, kv_cache, pos, cfg, *,
     write_kv(v_cache, v.transpose(1, 2), write_idx)
     cache_len = torch.where(active, (pos + 1).clamp(max=Smax), 0)
     out = decode_attention(q[:, 0], k_cache, v_cache, cache_len, plain=plain)
-    out = matmul(out.reshape(B, -1), local(p["wo"]))
-    return reduce_from_model(out, p["wo"]), (k_cache, v_cache)
+    return row_parallel(out.reshape(B, -1), p["wo"]), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -372,4 +412,4 @@ def mlp_block(p, x: torch.Tensor, activation: str) -> torch.Tensor:
              * matmul(x, local(p["w_up"])))
     else:
         h = activate(matmul(x, local(p["w_up"])), activation)
-    return reduce_from_model(matmul(h, local(p["w_down"])), p["w_down"])
+    return row_parallel(h, p["w_down"])

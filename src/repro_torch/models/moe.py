@@ -20,6 +20,12 @@ masked out with ``torch.where`` instead, so a non-finite value in that
 slot can never reach the output.  ``route`` is looked up as a module
 attribute at every call, so a caller can wrap it (to record or replay the
 chosen experts) without a hook in the serving path.
+
+Sharded over ``model`` (``distributed.sharding.shard_model``), the router
+stays whole and each rank routes, places and drops its own rows exactly
+as unsharded (a data shard dispatches locally); the expert products use
+this rank's slice of every expert's f, and the combined output is summed
+over ``model``.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import MODEL
+from repro_torch.distributed.sharding import (MODEL, copy_to_model, local,
+                                              model_shard, reduce_from_model)
 from repro_torch.models.layers import ACC_DTYPE, activate, matmul
 
 # the reference's ``moe_defs`` placements: the experts' f over ``model``,
@@ -114,16 +121,20 @@ def expert_ffn(p, x: torch.Tensor, top_g: torch.Tensor, top_e: torch.Tensor,
     # (E, N, d) @ (E, d, f): one batched product per weight over the
     # experts, f32 accumulation, results in x's dtype
     buf = buf.reshape(E, B * (C + 1), d)
-    up = matmul(buf, p["w_up"])
+    up = matmul(buf, local(p["w_up"]))
     if "w_gate" in p:
-        h = activate(matmul(buf, p["w_gate"]), cfg.activation) * up
+        h = activate(matmul(buf, local(p["w_gate"])), cfg.activation) * up
     else:
         h = activate(up, cfg.activation)
-    out = matmul(h, p["w_down"]).reshape(E, B, C + 1, d)
+    out = matmul(h, local(p["w_down"])).reshape(E, B, C + 1, d)
     picked = out[e_flat, b_idx, dest]  # (B, S*K, d)
     gate = top_g.reshape(B, S * K).to(x.dtype)[:, :, None]
     picked = torch.where(keep[:, :, None], picked * gate, 0)
-    return picked.reshape(B, S, K, d).sum(dim=2)
+    # with w_down sharded over ``model`` each rank holds a partial sum of
+    # every expert's output; the gate-weighted sum over K is linear, so
+    # summing its (B, S, d) result over ``model`` is the sum of the
+    # (E, B, C + 1, d) buffer's, at 1 / (K * capacity factor) of the bytes
+    return reduce_from_model(picked.reshape(B, S, K, d).sum(dim=2), p["w_down"])
 
 
 def moe_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -131,6 +142,13 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     row."""
     if x.ndim == 2:
         return moe_block(p, x[:, None, :], cfg)[:, 0]
-    top_g, top_e = route(p["router"], x, cfg)
+    # sharded over ``model``, the experts' output is summed after the gates
+    # weigh it, so the gates' gradient, and through them the router's and
+    # x's, is a partial sum on each rank: x enters both the router and the
+    # dispatch through ``copy_to_model``, and the whole router's gradient
+    # is summed over ``model`` with the rest
+    partial = model_shard(p["w_down"]) is not None
+    x = copy_to_model(x, p["w_up"])
+    top_g, top_e = route(local(p["router"], partial_over_model=partial), x, cfg)
     pos = expert_positions(top_e, cfg.num_experts)
     return expert_ffn(p, x, top_g, top_e, pos, cfg)

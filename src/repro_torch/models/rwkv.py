@@ -25,7 +25,14 @@ states, under ``layers.remat``; on the card its WKV6 calls go through
 ``WKV6Fn`` (the forward kernel, then ``csrc/wkv6_bwd.cu``).
 
 The state is ``{"wkv": (L, B, H, D, D) f32, "tm_x": (L, B, d), "cm_x":
-(L, B, d)}``, the token-shift states in the weights' dtype.  (The reference
+(L, B, d)}``, the token-shift states in the weights' dtype.  Sharded over
+``model`` (``distributed.sharding.shard_model``, the reference's
+``LAYER_SPECS``), H is this rank's heads: ``wr``, ``wk``, ``wv``, ``wg``,
+``w_lora2`` and the channel mix's ``wk`` are column shards, each input of
+theirs entering through ``copy_to_model`` (so every weight upstream, the
+lerp's and the lora's first factor, which stay whole, gets a whole
+gradient), ``wo`` and the channel mix's ``wv`` row shards summed over
+``model``, and the WKV6 kernels run on the local heads.  (The reference
 declares them bf16 but writes back its decode's own dtype, so with bf16
 weights the two agree.)  ``decode_step`` updates the cache in place.
 """
@@ -38,13 +45,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import model_device
 from repro_torch.kernels.rwkv6_scan import wkv6_op, wkv6_scan_ref
-from repro_torch.distributed.sharding import MODEL
+from repro_torch.distributed.sharding import MODEL, local, model_ways
 from repro_torch.models.layers import (ACC_DTYPE, NORM_SPEC, VOCAB_SPEC,
-                                       activate, embed_lookup, matmul,
-                                       model_logits, model_loss, remat,
-                                       rms_norm)
+                                       activate, column_parallel,
+                                       embed_lookup, matmul, model_logits,
+                                       model_loss, remat, rms_norm,
+                                       row_parallel)
 
 LORA_R = 64  # decay lora rank
 DDLERP_R = 32  # data-dependent lerp rank
@@ -178,14 +186,22 @@ def wkv6(r, k, v, logw, u, state, *, plain: bool = False):
     return wkv6_op(r, k, v, logw, u, state, out_state=state)
 
 
+def local_heads(tm, cfg: ArchConfig) -> int:
+    """The WKV heads of a time mix on this rank: all of them unsharded,
+    ``num_heads / ways`` where its projections are sharded over
+    ``model``."""
+    return cfg.num_heads // model_ways(tm["wr"])
+
+
 def _ddlerp(tm, x: torch.Tensor, xx: torch.Tensor):
-    """RWKV6 data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g)."""
-    base = x + (xx - x) * tm["mu_x"]
-    lora = torch.tanh(matmul(base, tm["ddl_w1"]))
+    """RWKV6 data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g).
+    Its weights are whole on every rank, and so are its outputs."""
+    base = x + (xx - x) * local(tm["mu_x"])
+    lora = torch.tanh(matmul(base, local(tm["ddl_w1"])))
     lora = lora.reshape(*lora.shape[:-1], 5, DDLERP_R)
     delta = torch.einsum("...nr,nrd->...nd", lora.to(ACC_DTYPE),
-                         tm["ddl_w2"].to(ACC_DTYPE)).to(x.dtype)
-    mu = tm["mu"]
+                         local(tm["ddl_w2"]).to(ACC_DTYPE)).to(x.dtype)
+    mu = local(tm["mu"])
     return tuple(x + (xx - x) * (mu[i] + delta[..., i, :]) for i in range(5))
 
 
@@ -198,30 +214,35 @@ def _group_norm(x: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
 
 
 def _decay_and_gate(tm, xw: torch.Tensor, xg: torch.Tensor):
-    g = activate(matmul(xg, tm["wg"]), "silu")
-    logw = -torch.exp(tm["w0"].to(ACC_DTYPE)
-                      + matmul(torch.tanh(matmul(xw, tm["w_lora1"])),
-                               tm["w_lora2"]).to(ACC_DTYPE))
+    """The log decay and the gate, each of this rank's channels (``wg``,
+    ``w_lora2`` and ``w0`` sharded over ``model``; ``w_lora1`` whole)."""
+    g = activate(column_parallel(xg, tm["wg"]), "silu")
+    lora = torch.tanh(matmul(xw, local(tm["w_lora1"])))
+    logw = -torch.exp(local(tm["w0"]).to(ACC_DTYPE)
+                      + column_parallel(lora, tm["w_lora2"]).to(ACC_DTYPE))
     return logw, g
 
 
 def _mix_out(tm, out: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
-    """Groupnorm of the (..., H, D) wkv output, gate and output projection."""
+    """Groupnorm of the (..., H, D) wkv output (per head: no collective),
+    gate and output projection (``wo``'s rows of this rank's heads, summed
+    over ``model``)."""
     normed = _group_norm(out).reshape(*out.shape[:-2], -1)
-    normed = (normed * tm["gn_scale"].to(ACC_DTYPE)
-              + tm["gn_bias"].to(ACC_DTYPE)).to(dtype)
-    return matmul(normed * g, tm["wo"])
+    normed = (normed * local(tm["gn_scale"]).to(ACC_DTYPE)
+              + local(tm["gn_bias"]).to(ACC_DTYPE)).to(dtype)
+    return row_parallel(normed * g, tm["wo"])
 
 
 def _wkv_operands(tm, x: torch.Tensor, tm_x: torch.Tensor, cfg: ArchConfig):
     """The WKV6 operands of x (B, S, d) after the token-shift state tm_x
     (B, d): r, k, v and logw as (B, H, S, D) views of (B, S, H, D)
-    projections (no copy), and the gate g."""
+    projections (no copy), and the gate g.  H is this rank's heads
+    (``local_heads``)."""
     B, S, _ = x.shape
-    H, D = cfg.num_heads, cfg.head_dim
+    H, D = local_heads(tm, cfg), cfg.head_dim
     xx = torch.cat([tm_x[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
     xr, xk, xv, xw, xg = _ddlerp(tm, x, xx)
-    r, k, v = (matmul(a, tm[w]).view(B, S, H, D).transpose(1, 2)
+    r, k, v = (column_parallel(a, tm[w]).view(B, S, H, D).transpose(1, 2)
                for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
     logw, g = _decay_and_gate(tm, xw, xg)
     return r, k, v, logw.view(B, S, H, D).transpose(1, 2), g
@@ -233,7 +254,7 @@ def time_mix_prefill(tm, x: torch.Tensor, cfg: ArchConfig,
     """x: (B, S, d).  Returns (out, (last_x, wkv_state)); ``wkv_state`` is
     updated in place."""
     r, k, v, logw, g = _wkv_operands(tm, x, tm_state, cfg)
-    out, wkv_state = wkv6(r, k, v, logw, tm["u"].view(cfg.num_heads, cfg.head_dim),
+    out, wkv_state = wkv6(r, k, v, logw, local(tm["u"]).view(-1, cfg.head_dim),
                           wkv_state, plain=plain)
     return _mix_out(tm, out.transpose(1, 2), g, x.dtype), (x[:, -1], wkv_state)
 
@@ -243,27 +264,29 @@ def time_mix_decode(tm, x: torch.Tensor, cfg: ArchConfig,
                     plain: bool = False):
     """x: (B, d), one token.  ``wkv_state`` is updated in place."""
     B, _ = x.shape
-    H, D = cfg.num_heads, cfg.head_dim
+    H, D = local_heads(tm, cfg), cfg.head_dim
     xr, xk, xv, xw, xg = _ddlerp(tm, x, tm_state.to(x.dtype))
-    r, k, v = (matmul(a, tm[w]).view(B, H, 1, D)
+    r, k, v = (column_parallel(a, tm[w]).view(B, H, 1, D)
                for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
     logw, g = _decay_and_gate(tm, xw, xg)
-    out, wkv_state = wkv6(r, k, v, logw.view(B, H, 1, D), tm["u"].view(H, D),
-                          wkv_state, plain=plain)
+    out, wkv_state = wkv6(r, k, v, logw.view(B, H, 1, D),
+                          local(tm["u"]).view(H, D), wkv_state, plain=plain)
     return _mix_out(tm, out[:, :, 0], g, x.dtype), (x, wkv_state)
 
 
 def channel_mix(cm, x: torch.Tensor, cm_state: torch.Tensor, prefill: bool):
+    """The channel mix: ``wk`` sharded over ``model`` by columns, ``wv`` by
+    rows (summed over ``model``), the receptance ``wr`` whole."""
     if prefill:
         xx = torch.cat([cm_state[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
         new_state = x[:, -1]
     else:
         xx = cm_state.to(x.dtype)
         new_state = x
-    xk = x + (xx - x) * cm["mu_k"]
-    xr = x + (xx - x) * cm["mu_r"]
-    kv = matmul(activate(matmul(xk, cm["wk"]), "relu_sq"), cm["wv"])
-    gate = torch.sigmoid(matmul(xr, cm["wr"]).to(ACC_DTYPE)).to(x.dtype)
+    xk = x + (xx - x) * local(cm["mu_k"])
+    xr = x + (xx - x) * local(cm["mu_r"])
+    kv = row_parallel(activate(column_parallel(xk, cm["wk"]), "relu_sq"), cm["wv"])
+    gate = torch.sigmoid(matmul(xr, local(cm["wr"])).to(ACC_DTYPE)).to(x.dtype)
     return gate * kv, new_state
 
 
@@ -300,12 +323,12 @@ class RWKVLayer(nn.Module):
         """The loss's layer, the reference's ``layer_prefill`` from zero
         states: x (B, S, d) -> (B, S, d), writing nothing in place."""
         B, _, d = x.shape
-        H, D = cfg.num_heads, cfg.head_dim
+        H, D = local_heads(self.tm, cfg), cfg.head_dim
         shift = x.new_zeros(B, d)
         r, k, v, logw, g = _wkv_operands(
             self.tm, rms_norm(x, self.ln1, cfg.norm_eps), shift, cfg)
         out, _ = (wkv6_scan_ref if plain else wkv6_op)(
-            r, k, v, logw, self.tm["u"].view(H, D),
+            r, k, v, logw, local(self.tm["u"]).view(H, D),
             x.new_zeros(B, H, D, D, dtype=torch.float32))
         x = x + _mix_out(self.tm, out.transpose(1, 2), g, x.dtype)
         h, _ = channel_mix(self.cm, rms_norm(x, self.ln2, cfg.norm_eps),
@@ -326,7 +349,7 @@ class RWKVLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        dev = resolve_device(device)
+        dev = model_device(device)
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
@@ -394,10 +417,12 @@ class RWKVLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int):
         """Zero state for ``batch`` sequences; O(1) in length, so
-        ``max_len`` is ignored."""
+        ``max_len`` is ignored.  The WKV state holds this rank's heads
+        (``local_heads``), the token-shift states the whole width."""
         del max_len
         cfg = self.cfg
-        L, H, D, d = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.d_model
+        L, D, d = cfg.num_layers, cfg.head_dim, cfg.d_model
+        H = local_heads(self.layers[0].tm, cfg)
         return {
             "wkv": torch.zeros((L, batch, H, D, D), device=self.device,
                                dtype=torch.float32),

@@ -43,14 +43,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import model_device
 from repro_torch.distributed.sharding import attention_heads
 from repro_torch.models.layers import (ATTENTION_SPECS, MLP_SPECS, NORM_SPEC,
                                        VOCAB_SPEC, attention_block_decode,
                                        attention_block_prefill, attention_qkv,
                                        bidirectional_attention, embed_lookup,
-                                       matmul, mlp_block, model_logits,
-                                       model_loss, remat, rms_norm)
+                                       mlp_block, model_logits, model_loss,
+                                       remat, rms_norm, row_parallel)
 from repro_torch.models.moe import MOE_SPECS, moe_block, moe_shapes
 
 CACHE_DTYPE = torch.bfloat16
@@ -199,7 +199,7 @@ class DenseLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        dev = torch.device("meta") if device == "meta" else resolve_device(device)
+        dev = model_device(device)
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
@@ -282,7 +282,8 @@ class DenseLM(nn.Module):
         rank's KV heads in a sharded model (the reference's "heads"
         layout)."""
         cfg = self.cfg
-        kv_heads, _ = attention_heads(self.layers[0].attn, cfg)
+        attn = self.layers[0].attn
+        kv_heads, _ = attention_heads(attn["wq"], attn["wk"], cfg)
         shape = (cfg.num_layers, batch, kv_heads, max_len, cfg.head_dim)
         return (torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
                 torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE))
@@ -298,7 +299,7 @@ class EncoderLayer(_Block):
         q, k, v = attention_qkv(self.attn, rms_norm(x, self.ln1, cfg.norm_eps),
                                 positions, cfg)
         h = bidirectional_attention(q, k, v, plain=plain)
-        x = x + matmul(h.reshape(B, S, cfg.q_dim), self.attn["wo"])
+        x = x + row_parallel(h.reshape(B, S, -1), self.attn["wo"])
         return x + self._ffn(x, cfg)
 
 
@@ -312,7 +313,7 @@ class EncoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        dev = resolve_device(device)
+        dev = model_device(device)
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype

@@ -37,14 +37,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import MODEL
+from repro_torch.device import model_device
+from repro_torch.distributed.sharding import MODEL, attention_heads, local
 from repro_torch.models.layers import (MLP_SPECS, NORM_SPEC, VOCAB_SPEC,
                                        bidirectional_attention,
+                                       column_parallel, cross_kv,
                                        decode_attention, embed_lookup,
-                                       full_lengths, matmul, mlp_block,
-                                       model_logits, model_loss, remat,
-                                       rms_norm)
+                                       full_lengths, mlp_block, model_logits,
+                                       model_loss, remat, rms_norm,
+                                       row_parallel)
 from repro_torch.models.transformer import (CACHE_DTYPE, DecoderLayer, _param,
                                             dense_mlp, init_like_reference,
                                             layer_specs)
@@ -76,19 +77,19 @@ class CrossLayer(nn.Module):
         self.gate_mlp = _param((), device, torch.float32)
 
     def kv(self, image_embeds, cfg):
-        """``cross_kv``: (B, I, vd) -> k, v (B, I, KV, D)."""
-        B, I, _ = image_embeds.shape
-        shape = (B, I, cfg.num_kv_heads, cfg.head_dim)
-        return (matmul(image_embeds, self.wk).reshape(shape),
-                matmul(image_embeds, self.wv).reshape(shape))
+        """``cross_kv``: (B, I, vd) -> k, v (B, I, KV, D), KV this rank's
+        heads (``layers.cross_kv``)."""
+        return cross_kv(image_embeds, self.wq, self.wk, self.wv, cfg)
 
     def _gated(self, x, attn, cfg):
-        """The gated residuals around the attention output (..., q_dim)
-        and the MLP."""
-        x = x + torch.tanh(self.gate).to(x.dtype) * matmul(attn, self.wo)
+        """The gated residuals around the attention output (..., this
+        rank's heads' part of q_dim) and the MLP: ``wo``'s partial sums are
+        summed over ``model`` before the f32 ``tanh(gate)`` scales them,
+        and the gates stay whole."""
+        x = x + torch.tanh(local(self.gate)).to(x.dtype) * row_parallel(attn, self.wo)
         h = mlp_block(self.mlp, rms_norm(x, self.ln_mlp, cfg.norm_eps),
                       cfg.activation)
-        return x + torch.tanh(self.gate_mlp).to(x.dtype) * h
+        return x + torch.tanh(local(self.gate_mlp)).to(x.dtype) * h
 
     def forward(self, x, image_embeds, cfg, plain=False):
         """The training pass: the image's K/V (``kv``), then the layer."""
@@ -97,18 +98,18 @@ class CrossLayer(nn.Module):
     def prefill(self, x, k, v, cfg, plain):
         """``cross_layer_apply``: x (B, S, d) over k/v (B, I, KV, D)."""
         B, S, _ = x.shape
-        q = matmul(rms_norm(x, self.ln, cfg.norm_eps), self.wq)
+        q = column_parallel(rms_norm(x, self.ln, cfg.norm_eps), self.wq)
         attn = bidirectional_attention(
-            q.reshape(B, S, cfg.num_heads, cfg.head_dim), k, v, plain=plain)
-        return self._gated(x, attn.reshape(B, S, cfg.q_dim), cfg)
+            q.reshape(B, S, -1, cfg.head_dim), k, v, plain=plain)
+        return self._gated(x, attn.reshape(B, S, -1), cfg)
 
     def decode(self, x, ck, cv, lengths, cfg, plain):
         """One token per row, x (B, d), over the cached ck/cv (B, KV, I, D)."""
         B = x.shape[0]
-        q = matmul(rms_norm(x, self.ln, cfg.norm_eps), self.wq)
-        attn = decode_attention(q.reshape(B, cfg.num_heads, cfg.head_dim),
+        q = column_parallel(rms_norm(x, self.ln, cfg.norm_eps), self.wq)
+        attn = decode_attention(q.reshape(B, -1, cfg.head_dim),
                                 ck, cv, lengths, plain=plain)
-        return self._gated(x, attn.reshape(B, cfg.q_dim), cfg)
+        return self._gated(x, attn.reshape(B, -1), cfg)
 
 
 class VisionLM(nn.Module):
@@ -124,7 +125,7 @@ class VisionLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        dev = resolve_device(device)
+        dev = model_device(device)
         if cfg.num_layers % cfg.cross_attn_every:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
                              f"groups of {cfg.cross_attn_every}")
@@ -232,9 +233,15 @@ class VisionLM(nn.Module):
         return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
+        """Zero bf16 leaves of the cache layout; KV is this rank's KV heads
+        in a sharded model (``attention_heads``), of the self layers and of
+        the cross layers."""
         cfg = self.cfg
-        kv = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-        image = (len(self.cross_layers), batch, cfg.num_kv_heads,
+        attn, cross = self.self_layers[0].attn, self.cross_layers[0]
+        heads, _ = attention_heads(attn["wq"], attn["wk"], cfg)
+        kv = (cfg.num_layers, batch, heads, max_len, cfg.head_dim)
+        heads, _ = attention_heads(cross.wq, cross.wk, cfg)
+        image = (len(self.cross_layers), batch, heads,
                  cfg.num_image_tokens, cfg.head_dim)
         return {name: torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE)
                 for name, shape in (("k", kv), ("v", kv), ("ck", image),

@@ -15,7 +15,6 @@ check that the ``pod`` axis is data parallelism: (2, 1, 2) bit-equal to
 import dataclasses
 import json
 import math
-import multiprocessing
 
 import numpy as np
 import pytest
@@ -33,6 +32,7 @@ from repro_torch.distributed import sharding
 from repro_torch.kernels import common
 from repro_torch.launch import dryrun, reanalyze
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import build_model
 from repro_torch.models.transformer import DenseLM
 from repro_torch.training.optimizer import init_state
 from repro_torch.training.train_loop import make_train_step
@@ -255,6 +255,30 @@ def test_gemma_train_is_refused_as_on_the_card(tmp_path, mesh_name):
     assert rec["status"] == "refused" and "a head is never split" in rec["reason"]
 
 
+def test_rwkv_decode_counts_on_local_heads(tmp_path):
+    """rwkv6-7b's decode_32k at ``gpu32x8`` (256 GPUs, model ways 8): 128
+    rows over 32 data ranks, 4 a GPU, each holding its 8 of the 64 WKV
+    heads.  Its arguments are this GPU's weight shards, the state (the
+    WKV state of its heads in f32, the token shifts at the whole width in
+    bf16) and the 128 int32 tokens every rank is handed (its rows are a
+    view of them); one scan launch a layer; per layer the two
+    row-parallel sums (the time mix's ``wo``, the channel mix's ``wv``),
+    plus the embedding's sum and the logits' all-gather."""
+    rec = dryrun.run_cell("rwkv6-7b", "decode_32k", "gpu32x8", tmp_path)
+    assert rec["status"] == "ok" and rec["rows_per_gpu"] == 4
+    cfg = get_config("rwkv6-7b")
+    L, D, d, rows = cfg.num_layers, cfg.head_dim, cfg.d_model, 4
+    model = build_model(cfg, device="meta")
+    weights = sharding.per_gpu_bytes(model, {"data": 32, "model": 8})["weights"]
+    state = L * rows * (cfg.num_heads // 8) * D * D * 4 + 2 * L * rows * d * 2
+    assert rec["memory"]["argument_bytes"] == weights + state + 4 * 128
+    kernels = rec["op_stats"]["kernels"]
+    assert {k: v["calls"] for k, v in kernels.items()} == {"wkv6_scan": L}
+    coll = rec["collectives"]
+    assert coll["all-reduce"]["count"] == 2 * L + 1
+    assert coll["all-gather"]["count"] == 1
+
+
 def test_rows_that_do_not_divide_split_as_fit_spec(fake_world):
     """At (2, 32, 8): 128 rows split 64 ways; 32 rows do not, so ``data``
     is dropped and the pod halves them; 1 row runs on every rank."""
@@ -289,23 +313,8 @@ def pod_runs(tmp_path_factory):
         "requests": [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                      for n in (5, 9, 12)]}
     cases = [dict(common_case, key=k, mesh=m) for k, m in POD_CASES.items()]
-    ctx = multiprocessing.get_context("spawn")
-    queue = ctx.Queue()
     store = str(tmp_path_factory.mktemp("pod") / "store")
-    procs = [ctx.Process(target=worker.rank_main, args=(rank, WORLD, store, cases, queue))
-             for rank in range(WORLD)]
-    for p in procs:
-        p.start()
-    try:
-        got = dict(queue.get(timeout=240) for _ in procs)
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-    bad = {rank: r for rank, r in got.items() if isinstance(r, str)}
-    assert not bad, "\n".join(f"rank {rank}:\n{tb}" for rank, tb in bad.items())
-    return [got[r] for r in range(WORLD)]
+    return worker.run_ranks(cases, store, WORLD)[0]
 
 
 def _equal(a, b, what):

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` nor its root
 scripts ``chip_smoke.py``, ``kernel_ab.py`` and ``wkv6_split_probe.py``
-nor its example ``examples/train_model_torch.py`` imports JAX or anything of the JAX package, and its entry points run on
-the card unless the caller names the CPU."""
+nor its example ``examples/train_model_torch.py`` nor the sharded tests'
+rank worker ``tests/torch_sharded_worker.py`` imports JAX or anything of
+the JAX package, and its entry points run on the card unless the caller
+names the CPU."""
 import ast
 from pathlib import Path
 
@@ -20,7 +22,8 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "kernel_ab.py", REPO / "wkv6_split_probe.py",
-     REPO / "examples" / "train_model_torch.py"]
+     REPO / "examples" / "train_model_torch.py",
+     REPO / "tests" / "torch_sharded_worker.py"]
 
 
 def _imported_roots(path: Path):
@@ -56,7 +59,7 @@ def test_scan_finds_the_port():
             "train_model_torch.py", "op_stats.py", "dryrun.py",
             "reanalyze.py", "admission.py", "telemetry.py", "drift.py",
             "forecast.py", "replan.py", "accuracy.py", "metrics.py",
-            "spans.py"} <= names
+            "spans.py", "torch_sharded_worker.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):

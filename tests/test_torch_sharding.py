@@ -25,7 +25,6 @@ and against the unsharded port.
   engine's tokens exactly.
 """
 import dataclasses
-import multiprocessing
 import types
 
 import jax
@@ -201,10 +200,24 @@ def test_fitted_specs_split_no_kv_head(arch):
 
 
 def test_shard_model_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="moe"):
-        sharding.check_shardable(get_config("olmoe-1b-7b"), {"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ssm"):
-        sharding.check_shardable(get_config("rwkv6-7b"), {"data": 1, "model": 1})
+    # hymba's attention and Mamba heads have no split yet
+    for sizes in ({"data": 1, "model": 1}, {"data": 1, "model": 5}):
+        with pytest.raises(NotImplementedError, match="head split"):
+            sharding.check_shardable(get_config("hymba-1.5b"), sizes)
+    # every other family runs at one 8-GPU host and at two pods of them
+    # wherever its heads split whole 8 ways
+    admitted = [name for name, cfg in REGISTRY.items()
+                if cfg.family in ("moe", "encoder", "ssm", "vlm", "audio")]
+    assert {REGISTRY[n].family for n in admitted} == {"moe", "encoder", "ssm",
+                                                       "vlm", "audio"}
+    for name in admitted:
+        cfg = get_config(name)
+        for sizes in ({"data": 1, "model": 8}, {"pod": 2, "data": 16, "model": 8}):
+            if cfg.num_heads % 8 == 0:
+                sharding.check_shardable(cfg, sizes)
+            else:
+                with pytest.raises(ValueError, match="a head is never split"):
+                    sharding.check_shardable(cfg, sizes)
     # qwen2-7b's 28 heads do not split 8 ways
     with pytest.raises(ValueError, match="a head is never split"):
         sharding.check_shardable(get_config("qwen2-7b"), {"data": 1, "model": 8})
@@ -280,26 +293,12 @@ def runs(tmp_path_factory):
     """Every case on its mesh (each rank's results) and unsharded (run
     here while the ranks run)."""
     cases = _cases()
-    ctx = multiprocessing.get_context("spawn")
-    queue = ctx.Queue()
     store = str(tmp_path_factory.mktemp("sharding") / "store")
-    procs = [ctx.Process(target=worker.rank_main,
-                         args=(rank, WORLD, store, cases, queue))
-             for rank in range(WORLD)]
-    for p in procs:
-        p.start()
-    try:
-        plain = {case["key"]: worker.run_case(case) for case in cases}
-        got = dict(queue.get(timeout=240) for _ in procs)
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-    bad = {rank: r for rank, r in got.items() if isinstance(r, str)}
-    assert not bad, "\n".join(f"rank {rank}:\n{tb}" for rank, tb in bad.items())
-    return {case["key"]: ([got[r][case["key"]] for r in range(WORLD)],
-                          plain[case["key"]], case) for case in cases}
+    got, plain = worker.run_ranks(
+        cases, store, WORLD,
+        meanwhile=lambda: {case["key"]: worker.run_case(case) for case in cases})
+    return {case["key"]: ([r[case["key"]] for r in got], plain[case["key"]], case)
+            for case in cases}
 
 
 def _close(ours, ref, tol, what):

@@ -1,14 +1,19 @@
-"""The ranks of ``tests/test_torch_sharding.py``'s sharded runs: processes
-of one gloo group on the CPU that run a sharded ``DenseLM`` on every case
-and return numpy results.  It imports no JAX: the parent bridges the
-reference's weights and hands them over as numpy arrays.
+"""The ranks of the sharded runs of ``tests/test_torch_sharding.py``,
+``tests/test_torch_sharding_families.py`` and ``tests/test_torch_dryrun.py``:
+processes of one gloo group on the CPU that run a sharded model of any
+family ``shard_model`` takes on every case and return numpy results.  It
+imports no JAX: the parent bridges the reference's weights and hands them
+over as numpy arrays.
 
 Each case is a dict: ``key``, ``mesh`` ((data, model), or (pod, data,
 model)), ``cfg``, ``params`` (the reference's tree with numpy leaves) or
-``seed`` (the port's seeded weights), ``batch`` (tokens and labels),
-``prompts`` (B, S) and ``decode`` (steps, B) tokens, and ``requests`` (the
-engine's prompts).  ``run_case`` computes the same results for an
-unsharded model when it is given no mesh.
+``seed`` (the port's seeded weights), ``batch`` (tokens and labels, and
+the VLM's ``image_embeds`` or the enc-dec's ``audio_frames``), ``prompts``
+(B, S) and ``decode`` (steps, B) tokens, ``prompt_inputs`` (the prompts'
+image or audio input, where the family takes one) and ``requests`` (the
+engine's prompts; the VLM and the enc-dec ``generate`` from the prompts
+instead, and an encoder has no decode).  ``run_case`` computes the same
+results for an unsharded model when it is given no mesh.
 """
 from __future__ import annotations
 
@@ -32,9 +37,9 @@ def _full(t) -> np.ndarray:
 def _model(case, mesh):
     from repro_torch.bridge import load_reference_params
     from repro_torch.distributed.sharding import shard_model
-    from repro_torch.models.transformer import DenseLM
+    from repro_torch.models import build_model
 
-    model = DenseLM(case["cfg"], device="cpu", dtype=torch.float32)
+    model = build_model(case["cfg"], device="cpu", dtype=torch.float32)
     if "params" in case:
         load_reference_params(model, case["params"])
     else:
@@ -69,7 +74,7 @@ def run_case(case, mesh=None) -> dict:
     if mesh is not None:
         reduce_gradients(model.parameters())
         loss = data_mean(loss, mesh)
-    out["loss"] = float(loss)
+    out["loss"] = float(loss.detach())
     out["grads"] = {n: _full(p.grad) for n, p in model.named_parameters()}
 
     # STEPS train steps in MICROBATCHES microbatches
@@ -91,23 +96,77 @@ def run_case(case, mesh=None) -> dict:
     # a prefill of the prompts, then decode steps over a longer cache
     model = _model(case, mesh)
     prompts = torch.as_tensor(case["prompts"])
-    logits, small = model.prefill(prompts)
-    cache = model.init_cache(prompts.shape[0], CACHE_LEN)
-    for b in range(prompts.shape[0]):
-        _merge_slot(cache, tuple(t[:, b:b + 1] for t in small), b)
-    seq = [logits]
-    for i, tokens in enumerate(case["decode"]):
-        logits, cache = model.decode_step(cache, tokens, prompts.shape[1] + i)
-        seq.append(logits)
+    extra = {n: torch.as_tensor(a) for n, a in case.get("prompt_inputs", {}).items()}
+    routes = _recording_routes() if model.cfg.is_moe else None
+    try:
+        logits, small = model.prefill(prompts, **extra)
+        if model.cfg.family == "encoder":  # the pooled embedding; no cache
+            out["serve_logits"] = logits.float().numpy()
+            return out
+        cache = model.init_cache(prompts.shape[0], CACHE_LEN)
+        for b in range(prompts.shape[0]):
+            _merge_slot(cache, _rows(small, b), b)
+        seq = [logits]
+        for i, tokens in enumerate(case["decode"]):
+            logits, cache = model.decode_step(cache, tokens, prompts.shape[1] + i)
+            seq.append(logits)
+    finally:
+        if routes is not None:
+            out["routes"] = routes()
     out["serve_logits"] = torch.stack(seq).float().numpy()
-    out["cache_heads"] = cache[0].shape[2]
+    out["cache_heads"] = cache[0].shape[2] if isinstance(cache, tuple) else None
+    out["cache_shapes"] = {name: tuple(leaf.shape) for name, leaf in _leaves(cache)}
 
+    if model.cfg.family in ("vlm", "audio"):
+        from repro_torch.launch.serve_model import generate
+
+        (inputs,) = extra.values()
+        generated, _ = generate(model, prompts, inputs, MAX_NEW)
+        out["tokens"] = {b: row.tolist() for b, row in enumerate(generated)}
+        return out
     engine = ServingEngine(model, device="cpu", slots=len(case["requests"]),
                            max_len=CACHE_LEN)
     for i, prompt in enumerate(case["requests"]):
         engine.submit(ServeRequest(i, prompt, max_new_tokens=MAX_NEW))
     out["tokens"] = {r.req_id: list(r.generated) for r in engine.run_to_completion()}
     return out
+
+
+def _leaves(cache):
+    """(name, leaf) of a cache: a (k, v) pair or a dict."""
+    return cache.items() if isinstance(cache, dict) else zip("kv", cache)
+
+
+def _rows(small, b):
+    """Row ``b`` of a prefill cache, as ``_merge_slot`` takes it."""
+    if isinstance(small, dict):
+        return {name: leaf[:, b:b + 1] for name, leaf in small.items()}
+    return tuple(t[:, b:b + 1] for t in small)
+
+
+def _recording_routes():
+    """Wrap ``models.moe.route`` so that every call's f32 router logits
+    (B, S, E), chosen experts (B, S, K) and kept choices (B, S, K) are
+    recorded; returns the undo, which returns the records as numpy."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def recording(router, x, cfg):
+        top_g, top_e = route(router, x, cfg)
+        B, S, K = top_e.shape
+        keep = moe.expert_positions(top_e, cfg.num_experts) < moe.capacity_per_row(S, cfg)
+        calls.append({"logits": (x.float() @ router.float()).detach().numpy(),
+                      "experts": top_e.numpy(), "kept": keep.reshape(B, S, K).numpy()})
+        return top_g, top_e
+
+    moe.route = recording
+
+    def undo():
+        moe.route = route
+        return calls
+
+    return undo
 
 
 def _recording(fn, seen):
@@ -126,7 +185,7 @@ def rank_main(rank: int, world: int, store_path: str, cases, queue) -> None:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import layers
+    from repro_torch.models import layers, rwkv
 
     torch.set_num_threads(1)
     try:
@@ -136,6 +195,7 @@ def rank_main(rank: int, world: int, store_path: str, cases, queue) -> None:
         seen = set()
         layers.flash_attention_op = _recording(layers.flash_attention_op, seen)
         layers.decode_attention_op = _recording(layers.decode_attention_op, seen)
+        rwkv.wkv6_op = _recording(rwkv.wkv6_op, seen)
         results = {}
         for case in cases:
             axes = ("pod", "data", "model")[-len(case["mesh"]):]
@@ -146,3 +206,31 @@ def rank_main(rank: int, world: int, store_path: str, cases, queue) -> None:
         queue.put((rank, results))
     except Exception:  # reported to the parent, which fails the tests
         queue.put((rank, traceback.format_exc()))
+
+
+def run_ranks(cases, store: str, world: int, meanwhile=lambda: None,
+              timeout: float = 240):
+    """Every case on ``world`` spawned ranks (``rank_main``, a gloo group
+    over a ``FileStore`` at ``store``), while this process runs
+    ``meanwhile()``.  Returns ([each rank's {key: results}], what
+    ``meanwhile`` returned); raises with every failed rank's traceback."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=rank_main, args=(rank, world, store, cases, queue))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        here = meanwhile()
+        got = dict(queue.get(timeout=timeout) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    bad = {rank: r for rank, r in got.items() if isinstance(r, str)}
+    if bad:
+        raise RuntimeError("\n".join(f"rank {rank}:\n{tb}" for rank, tb in bad.items()))
+    return [got[r] for r in range(world)], here
