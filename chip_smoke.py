@@ -113,13 +113,14 @@ WKV6 backward kernel), and prints one JSON object per phase:
    gradient's RMS error within BF16_ERR_RATIO of the plain bf16 run's, no
    gradient zero); then ``train``, bf16 seeded weights and AdamW on the
    reference's synthetic corpus, with seeded stub image or audio inputs
-   and nonzero VLM gates: qwen2.5-3b at full width and depth for 30 steps
-   of 8 x 2048 tokens in 4 microbatches, e5-base-v2 and reranker-minilm
-   (16 x 512), hymba-1.5b (2 x 2048, past its window), seamless-m4t-large-v2
-   (8 x 512 over 1024 frames a row, 2 microbatches), the VLM at full
-   width and 2 of its 8 groups (4 x 512 over 1601 image embeddings; the
-   f32 moments of all 11.47 B weights would not fit) and rwkv6-7b at full
-   width and 8 of its 32 layers (qwen's 8 x 2048 in 4 microbatches), one
+   and nonzero VLM gates (the steps of TRAIN_RUNS): qwen2.5-3b at full
+   width and depth for 30 steps of 8 x 2048 tokens in 4 microbatches,
+   e5-base-v2 and reranker-minilm (15 of 16 x 512), hymba-1.5b (10 of 2 x
+   2048, past its window), seamless-m4t-large-v2 (15 of 8 x 512 over 1024
+   frames a row, 2 microbatches), the VLM at full width and 2 of its 8
+   groups (15 of 4 x 512 over 1601 image embeddings; the f32 moments of
+   all 11.47 B weights would not fit) and rwkv6-7b at full width and 8 of
+   its 32 layers (20 of qwen's 8 x 2048 in 4 microbatches), one
    ``train_step`` line per step (loss, ms, tokens/s, grad norm, model
    FLOPs share), peak memory, a ``torch.profiler`` window of one step
    (busy share, the backward kernel's ms); a run fails unless every loss
@@ -151,15 +152,18 @@ WKV6 backward kernel), and prints one JSON object per phase:
    then sharded in place, one model on the card at a time: at full width
    and depth, llama-3.1-8b and olmoe-1b-7b serve the engine phase's first
    4 requests and rwkv6-7b the rwkv engine phase's, 16 new tokens each,
-   through ``ServingEngine``, and llama-3.2-vision-11b (gates seeded
+   through ``ServingEngine``, hymba-1.5b its engine phase's first 4 (the
+   hybrid cache, no prefix reuse), and llama-3.2-vision-11b (gates seeded
    nonzero) and seamless-m4t-large-v2 ``generate`` 16 greedy steps from the
    generate phase's batch (8 prompts of 512 tokens over seeded stub
    inputs), each of which must give the same tokens and the same launch
    counts of every kernel (flash and decode; rwkv6-7b's wkv6_chunk and
    wkv6_scan) with only plain tensors reaching the kernel wrappers, its
    wall seconds and step ms printed beside the unsharded run's; then
-   qwen2.5-3b at full width and 18 layers and rwkv6-7b at full width and 8
-   of its 32 layers each take 3 train steps (4 x 2048 tokens, one
+   qwen2.5-3b at full width and 18 layers, rwkv6-7b at full width and 8
+   of its 32 layers (4 x 2048 tokens) and hymba-1.5b at full width and its
+   layers 0-3 (a full-attention layer and three window layers; 2 x 2048
+   tokens, past the window) each take 3 train steps (one
    microbatch) unsharded and 3 sharded with ZeRO-1 moments from the same
    seed, which must be bit-equal in every loss, weight and moment, with
    exactly ``train_launches`` in every step; the summary line sums each
@@ -194,9 +198,12 @@ WKV6 backward kernel), and prints one JSON object per phase:
    batches, contexts and prompts beside those phases' measured times
    (printed, not checked);
 
-then the ``kernels`` summary line, the card's ``nvidia-smi`` line and, last,
-``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
-the last line.
+then a ``wall`` line (the script's seconds so far, beside qwen2.5-3b's
+``train`` tokens/s, so that a slow host shows as one), the ``kernels``
+summary line, the card's ``nvidia-smi`` line and, last,
+``{"ok": true, "device": ...}``.  Every phase line carries ``t_s``, the
+script's seconds when it was printed.  Any failed check exits non-zero
+before the last line.
 """
 from __future__ import annotations
 
@@ -253,7 +260,13 @@ class SmokeFailure(Exception):
     pass
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line with the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1512,14 +1525,15 @@ def device_breakdown(torch, calls):
     """Device time by kernel over ``calls`` (zero-argument functions), from
     ``torch.profiler``: the attention kernels, the matrix products (cuBLAS
     and CUTLASS kernels) and the rest, beside the host's wall time of the
-    window.  Measurement only: a profiler that fails is reported, not
-    fatal."""
+    window.  Only the card's activity is traced (the host's ops are not
+    recorded, which took a train step of hymba's ~30 s to trace and sort).
+    Measurement only: a profiler that fails is reported, not fatal."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for fn in calls:
                 fn()
@@ -1650,13 +1664,19 @@ class TrainSpec(NamedTuple):
 # at AdamW's default peak rate: at 1e-3 its loss climbed back from step 7;
 # rwkv6-7b at qwen's batches and 8 of its 32 layers (2.30 B weights: the
 # f32 moments of all 7.58 B, with bf16 weights and gradients, take 91 GB)
+#
+# Steps are cut to what the loss bar needs, with margin, to keep the
+# script's time (a run at the longer counts on NVIDIA H100 80GB HBM3,
+# 700.00 W: the last 5 steps' mean over the first 5's at 15 steps e5
+# 0.193, reranker 0.075, seamless 0.530 and the VLM 0.586, at 10 hymba
+# 0.638, at 20 rwkv 0.698; qwen2.5-3b needs its 30: 0.718 at 25)
 TRAIN_RUNS = [TrainSpec("qwen2.5-3b", 8, 2048, 4, 30),
-              TrainSpec("e5-base-v2", 16, 512, 1, 30),
-              TrainSpec("reranker-minilm", 16, 512, 1, 30),
-              TrainSpec("hymba-1.5b", 2, 2048, 1, 15),
-              TrainSpec("seamless-m4t-large-v2", 8, 512, 2, 20),
-              TrainSpec("llama-3.2-vision-11b", 4, 512, 1, 30, layers=10, lr=3e-4),
-              TrainSpec(RWKV_ARCH, 8, 2048, 4, 30, layers=8)]
+              TrainSpec("e5-base-v2", 16, 512, 1, 15),
+              TrainSpec("reranker-minilm", 16, 512, 1, 15),
+              TrainSpec("hymba-1.5b", 2, 2048, 1, 10),
+              TrainSpec("seamless-m4t-large-v2", 8, 512, 2, 15),
+              TrainSpec("llama-3.2-vision-11b", 4, 512, 1, 15, layers=10, lr=3e-4),
+              TrainSpec(RWKV_ARCH, 8, 2048, 4, 20, layers=8)]
 # the gradients at full depth, one forward_loss and backward each, no
 # update: (phase, rows, seq) by arch; the VLM's 48 layers over 4 x 512
 # tokens, rwkv6-7b's 32 over 4 x 2048
@@ -2147,11 +2167,15 @@ def resume_phase(torch, np, cfg, dev, build_model, common):
 # qwen2.5-3b trains 3 steps at full width and 18 of its 36 layers (two
 # runs' weights and f32 moments, 17 GB each, stay on the card at once for
 # the bit comparison; at full depth they would take 62 GB), rwkv6-7b 3
-# steps of 4 x 2048 tokens at 8 of its 32 layers (23 GB a run)
+# steps of 4 x 2048 tokens at 8 of its 32 layers (23 GB a run); hymba-1.5b
+# serves the hymba engine phase's first 4 requests and trains 3 steps of
+# 2 x 2048 tokens at its layers 0-3 (layer 0 attends over the whole
+# prefix, 1-3 over the 1024-token window)
 SHARD_REQUESTS, SHARD_NEW = 4, 16
-SHARD_SERVE = (ARCH, MOE_ARCHS[0], RWKV_ARCH, *CROSS_ARCHS)
+SHARD_SERVE = (ARCH, MOE_ARCHS[0], RWKV_ARCH, HYMBA_ARCH, *CROSS_ARCHS)
 SHARD_TRAINS = (TrainSpec("qwen2.5-3b", 4, 2048, 1, 3, layers=18),
-                TrainSpec(RWKV_ARCH, 4, 2048, 1, 3, layers=8))
+                TrainSpec(RWKV_ARCH, 4, 2048, 1, 3, layers=8),
+                TrainSpec(HYMBA_ARCH, 2, 2048, 1, 3, layers=4))
 SHARD_WAYS = (1, 2, 4, 8)
 
 
@@ -2214,12 +2238,14 @@ def _recording_kernels(seen):
 def _engine_serve(torch, np, model, dev, common):
     """A call that serves SHARD_REQUESTS requests of ``model``'s engine
     phase (the llama traffic for a dense or MoE decoder, the rwkv traffic
-    for rwkv6-7b), SHARD_NEW tokens each, through ``ServingEngine``, the
-    launch counts set to 0 just before; returns (tokens by request, wall
-    s, launches, decode steps, ms a decode step of the wall)."""
+    for rwkv6-7b and hymba-1.5b), SHARD_NEW tokens each, through
+    ``ServingEngine``, the launch counts set to 0 just before; returns
+    (tokens by request, wall s, launches, decode steps, ms a decode step
+    of the wall)."""
     from repro_torch.serving.engine import ServeRequest, ServingEngine
 
-    prompts = rwkv_prompts if model.cfg.family == "ssm" else llama_prompts
+    prompts = (rwkv_prompts if model.cfg.family in ("ssm", "hybrid")
+               else llama_prompts)
     reqs = prompts(np, model.cfg)[:SHARD_REQUESTS]
 
     def serve():
@@ -2329,6 +2355,9 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
 
     def run(sharded):
         model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
+        # each weight's unsharded shape: hymba's ``w_in`` is sharded as its
+        # (d, 2, h) view, which the comparison reads back as (d, 2h)
+        shapes = {n: p.shape for n, p in model.named_parameters()}
         if sharded:
             shard_model(model, mesh)
         step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP),
@@ -2345,9 +2374,10 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
             ms.append((time.perf_counter() - t) * 1e3)
             launches_ok = launches_ok and dict(common.launch_counts) == expected
             totals.update(common.launch_counts)
-        tensors = {f"param/{n}": local(p).detach() for n, p in model.named_parameters()}
-        tensors.update({f"m/{n}": local(t) for n, t in state.m.items()})
-        tensors.update({f"v/{n}": local(t) for n, t in state.v.items()})
+        tensors = {f"param/{n}": local(p).detach().reshape(shapes[n])
+                   for n, p in model.named_parameters()}
+        tensors.update({f"m/{n}": local(t).reshape(shapes[n]) for n, t in state.m.items()})
+        tensors.update({f"v/{n}": local(t).reshape(shapes[n]) for n, t in state.v.items()})
         tensors["step"] = state.step
         return losses, ms, launches_ok, totals, tensors
 
@@ -3139,9 +3169,9 @@ def run():
                                           for arch, r in trained.items()
                                           if arch != TRAIN_RUNS[0].arch
                                           and r["launches"].get(name)}
-    # the shard phase's sharded runs, summed (llama-3.1-8b, olmoe-1b-7b and
-    # rwkv6-7b served, the VLM and seamless generated, qwen2.5-3b and
-    # rwkv6-7b trained)
+    # the shard phase's sharded runs, summed (llama-3.1-8b, olmoe-1b-7b,
+    # rwkv6-7b and hymba-1.5b served, the VLM and seamless generated,
+    # qwen2.5-3b, rwkv6-7b and hymba-1.5b trained)
     for row in summary:
         if row["name"] in shard["launches"]:
             row["launches_shard"] = shard["launches"][row["name"]]
@@ -3154,6 +3184,8 @@ def run():
     chunk_row["launches_train"] = rwkv_train["launches"]["wkv6_chunk"]
     wkv_bwd_row = next(r for r in summary if r["name"] == "wkv6_bwd")
     wkv_bwd_row["launches_per_step"] = rwkv_train["launches_per_step_expected"]["wkv6_bwd"]
+    emit({"phase": "wall", "seconds": time.perf_counter() - T0,
+          "limit_s": 1200, "qwen_train_tokens_per_s": train["tokens_per_s"]})
     emit({"kernels": summary})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,20 +15,24 @@ families:
   rules, on the port's specs (drop absent axes; drop the innermost axis
   until the product divides the dim; a moment gains ``data`` on its first
   unsharded dim that divides into the data ways);
-* ``fit_param_specs``: ``fit_spec`` of every weight, except that a head is
-  never split: where ``num_kv_heads`` does not divide into the model ways,
-  the KV projections stay whole on every rank, which uses the KV heads its
-  query heads map to;
+* ``fit_param_specs``: ``fit_spec`` of every weight, except that a KV head
+  is never split: where ``num_kv_heads`` does not divide into the model
+  ways, the KV projections stay whole on every rank, which uses the KV
+  heads its query heads map to;
 * ``shard_model``: every weight of a model of ``SHARDED_FAMILIES`` (dense
-  and MoE decoders, the encoders, rwkv6, the VLM, the enc-dec) replaced in
-  place by a ``DTensor`` of its placement (the counterpart of
-  ``tree_shardings``);
+  and MoE decoders, the encoders, rwkv6, the VLM, the enc-dec, hymba)
+  replaced in place by a ``DTensor`` of its placement (the counterpart of
+  ``tree_shardings``); hymba's Mamba ``w_in`` as its (d, 2, h) view;
+* ``attention_share``: the heads a rank's attention runs where its block
+  of ``wq``'s columns cuts a head or straddles KV groups (the reference's
+  even split of the query columns);
 * the Megatron collectives the layers call (``copy_to_model``,
-  ``reduce_from_model``, ``gather_from_model``, each autograd-aware) and
-  ``local``, which hands a kernel or a product the plain tensor of this
-  rank's shard; its gradient is marked ``Partial`` over ``pod`` and
-  ``data`` (and over ``model`` for a replicated KV projection) until
-  ``reduce_gradients`` sums it;
+  ``reduce_from_model``, ``gather_from_model``, each autograd-aware), the
+  query columns' gather (``gather_heads``, whose gradient is
+  reduce-scattered) and ``local``, which hands a kernel or a product the
+  plain tensor of this rank's shard; its gradient is marked ``Partial``
+  over ``pod`` and ``data`` (and over ``model`` for a replicated KV
+  projection) until ``reduce_gradients`` sums it;
 * the data-parallel and ZeRO-1 pieces of a train step: ``data_rows``,
   ``data_mean``, ``reduce_gradients``, ``zero_slice``, ``zero_write``,
   ``zero_moment`` and ``sum_over_model``.
@@ -56,12 +60,22 @@ DATA_AXES = (POD, DATA)
 Spec = Tuple  # of None | str | Tuple[str, ...], one entry per tensor dim
 
 # the families ``shard_model`` runs
-SHARDED_FAMILIES = ("dense", "moe", "encoder", "ssm", "vlm", "audio")
+SHARDED_FAMILIES = ("dense", "moe", "encoder", "ssm", "vlm", "audio", "hybrid")
+# the families whose every attention is self-attention: their query heads
+# may split anywhere (``attention_share``); the cross layers of the VLM and
+# the enc-dec, and rwkv6's WKV heads, split whole
+SPLIT_HEAD_FAMILIES = ("dense", "moe", "encoder", "hybrid")
 # the attention weights that hold KV heads: whole on every rank where the
 # KV heads do not divide into the model ways (self-attention, the enc-dec's
 # cross projections, and the VLM's cross layers' ``wk``/``wv``)
 KV_PROJECTIONS = ("attn.wk", "attn.wv", "attn.bk", "attn.bv", "wk_x", "wv_x")
 _CROSS_KV = re.compile(r"(^|\.)cross_layers\.\d+\.w[kv]$")
+# weights of (d, 2h) whose two column halves ([x | z], hymba's Mamba
+# ``w_in``) are used channel by channel: ``shard_model`` shards their
+# (d, 2, h) view on h, so that a rank holds both halves of its channels
+# (the reference's split of the 2h columns would put every x channel on
+# the first half of the ranks and every z channel on the rest)
+PAIRED_HALVES = ("mamba.w_in",)
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -196,10 +210,11 @@ def holds_kv_heads(name: str) -> bool:
 
 def fit_param_specs(model: nn.Module, mesh) -> Dict[str, Spec]:
     """``fit_spec`` of every weight's spec at ``mesh``, with one rule of the
-    port's own: a head is never split, so where ``num_kv_heads`` does not
-    divide into the model ways the KV projections (``holds_kv_heads``)
+    port's own: a KV head is never split, so where ``num_kv_heads`` does
+    not divide into the model ways the KV projections (``holds_kv_heads``)
     are replicated over ``model``.  (The reference's ``fit_spec`` checks
-    only that the dim divides, and would split a KV head.)"""
+    only that the dim divides, and would split a KV head.)  The query
+    projections keep the reference's placement, whole heads or not."""
     cfg = model.cfg
     ways = axis_sizes(mesh).get(MODEL, 1)
     specs = param_specs(model)
@@ -232,17 +247,20 @@ def per_gpu_bytes(model: nn.Module, mesh) -> Dict[str, int]:
 
 def check_shardable(cfg, mesh) -> None:
     """Raise unless ``shard_model`` runs ``cfg`` on ``mesh``: a family of
-    ``SHARDED_FAMILIES``, a mesh of ``pod``, ``data`` and ``model`` only,
-    and heads that split whole into the model ways.  The query heads of
-    self-attention and of the cross layers (the VLM's, the enc-dec's: the
-    same counts) map each rank's share onto whole KV heads or into one;
-    rwkv6's WKV heads split whole.  The hybrid family is refused: hymba's
-    attention and Mamba heads have no split yet."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family's head split (its {cfg.num_heads} "
-            f"attention and Mamba heads over the model ways) is not settled; "
-            f"sharded execution covers {', '.join(SHARDED_FAMILIES)}")
+    ``SHARDED_FAMILIES`` and a mesh of ``pod``, ``data`` and ``model``
+    only, whose model ways W the heads take:
+
+    * W divides the query columns ``num_heads * head_dim`` (hymba's Mamba
+      channels are as many).  Each rank then owns the reference's block
+      of qd / W columns of ``wq`` and ``bq`` and as many rows of ``wo``,
+      and runs every whole head its block touches (``attention_share``);
+      a wider axis, or one whose blocks are uneven, is refused.
+    * The families of ``SPLIT_HEAD_FAMILIES`` (self-attention only) may
+      cut a query head or straddle KV groups there.  The others keep the
+      whole-head rule: the VLM's and the enc-dec's cross layers (their
+      self layers have the same counts) need ``num_heads`` to split into
+      W and each rank's share to map onto whole KV heads or into one;
+      rwkv6's WKV heads split whole."""
     if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: sharded execution covers "
                                   f"{', '.join(SHARDED_FAMILIES)}; not the "
@@ -252,10 +270,17 @@ def check_shardable(cfg, mesh) -> None:
         raise ValueError(f"mesh axes {sorted(sizes)}: sharded execution takes "
                          f"{(POD, DATA, MODEL)} only")
     ways = sizes.get(MODEL, 1)
+    columns = cfg.num_heads * cfg.head_dim
+    if columns % ways:
+        raise ValueError(f"{cfg.name}: {ways} model ways do not split the "
+                         f"{columns} query columns into even blocks")
+    if cfg.family in SPLIT_HEAD_FAMILIES:
+        return
     kind = "WKV" if cfg.attn_free else "query"
     if cfg.num_heads % ways:
         raise ValueError(f"{cfg.name}: {cfg.num_heads} {kind} heads do not "
-                         f"split into {ways} model ways (a head is never split)")
+                         f"split into {ways} model ways (a head is never split "
+                         f"in the {cfg.family} family)")
     local, group = cfg.num_heads // ways, cfg.num_heads // cfg.num_kv_heads
     if local % group and group % local:
         raise ValueError(f"{cfg.name}: {local} query heads a rank do not map "
@@ -266,15 +291,22 @@ def check_shardable(cfg, mesh) -> None:
 def shard_model(model: nn.Module, mesh) -> nn.Module:
     """Replace every weight of ``model`` in place by a ``DTensor`` on
     ``mesh`` of its placement (``fit_param_specs``), whose local tensor is
-    this rank's contiguous shard of the weight it replaces.  Every rank
-    must hold the same weights.  Returns the model."""
+    this rank's contiguous shard of the weight it replaces.  A weight of
+    ``PAIRED_HALVES`` becomes the DTensor of its (d, 2, h) view, sharded
+    on h where its fitted spec shards the columns: the local (d, 2, h / W)
+    shard reshapes to this rank's ``[x | z]`` and ``full_tensor()``
+    reshapes back to the weight.  Every rank must hold the same weights.
+    Returns the model."""
     check_shardable(model.cfg, mesh)
     specs = fit_param_specs(model, mesh)
     for name, p in list(model.named_parameters()):
         if isinstance(p, DTensor):
             raise ValueError(f"{name} is sharded already")
-        place = placements(specs[name], mesh)
-        shard = p.detach()
+        shard, spec = p.detach(), specs[name]
+        if name.endswith(PAIRED_HALVES):
+            shard = shard.view(shard.shape[0], 2, shard.shape[1] // 2)
+            spec = (spec[0], None, spec[1])
+        place = placements(spec, mesh)
         for i, pl in enumerate(place):
             if pl.is_shard():
                 size = shard.shape[pl.dim] // mesh.size(i)
@@ -436,19 +468,106 @@ def model_ways(w) -> int:
     return 1 if tp is None else tp.ways
 
 
-def attention_heads(wq, wk, cfg) -> Tuple[int, Optional[int]]:
-    """(KV heads this rank holds, first KV head of a replicated projection
-    or None) of an attention's ``wq`` and ``wk`` (self-attention's, or a
-    cross layer's): every KV head unsharded, its ``num_kv_heads / ways``
-    where ``wk`` is sharded over ``model``, else the one KV head its query
-    heads map to (``h // G``)."""
+class HeadShare(NamedTuple):
+    """The heads one rank's attention call runs (``attention_share``).
+
+    The call takes ``kv_heads`` KV heads, the columns ``kv_cols`` of the
+    rank's K/V projection (all of a sharded one's; a whole one's given by
+    its KV heads, whose gradient is then summed over ``model``:
+    ``replicated``), and ``group`` query heads for each.  Where ``runs``
+    is empty the rank's query columns are those heads as they are.  Else
+    its q is first gathered over ``model`` where ``gather`` says so (a
+    head is cut), and the call's heads are, per KV head, the query heads
+    ``runs[j] = (first, count)`` of that q, padded to ``group`` by
+    repeating the last; of the call's output, the first ``count`` heads of
+    every run, in order, hold columns ``cols`` of the rank's own block."""
+    kv_heads: int
+    kv_cols: slice
+    replicated: bool
+    group: int
+    gather: Optional[ModelShard] = None
+    runs: Tuple[Tuple[int, int], ...] = ()
+    cols: Optional[slice] = None
+
+
+def _touched_heads(ways: int, rank: int, heads: int, kv_heads: int,
+                   head_dim: int):
+    """(runs, KV head range, own columns, cut) of rank ``rank`` of
+    ``ways`` under the reference's even split of ``heads * head_dim``
+    query columns: its columns [c0, c1) touch the whole heads
+    c0 // D ... (c1 - 1) // D, which map to KV heads h // G; a run per KV
+    head (its first touched head and their count), the KV heads
+    [k0, k1), the rank's columns within the touched heads' and whether a
+    head is cut at either end."""
+    D, G = head_dim, heads // kv_heads
+    block = heads * D // ways
+    c0, c1 = rank * block, (rank + 1) * block
+    h0, h1 = c0 // D, (c1 - 1) // D + 1
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    runs = tuple((max(h0, k * G), min(h1, (k + 1) * G) - max(h0, k * G))
+                 for k in range(k0, k1))
+    return runs, (k0, k1), slice(c0 - h0 * D, c1 - h0 * D), bool(c0 % D or c1 % D)
+
+
+def attention_share(wq, wk, cfg) -> HeadShare:
+    """The ``HeadShare`` of an attention's ``wq`` and ``wk``
+    (self-attention's, or a cross layer's).  Unsharded, or with ``wk``
+    sharded over ``model`` (the KV heads, so the query heads, split
+    whole), the rank runs its own heads.  Else ``wk`` is whole and the
+    rank owns ``wq``'s block of qd / W columns: it runs every whole head
+    those columns touch over the KV heads they map to (``_touched_heads``),
+    and needs the padding and the gather only where a head is cut or its
+    heads straddle KV groups in runs of unequal length.
+
+    qwen2-7b at 8 ways: 3.5 heads a rank, 4 touched over 1 KV head, one
+    gather.  hymba-1.5b at 8 ways: 3.125 heads, up to 4 touched over up to
+    2 KV heads; rank 3's runs are head 9 (KV 1) and heads 10-12 (KV 2),
+    so its call runs 2 x 3 query heads, two of them padding."""
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tp = model_shard(wq)
     if tp is None:
-        return cfg.num_kv_heads, None
+        return HeadShare(KV, slice(None), False, H // KV)
     if model_shard(wk) is not None:
-        return cfg.num_kv_heads // tp.ways, None
-    group = cfg.num_heads // cfg.num_kv_heads
-    return 1, tp.rank * (cfg.num_heads // tp.ways) // group
+        return HeadShare(KV // tp.ways, slice(None), False, H // KV)
+    runs, (k0, k1), cols, cut = _touched_heads(tp.ways, tp.rank, H, KV, D)
+    group = max(n for _, n in runs)
+    kv_cols = slice(k0 * D, k1 * D)
+    if not cut and all(n == group for _, n in runs):
+        return HeadShare(k1 - k0, kv_cols, True, group)
+    # q's heads: all of them after a gather, else the rank's own from h0
+    base = 0 if cut else runs[0][0]
+    return HeadShare(k1 - k0, kv_cols, True, group, tp if cut else None,
+                     tuple((first - base, n) for first, n in runs), cols)
+
+
+class _GatherHeads(torch.autograd.Function):
+    """The last dim's shards (the query columns) gathered over ``model``;
+    the gradient reduce-scattered: each rank uses other ranks' columns
+    (the heads its own block cuts), so a column's gradient is the sum of
+    every rank's."""
+
+    @staticmethod
+    def forward(ctx, y, group, ways):
+        ctx.group, ctx.ways = group, ways
+        # the ranks' shards stacked on dim 0, as the collectives take them
+        parts = y.new_empty((ways * y.shape[0], *y.shape[1:]))
+        dist.all_gather_into_tensor(parts, y.contiguous(), group=group)
+        parts = parts.view(ways, *y.shape).movedim(0, -2)
+        return parts.reshape(*y.shape[:-1], ways * y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = grad.reshape(*grad.shape[:-1], ctx.ways, -1).movedim(-2, 0)
+        out = grad.new_empty(parts.shape[1:])
+        dist.reduce_scatter_tensor(out, parts.reshape(-1, *out.shape[1:]),
+                                   group=ctx.group)
+        return out, None, None
+
+
+def gather_heads(q: torch.Tensor, tp: ModelShard) -> torch.Tensor:
+    """Every rank's query columns (..., qd / W) gathered over ``model``
+    into (..., qd), in rank order."""
+    return _GatherHeads.apply(q, tp.group, tp.ways)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,14 @@
 ``analysis/op_stats.py`` change.
 
     PYTHONPATH=src python -m repro_torch.launch.reanalyze [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.reanalyze --collectives CELL [--out DIR]
 
 DIR is the dry-run's (``experiments/dryrun_torch/`` by default).  The
-memory readings come from the run and stay as they were.
+memory readings come from the run and stay as they were.  With
+``--collectives`` nothing is rewritten: the cell's collectives are
+printed one line per c10d op and output shape (``collective_breakdown``),
+which tells the query columns' gather (``_allgather_base_`` and, in a
+train step, its ``_reduce_scatter_base_`` gradient) from the all-reduces.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import gzip
 import json
 from pathlib import Path
 
-from repro_torch.analysis.op_stats import analyze
+from repro_torch.analysis.op_stats import analyze, op_work
 from repro_torch.launch.dryrun import RESULTS_DIR, collectives
 
 
@@ -29,10 +34,39 @@ def reanalyze_cell(json_path: Path, trace_path: Path) -> dict:
     return rec
 
 
+def collective_breakdown(trace) -> list:
+    """Each c10d op of a trace by its output's shape (a list's first
+    tensor's): {"op", "out", "dtype", "count", "bytes" (over every call),
+    "share" of the trace's collective bytes}, largest first."""
+    rows = {}
+    for rec in trace:
+        w = op_work(rec)
+        if "collective" not in w:
+            continue
+        out = rec["out"][0]
+        while isinstance(out, list):  # a list of tensors: its first one's
+            out = out[0]
+        key = (rec["op"].split(".")[1], tuple(out["t"]), out["d"])
+        row = rows.setdefault(key, {"op": key[0], "out": list(key[1]),
+                                    "dtype": key[2], "count": 0, "bytes": 0})
+        row["count"] += rec["count"]
+        row["bytes"] += rec["count"] * w["bytes"]
+    total = sum(r["bytes"] for r in rows.values()) or 1
+    return sorted(({**r, "share": r["bytes"] / total} for r in rows.values()),
+                  key=lambda r: -r["bytes"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=RESULTS_DIR)
+    ap.add_argument("--collectives", metavar="CELL", default=None,
+                    help="print CELL's collectives by op and shape")
     args = ap.parse_args(argv)
+    if args.collectives:
+        gz = args.out / "trace" / f"{args.collectives}.json.gz"
+        for row in collective_breakdown(json.loads(gzip.decompress(gz.read_bytes()))):
+            print(json.dumps(row))
+        return 0
     n = 0
     for gz in sorted((args.out / "trace").glob("*.json.gz")):
         cell = gz.name[:-len(".json.gz")]

@@ -39,7 +39,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import model_device
-from repro_torch.distributed.sharding import MODEL, attention_heads
+from repro_torch.distributed.sharding import MODEL, attention_share
 from repro_torch.models.layers import (ATTENTION_SPECS, MLP_SPECS, NORM_SPEC,
                                        VOCAB_SPEC, attention_block_decode,
                                        attention_block_prefill,
@@ -232,13 +232,14 @@ class EncDecLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int):
         """Zero bf16 leaves of the cache layout; KV is this rank's KV heads
-        in a sharded model (``attention_heads``), of the self-attention and
+        in a sharded model (``attention_share``), of the self-attention and
         of the cross projections."""
         cfg = self.cfg
         layer = self.dec_layers[0]
-        heads, _ = attention_heads(layer.self_attn["wq"], layer.self_attn["wk"], cfg)
+        attn = layer.self_attn
+        heads = attention_share(attn["wq"], attn["wk"], cfg).kv_heads
         kv = (cfg.num_layers, batch, heads, max_len, cfg.head_dim)
-        heads, _ = attention_heads(layer.wq_x, layer.wk_x, cfg)
+        heads = attention_share(layer.wq_x, layer.wk_x, cfg).kv_heads
         frames = (cfg.num_layers, batch, heads,
                   cfg.num_audio_frames, cfg.head_dim)
         return {name: torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE)

@@ -31,6 +31,14 @@ The cache is a dict of stacked leaves:
 A prefill cache has the same keys, with S positions in ``k_full`` and
 min(S, W) in ``k_swa``.  ``decode_step`` updates the cache in place.
 
+Sharded (``distributed.sharding.shard_model``), KV is the KV heads of the
+rank's attention call (``sharding.attention_share``: every head its block
+of the query columns touches) and h its h / W Mamba channels.  The
+Mamba weights follow the reference's specs over the channels, but for
+``w_in``: its [x | z] halves are split per half (``PAIRED_HALVES``), so
+that a rank holds both halves of its channels; ``w_xdbc``'s rows give
+partial sums of the low rank, B and C, summed over ``model``.
+
 Deliberate divergences from the reference:
 
 * position p of a sliding-window layer sits at ring index ``p % W`` after
@@ -41,7 +49,11 @@ Deliberate divergences from the reference:
 * the loss rematerialises every layer; the reference leaves its three
   full-attention layers out of ``jax.checkpoint``.  Recomputation changes
   no value, and a layer kept whole would hold its Mamba scan's f32
-  intermediates through the whole backward.
+  intermediates through the whole backward;
+* sharded, ``w_in`` is split per half where the reference's ``fit_spec``
+  splits its 2h columns (the same bytes a rank), and the KV cache holds
+  the rank's touched KV heads where the reference may lay the sequence
+  over ``model`` (its ``"seq"`` layout).
 """
 from __future__ import annotations
 
@@ -52,13 +64,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import MODEL
+from repro_torch.device import model_device
+from repro_torch.distributed.sharding import (MODEL, attention_share,
+                                             copy_to_model, local, model_ways)
 from repro_torch.models.layers import (ACC_DTYPE, ATTENTION_SPECS, MLP_SPECS,
                                        NORM_SPEC, attention_block_decode,
                                        attention_block_prefill, embed_lookup,
                                        matmul, mlp_block, model_logits,
-                                       model_loss, remat, rms_norm)
+                                       model_loss, remat, rms_norm,
+                                       row_parallel)
 from repro_torch.models.rwkv import (MODEL_SPECS, ParamDef, _param,
                                      instantiate_all, model_defs)
 from repro_torch.models.transformer import CACHE_DTYPE
@@ -90,22 +104,42 @@ def mamba_defs(cfg: ArchConfig) -> dict:
     }
 
 
-# the reference's placements of ``mamba_defs``' weights
+# the reference's placements of ``mamba_defs``' weights: the h channels
+# over ``model`` (``w_in`` as its (d, 2, h) view: ``sharding.PAIRED_HALVES``)
 MAMBA_SPECS = {"w_in": (None, MODEL), "conv_w": (MODEL, None),
                "w_xdbc": (MODEL, None), "w_dt": (None, MODEL),
                "dt_bias": (MODEL,), "a_log": (MODEL, None), "d_skip": (MODEL,),
                "w_out": (MODEL, None)}
 
 
+def mamba_channels(p, cfg: ArchConfig) -> int:
+    """The Mamba channels of this rank: all h, or h / W over ``model``."""
+    return cfg.q_dim // model_ways(p["conv_w"])
+
+
+def _mamba_in(p, xin: torch.Tensor):
+    """x, z (..., h) of the rank's channels: ``xin`` through ``w_in``'s
+    columns, (d, 2h) or the local (d, 2, h) shard of its paired view,
+    which reshapes to ``[x | z]`` of the same channels."""
+    w = local(p["w_in"])
+    xz = matmul(copy_to_model(xin, p["w_in"]), w.reshape(w.shape[0], -1))
+    h = xz.shape[-1] // 2
+    return xz[..., :h], xz[..., h:]
+
+
 def _ssm_inputs(p, x: torch.Tensor, n: int):
     """dt (softplus, f32), B, C (f32) and A = -exp(a_log) of the conv
-    output ``x`` (..., h)."""
-    dbc = matmul(x, p["w_xdbc"])
-    dt = F.softplus(matmul(dbc[..., :DT_RANK], p["w_dt"]).to(ACC_DTYPE)
-                    + p["dt_bias"].to(ACC_DTYPE))
+    output ``x`` (..., h).  Sharded, ``w_xdbc``'s rows give partial sums of
+    dt's low rank, B and C, which every channel shares: summed over
+    ``model``, then entering the rank's channels through
+    ``copy_to_model`` (``w_dt``'s columns, and the scan of its channels,
+    each take a part of their gradient)."""
+    dbc = copy_to_model(row_parallel(x, p["w_xdbc"]), p["w_dt"])
+    dt = F.softplus(matmul(dbc[..., :DT_RANK], local(p["w_dt"])).to(ACC_DTYPE)
+                    + local(p["dt_bias"]).to(ACC_DTYPE))
     Bc = dbc[..., DT_RANK:DT_RANK + n].to(ACC_DTYPE)
     Cc = dbc[..., DT_RANK + n:].to(ACC_DTYPE)
-    return dt, Bc, Cc, -torch.exp(p["a_log"].to(ACC_DTYPE))
+    return dt, Bc, Cc, -torch.exp(local(p["a_log"]).to(ACC_DTYPE))
 
 
 def _scan_chunks(decay: torch.Tensor, add: torch.Tensor):
@@ -171,12 +205,10 @@ def mamba_prefill(p, xin: torch.Tensor, conv_state: torch.Tensor,
     state (the last K-1 pre-conv inputs), new ssm state f32)."""
     _, S, _ = xin.shape
     n = ssm_state.shape[-1]
-    xz = matmul(xin, p["w_in"])
-    h = xz.shape[-1] // 2
-    x, z = xz[..., :h], xz[..., h:]
+    x, z = _mamba_in(p, xin)
     # causal depthwise conv over time, in the weights' dtype
     x_pad = torch.cat([conv_state.to(x.dtype), x.transpose(1, 2)], dim=-1)
-    w = p["conv_w"]
+    w = local(p["conv_w"])
     conv = x_pad[:, :, 0:S] * w[None, :, 0:1]
     for i in range(1, CONV_K):
         conv = conv + x_pad[:, :, i:i + S] * w[None, :, i:i + 1]
@@ -184,10 +216,10 @@ def mamba_prefill(p, xin: torch.Tensor, conv_state: torch.Tensor,
     x = F.silu(conv.transpose(1, 2))  # (B, S, h)
     dt, Bc, Cc, A = _ssm_inputs(p, x, n)
     y, ssm_state = _ssm_scan(x.to(ACC_DTYPE), dt, Bc, Cc, A,
-                             p["d_skip"].to(ACC_DTYPE),
+                             local(p["d_skip"]).to(ACC_DTYPE),
                              ssm_state.to(ACC_DTYPE))
     y = y.to(xin.dtype) * F.silu(z)
-    return matmul(y, p["w_out"]), new_conv_state, ssm_state
+    return row_parallel(y, p["w_out"]), new_conv_state, ssm_state
 
 
 def mamba_decode(p, xin: torch.Tensor, conv_state: torch.Tensor,
@@ -195,20 +227,18 @@ def mamba_decode(p, xin: torch.Tensor, conv_state: torch.Tensor,
     """xin: (B, d), one token per row.  Returns (out (B, d), new conv
     state, new ssm state f32)."""
     n = ssm_state.shape[-1]
-    xz = matmul(xin, p["w_in"])
-    h = xz.shape[-1] // 2
-    x, z = xz[..., :h], xz[..., h:]
+    x, z = _mamba_in(p, xin)
     x_hist = torch.cat([conv_state.to(x.dtype), x[..., None]], dim=-1)
-    conv = (x_hist * p["conv_w"][None]).sum(dim=-1)
+    conv = (x_hist * local(p["conv_w"])[None]).sum(dim=-1)
     x = F.silu(conv)
     dt, Bc, Cc, A = _ssm_inputs(p, x, n)
     xf = x.to(ACC_DTYPE)
     ssm_state = (ssm_state.to(ACC_DTYPE) * torch.exp(dt[..., None] * A)
                  + (dt * xf)[..., None] * Bc[:, None, :])
     y = torch.einsum("bhn,bn->bh", ssm_state, Cc)
-    y = y + p["d_skip"].to(ACC_DTYPE) * xf
+    y = y + local(p["d_skip"]).to(ACC_DTYPE) * xf
     y = y.to(xin.dtype) * F.silu(z)
-    return matmul(y, p["w_out"]), x_hist[:, :, 1:], ssm_state
+    return row_parallel(y, p["w_out"]), x_hist[:, :, 1:], ssm_state
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +308,7 @@ class HymbaLayer(nn.Module):
     def forward(self, x, cfg, plain=False):
         """The training pass: the prefill from fresh (zero) Mamba states,
         keeping neither its K/V nor its states."""
-        B, h = x.shape[0], cfg.q_dim
+        B, h = x.shape[0], mamba_channels(self.mamba, cfg)
         conv = torch.zeros((B, h, CONV_K - 1), device=x.device, dtype=x.dtype)
         ssm = torch.zeros((B, h, cfg.ssm_state), device=x.device,
                           dtype=ACC_DTYPE)
@@ -287,10 +317,13 @@ class HymbaLayer(nn.Module):
     def prefill(self, x, cfg, plain, conv_state, ssm_state):
         """x: (B, S, d).  Returns (x, (k, v) (B, KV, S, D), conv, ssm)."""
         h_in = rms_norm(x, self.ln1, cfg.norm_eps)
-        attn_out, kv = attention_block_prefill(self.attn, h_in, cfg,
+        # each branch takes the normed input through a node of its own, so
+        # that its gradient is summed within the branch first, as a sharded
+        # layer's ``copy_to_model`` sums it (the same bits, sharded or not)
+        attn_out, kv = attention_block_prefill(self.attn, h_in.view_as(h_in), cfg,
                                                window=self.window, plain=plain)
-        ssm_out, conv_state, ssm_state = mamba_prefill(self.mamba, h_in,
-                                                       conv_state, ssm_state)
+        ssm_out, conv_state, ssm_state = mamba_prefill(
+            self.mamba, h_in.view_as(h_in), conv_state, ssm_state)
         return self._fuse_and_mlp(x, attn_out, ssm_out, cfg), kv, conv_state, \
             ssm_state
 
@@ -316,7 +349,8 @@ def _ring(kv: torch.Tensor, window: int) -> torch.Tensor:
 
 
 class HymbaLM(nn.Module):
-    """hymba on one device.
+    """hymba on one device (on the meta device, its weights are shapes
+    alone; ``shard_model`` shards it).
 
     The weights start at zero; ``init_params`` draws them by the
     reference's rules (``a_log`` stays f32 in a bf16 model), and
@@ -329,7 +363,7 @@ class HymbaLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        dev = resolve_device(device)
+        dev = model_device(device)
         self.cfg = cfg
         self.device = dev
         self.dtype = dtype
@@ -372,13 +406,18 @@ class HymbaLM(nn.Module):
 
     def _cache(self, batch: int, length: int, kv_dtype: torch.dtype):
         """Zero cache leaves for ``batch`` sequences of ``length`` positions:
-        full-layer KV of ``length``, ring KV of min(W, length)."""
+        full-layer KV of ``length``, ring KV of min(W, length); in a
+        sharded model the KV heads of the rank's attention call
+        (``attention_share``) and its Mamba channels."""
         cfg = self.cfg
         n_full = sum(kind == "full" for kind, _ in self._kv_slot)
-        L, h, n = cfg.num_layers, cfg.q_dim, cfg.ssm_state
+        layer = self.layers[0]
+        L, n = cfg.num_layers, cfg.ssm_state
+        h = mamba_channels(layer.mamba, cfg)
+        heads = attention_share(layer.attn["wq"], layer.attn["wk"], cfg).kv_heads
 
         def kv(layers, positions):
-            return torch.zeros((layers, batch, cfg.num_kv_heads, positions,
+            return torch.zeros((layers, batch, heads, positions,
                                 cfg.head_dim), device=self.device,
                                dtype=kv_dtype)
 

@@ -25,8 +25,12 @@ Tensor parallelism (``distributed.sharding.shard_model``) makes the
 weights DTensors; the functions here then follow the Megatron pattern and
 hand every product and kernel plain local tensors of whole heads:
 ``attention_qkv`` and ``mlp_block`` multiply by column shards, the
-attention kernels run on the local heads, ``wo`` and ``w_down`` give
-partial sums that ``row_parallel`` sums over ``model``, the vocab-sharded
+attention kernels run on the heads of the rank's ``HeadShare`` (its own,
+or, where its block of query columns cuts a head, every head the block
+touches, the columns gathered over ``model`` before RoPE), ``wo`` and
+``w_down`` give partial sums that ``row_parallel`` sums over ``model``
+(of the attention, the rank's own columns: ``own_columns``), the
+vocab-sharded
 ``embed_lookup`` zeroes the tokens outside its rows and sums, and
 ``lm_head_logits`` gathers the logits' vocabulary.  A plain weight takes
 none of these steps.  ``ATTENTION_SPECS``, ``MLP_SPECS``, ``NORM_SPEC`` and
@@ -40,8 +44,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (MODEL, attention_heads,
-                                             copy_to_model, gather_from_model,
+from repro_torch.distributed.sharding import (MODEL, HeadShare,
+                                             attention_share, copy_to_model,
+                                             gather_from_model, gather_heads,
                                              local, model_shard,
                                              reduce_from_model)
 from repro_torch.kernels.decode_attention import (decode_attention_op,
@@ -288,29 +293,59 @@ def full_lengths(cache: torch.Tensor) -> torch.Tensor:
                       device=cache.device)
 
 
-def _kv_columns(wq, wk, cfg) -> Tuple[int, slice, bool]:
-    """(KV heads this rank uses, the columns of this rank's KV projection
-    they are, whether that projection is whole on every rank), by
-    ``sharding.attention_heads``: a whole projection gives only the
-    columns of the KV head the rank's query heads map to."""
-    heads, first = attention_heads(wq, wk, cfg)
-    if first is None:
-        return heads, slice(None), False
-    D = cfg.head_dim
-    return heads, slice(first * D, (first + 1) * D), True
+def call_heads(q: torch.Tensor, share: HeadShare, head_dim: int) -> torch.Tensor:
+    """The query heads (..., share.kv_heads * share.group, D) of a rank's
+    attention call from its query columns q (..., columns): gathered over
+    ``model`` where a head is cut, then each run of query heads over one
+    KV head padded to ``share.group`` by repeating its last head.  The
+    padded heads' outputs are dropped (``own_columns``), so one kernel
+    call with a uniform group size covers runs of unequal length.  At 8
+    ways, for 3.125 heads of its own, a rank of hymba-1.5b runs 4 query
+    heads (1 x 4 or 2 x 2) but ranks 3 and 4, which run 2 x 3, two of
+    them padding: 36 heads over the 8 ranks for 25; qwen2-7b's ranks run
+    1 x 4 each for 3.5, 32 for 28."""
+    if share.gather is not None:
+        q = gather_heads(q, share.gather)
+    q = q.reshape(*q.shape[:-1], -1, head_dim)
+    if not share.runs:
+        return q
+    parts = []
+    for first, n in share.runs:
+        parts.append(q[..., first:first + n, :])
+        if n < share.group:
+            last = q[..., first + n - 1:first + n, :]
+            parts.append(last.expand(*last.shape[:-2], share.group - n, head_dim))
+    return torch.cat(parts, dim=-2)
 
 
-def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg
+def own_columns(out: torch.Tensor, share: HeadShare) -> torch.Tensor:
+    """The rank's own columns (..., qd / W) of its call's output ``out``
+    (..., heads, D): of a padded call, the first ``count`` heads of every
+    run, then the rank's block of their columns."""
+    if share.runs:
+        out = torch.cat([out[..., j * share.group:j * share.group + n, :]
+                         for j, (_, n) in enumerate(share.runs)], dim=-2)
+    out = out.reshape(*out.shape[:-2], -1)
+    return out if share.cols is None else out[..., share.cols]
+
+
+def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg,
+                  share: Optional[HeadShare] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,KV,D), rope applied.
 
-    With ``wq`` sharded over ``model``, H and KV are this rank's heads
-    (``sharding.attention_heads``): a replicated KV projection gives only
-    the columns of the KV head its query heads map to."""
+    With ``wq`` sharded over ``model``, H and KV are the heads of this
+    rank's call (``call_heads`` of its ``share``, by default
+    ``attention_share`` of ``wq`` and ``wk``): RoPE rotates the pairs i
+    and i + D/2 of a head, so it runs after the gather, on whole heads.  A
+    replicated KV projection gives only the columns of the KV heads its
+    query heads map to."""
     B, S, _ = x.shape
     D = cfg.head_dim
     x = copy_to_model(x, p["wq"])
-    kv_heads, cols, replicated = _kv_columns(p["wq"], p["wk"], cfg)
+    if share is None:
+        share = attention_share(p["wq"], p["wk"], cfg)
+    cols, replicated = share.kv_cols, share.replicated
     q = matmul(x, local(p["wq"]))
     k = matmul(x, local(p["wk"], partial_over_model=replicated)[:, cols])
     v = matmul(x, local(p["wv"], partial_over_model=replicated)[:, cols])
@@ -318,9 +353,9 @@ def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg
         q = q + local(p["bq"])
         k = k + local(p["bk"], partial_over_model=replicated)[cols]
         v = v + local(p["bv"], partial_over_model=replicated)[cols]
-    q = q.reshape(B, S, -1, D)
-    k = k.reshape(B, S, kv_heads, D)
-    v = v.reshape(B, S, kv_heads, D)
+    q = call_heads(q, share, D)
+    k = k.reshape(B, S, share.kv_heads, D)
+    v = v.reshape(B, S, share.kv_heads, D)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -330,16 +365,18 @@ def cross_kv(src: torch.Tensor, wq, wk, wv, cfg
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The K/V of a cross-attention (the VLM's image, the enc-dec's
     encoder output) of ``src`` (B, F, d_src): k, v (B, F, KV, D), no rope,
-    KV this rank's heads (``sharding.attention_heads`` of ``wq`` and
-    ``wk``).  ``src`` enters through ``copy_to_model`` wherever ``wq`` is
-    sharded: each rank's K/V columns give a part of its gradient, also
-    where the projections are whole and each rank takes its KV head's
-    columns (their gradient is then summed over ``model`` too)."""
+    KV this rank's heads (``sharding.attention_share`` of ``wq`` and
+    ``wk``; a cross layer's heads split whole).  ``src`` enters through
+    ``copy_to_model`` wherever ``wq`` is sharded: each rank's K/V columns
+    give a part of its gradient, also where the projections are whole and
+    each rank takes its KV head's columns (their gradient is then summed
+    over ``model`` too)."""
     B, F, _ = src.shape
     src = copy_to_model(src, wq)
-    heads, cols, replicated = _kv_columns(wq, wk, cfg)
-    return tuple(matmul(src, local(w, partial_over_model=replicated)[:, cols])
-                 .reshape(B, F, heads, cfg.head_dim) for w in (wk, wv))
+    share = attention_share(wq, wk, cfg)
+    return tuple(matmul(src, local(w, partial_over_model=share.replicated)
+                        [:, share.kv_cols]).reshape(B, F, share.kv_heads, cfg.head_dim)
+                 for w in (wk, wv))
 
 
 def attention_block_prefill(p, x: torch.Tensor, cfg, *, window: int = 0,
@@ -351,9 +388,10 @@ def attention_block_prefill(p, x: torch.Tensor, cfg, *, window: int = 0,
     """
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
-    q, k, v = attention_qkv(p, x, positions, cfg)
+    share = attention_share(p["wq"], p["wk"], cfg)
+    q, k, v = attention_qkv(p, x, positions, cfg, share)
     out = causal_flash_attention(q, k, v, window=window, plain=plain)
-    return (row_parallel(out.reshape(B, S, -1), p["wo"]),
+    return (row_parallel(own_columns(out, share), p["wo"]),
             (k.transpose(1, 2), v.transpose(1, 2)))
 
 
@@ -390,14 +428,15 @@ def attention_block_decode(p, x: torch.Tensor, kv_cache, pos, cfg, *,
     k_cache, v_cache = kv_cache
     Smax = k_cache.shape[2]
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
-    q, k, v = attention_qkv(p, x[:, None, :], pos[:, None], cfg)
+    share = attention_share(p["wq"], p["wk"], cfg)
+    q, k, v = attention_qkv(p, x[:, None, :], pos[:, None], cfg, share)
     active = pos >= 0
     write_idx = torch.where(active, pos % Smax, -1) if window > 0 else pos
     write_kv(k_cache, k.transpose(1, 2), write_idx)
     write_kv(v_cache, v.transpose(1, 2), write_idx)
     cache_len = torch.where(active, (pos + 1).clamp(max=Smax), 0)
     out = decode_attention(q[:, 0], k_cache, v_cache, cache_len, plain=plain)
-    return row_parallel(out.reshape(B, -1), p["wo"]), (k_cache, v_cache)
+    return row_parallel(own_columns(out, share), p["wo"]), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -44,13 +44,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import model_device
-from repro_torch.distributed.sharding import attention_heads
+from repro_torch.distributed.sharding import attention_share
 from repro_torch.models.layers import (ATTENTION_SPECS, MLP_SPECS, NORM_SPEC,
                                        VOCAB_SPEC, attention_block_decode,
                                        attention_block_prefill, attention_qkv,
                                        bidirectional_attention, embed_lookup,
                                        mlp_block, model_logits, model_loss,
-                                       remat, rms_norm, row_parallel)
+                                       own_columns, remat, rms_norm,
+                                       row_parallel)
 from repro_torch.models.moe import MOE_SPECS, moe_block, moe_shapes
 
 CACHE_DTYPE = torch.bfloat16
@@ -278,12 +279,12 @@ class DenseLM(nn.Module):
         return model_loss(self, x, self._tokens(labels))
 
     def init_cache(self, batch: int, max_len: int):
-        """(k, v), each (L, batch, KV, max_len, D) bf16 zeros; KV is this
-        rank's KV heads in a sharded model (the reference's "heads"
-        layout)."""
+        """(k, v), each (L, batch, KV, max_len, D) bf16 zeros; KV is the KV
+        heads of this rank's attention call in a sharded model
+        (``attention_share``; the reference's "heads" layout)."""
         cfg = self.cfg
         attn = self.layers[0].attn
-        kv_heads, _ = attention_heads(attn["wq"], attn["wk"], cfg)
+        kv_heads = attention_share(attn["wq"], attn["wk"], cfg).kv_heads
         shape = (cfg.num_layers, batch, kv_heads, max_len, cfg.head_dim)
         return (torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
                 torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE))
@@ -294,12 +295,13 @@ class EncoderLayer(_Block):
     the MLP (GELU with no gate for the encoders), pre-norm residuals."""
 
     def forward(self, x, cfg, plain=False):
-        B, S, _ = x.shape
+        S = x.shape[1]
         positions = torch.arange(S, device=x.device)
+        share = attention_share(self.attn["wq"], self.attn["wk"], cfg)
         q, k, v = attention_qkv(self.attn, rms_norm(x, self.ln1, cfg.norm_eps),
-                                positions, cfg)
+                                positions, cfg, share)
         h = bidirectional_attention(q, k, v, plain=plain)
-        x = x + row_parallel(h.reshape(B, S, -1), self.attn["wo"])
+        x = x + row_parallel(own_columns(h, share), self.attn["wo"])
         return x + self._ffn(x, cfg)
 
 

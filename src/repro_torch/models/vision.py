@@ -38,7 +38,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import model_device
-from repro_torch.distributed.sharding import MODEL, attention_heads, local
+from repro_torch.distributed.sharding import MODEL, attention_share, local
 from repro_torch.models.layers import (MLP_SPECS, NORM_SPEC, VOCAB_SPEC,
                                        bidirectional_attention,
                                        column_parallel, cross_kv,
@@ -234,13 +234,13 @@ class VisionLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int):
         """Zero bf16 leaves of the cache layout; KV is this rank's KV heads
-        in a sharded model (``attention_heads``), of the self layers and of
+        in a sharded model (``attention_share``), of the self layers and of
         the cross layers."""
         cfg = self.cfg
         attn, cross = self.self_layers[0].attn, self.cross_layers[0]
-        heads, _ = attention_heads(attn["wq"], attn["wk"], cfg)
+        heads = attention_share(attn["wq"], attn["wk"], cfg).kv_heads
         kv = (cfg.num_layers, batch, heads, max_len, cfg.head_dim)
-        heads, _ = attention_heads(cross.wq, cross.wk, cfg)
+        heads = attention_share(cross.wq, cross.wk, cfg).kv_heads
         image = (len(self.cross_layers), batch, heads,
                  cfg.num_image_tokens, cfg.head_dim)
         return {name: torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE)

@@ -247,12 +247,38 @@ def test_all_reduce_count_per_layer_and_microbatch(fake_world, mesh_name, mb):
 @pytest.mark.parametrize("mesh_name", MESHES)
 def test_gemma_train_is_refused_as_on_the_card(tmp_path, mesh_name):
     """gemma-7b's head dim of 256 has no backward kernel: its train cell is
-    refused with the check's own message, and its prefill counts."""
+    refused with the check's own message.  qwen2-7b's 28 heads over 8 model
+    ways (3.5 a rank) count: per layer one decode launch, the two
+    Megatron all-reduces and the gather of q's columns, plus the
+    embedding's all-reduce and the logits' all-gather."""
     rec = dryrun.run_cell("gemma-7b", "train_4k", mesh_name, tmp_path)
     assert rec["status"] == "refused"
     assert "flash_attention_bwd: head_dim 256 not in (32, 64, 128)" in rec["reason"]
     rec = dryrun.run_cell("qwen2-7b", "decode_32k", mesh_name, tmp_path)
-    assert rec["status"] == "refused" and "a head is never split" in rec["reason"]
+    assert rec["status"] == "ok", rec.get("error")
+    L = get_config("qwen2-7b").num_layers
+    coll = rec["op_stats"]["collectives"]
+    assert coll["all-gather"]["count"] == L + 1
+    assert coll["all-reduce"]["count"] == 2 * L + 1
+    assert "reduce-scatter" not in coll
+    assert rec["op_stats"]["kernels"]["decode_attention"]["calls"] == L
+
+
+def test_collective_breakdown_tells_the_q_gather(tmp_path, capsys):
+    """``reanalyze --collectives``: qwen2-7b's decode_32k at ``gpu32x8`` by
+    c10d op and shape, the rows' bytes summing to the record's.  The
+    query columns' gather is one ``_allgather_base_`` a layer of the 8
+    ranks' 448 columns of each of the 4 rows (the logits' vocabulary
+    gather is a list ``allgather_``)."""
+    rec = dryrun.run_cell("qwen2-7b", "decode_32k", "gpu32x8", tmp_path)
+    cell = "qwen2-7b__decode_32k__gpu32x8"
+    assert reanalyze.main(["--out", str(tmp_path), "--collectives", cell]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert sum(r["bytes"] for r in rows) == rec["collectives"]["total_bytes"]
+    assert abs(sum(r["share"] for r in rows) - 1) < 1e-9
+    (gather,) = [r for r in rows if r["op"] == "_allgather_base_"]
+    assert gather["count"] == get_config("qwen2-7b").num_layers
+    assert gather["out"] == [8 * 4, 1, 448] and gather["dtype"] == "bfloat16"
 
 
 def test_rwkv_decode_counts_on_local_heads(tmp_path):

@@ -200,12 +200,20 @@ def test_fitted_specs_split_no_kv_head(arch):
 
 
 def test_shard_model_refuses_what_it_cannot_run():
-    # hymba's attention and Mamba heads have no split yet
-    for sizes in ({"data": 1, "model": 1}, {"data": 1, "model": 5}):
-        with pytest.raises(NotImplementedError, match="head split"):
-            sharding.check_shardable(get_config("hymba-1.5b"), sizes)
-    # every other family runs at one 8-GPU host and at two pods of them
-    # wherever its heads split whole 8 ways
+    # hymba's attention and Mamba heads split at every way count that
+    # divides its 1600 query columns and channels (25 heads of 64: 3.125 a
+    # rank at 8 ways), and qwen2-7b's 28 heads at 8 ways (3.5 a rank)
+    hymba = get_config("hymba-1.5b")
+    for ways in (1, 2, 4, 8):
+        sharding.check_shardable(hymba, {"data": 8 // ways, "model": ways})
+        sharding.check_shardable(hymba, {"pod": 2, "data": 16, "model": ways})
+    sharding.check_shardable(get_config("qwen2-7b"), {"data": 1, "model": 8})
+    # uneven blocks of query columns are refused
+    with pytest.raises(ValueError, match="even blocks"):
+        sharding.check_shardable(hymba, {"data": 1, "model": 3})
+    # every other family runs at one 8-GPU host and at two pods of them:
+    # self-attention wherever its query columns split, the cross layers
+    # and rwkv's WKV heads where their heads split whole 8 ways
     admitted = [name for name, cfg in REGISTRY.items()
                 if cfg.family in ("moe", "encoder", "ssm", "vlm", "audio")]
     assert {REGISTRY[n].family for n in admitted} == {"moe", "encoder", "ssm",
@@ -213,14 +221,22 @@ def test_shard_model_refuses_what_it_cannot_run():
     for name in admitted:
         cfg = get_config(name)
         for sizes in ({"data": 1, "model": 8}, {"pod": 2, "data": 16, "model": 8}):
-            if cfg.num_heads % 8 == 0:
+            if cfg.num_heads % 8 == 0 or cfg.family in sharding.SPLIT_HEAD_FAMILIES:
                 sharding.check_shardable(cfg, sizes)
             else:
                 with pytest.raises(ValueError, match="a head is never split"):
                     sharding.check_shardable(cfg, sizes)
-    # qwen2-7b's 28 heads do not split 8 ways
-    with pytest.raises(ValueError, match="a head is never split"):
-        sharding.check_shardable(get_config("qwen2-7b"), {"data": 1, "model": 8})
+    # the cross layers' rule still refuses 12 heads over 8 ways (the VLM's
+    # and the enc-dec's; rwkv6's WKV heads alike), which the encoders'
+    # self-attention runs
+    for name, kv in (("llama-3.2-vision-11b", 4), ("seamless-m4t-large-v2", 12),
+                     ("rwkv6-7b", 12)):
+        cfg = dataclasses.replace(get_config(name), num_heads=12, num_kv_heads=kv,
+                                  head_dim=64)
+        with pytest.raises(ValueError, match="a head is never split"):
+            sharding.check_shardable(cfg, {"data": 1, "model": 8})
+    assert get_config("e5-base-v2").num_heads == 12
+    sharding.check_shardable(get_config("e5-base-v2"), {"data": 1, "model": 8})
     with pytest.raises(ValueError, match="takes"):
         sharding.check_shardable(get_config("qwen2.5-3b"),
                                  {"expert": 2, "data": 16, "model": 8})

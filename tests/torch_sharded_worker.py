@@ -1,5 +1,6 @@
 """The ranks of the sharded runs of ``tests/test_torch_sharding.py``,
-``tests/test_torch_sharding_families.py`` and ``tests/test_torch_dryrun.py``:
+``tests/test_torch_sharding_families.py``, ``tests/test_torch_sharding_heads.py``
+and ``tests/test_torch_dryrun.py``:
 processes of one gloo group on the CPU that run a sharded model of any
 family ``shard_model`` takes on every case and return numpy results.  It
 imports no JAX: the parent bridges the reference's weights and hands them
@@ -12,8 +13,12 @@ the VLM's ``image_embeds`` or the enc-dec's ``audio_frames``), ``prompts``
 (B, S) and ``decode`` (steps, B) tokens, ``prompt_inputs`` (the prompts'
 image or audio input, where the family takes one) and ``requests`` (the
 engine's prompts; the VLM and the enc-dec ``generate`` from the prompts
-instead, and an encoder has no decode).  ``run_case`` computes the same
-results for an unsharded model when it is given no mesh.
+instead, and an encoder has no decode).  With ``slice_backward`` the
+query columns' gather keeps only this rank's slice of its gradient (a
+mutation that a head split must fail).  ``run_case`` computes the same
+results for an unsharded model when it is given no mesh.  A weight comes
+back at its unsharded shape (a paired-halves weight's (d, 2, h) view as
+its (d, 2h)).
 """
 from __future__ import annotations
 
@@ -27,11 +32,21 @@ CACHE_LEN = 32
 MAX_NEW = 6
 
 
-def _full(t) -> np.ndarray:
+def _full(t, shape=None) -> np.ndarray:
     from torch.distributed.tensor import DTensor
 
     t = t.full_tensor() if isinstance(t, DTensor) else t
-    return t.detach().float().numpy().copy()
+    t = t.detach().float()
+    return (t if shape is None else t.reshape(shape)).numpy().copy()
+
+
+def _slice_only(ctx, grad):
+    """The gather's backward as a plain slice: this rank's own columns of
+    its gradient, with no other rank's part."""
+    import torch.distributed as dist
+
+    rank = dist.get_group_rank(ctx.group, dist.get_rank())
+    return grad.chunk(ctx.ways, dim=-1)[rank].contiguous(), None, None
 
 
 def _model(case, mesh):
@@ -62,8 +77,18 @@ def run_case(case, mesh=None) -> dict:
     from repro_torch.training.optimizer import AdamWConfig, init_state
     from repro_torch.training.train_loop import make_train_step
 
+    from repro_torch.distributed import sharding
+
+    if case.get("slice_backward"):
+        saved = sharding._GatherHeads.backward
+        sharding._GatherHeads.backward = staticmethod(_slice_only)
+        try:
+            return run_case(dict(case, slice_backward=False), mesh)
+        finally:
+            sharding._GatherHeads.backward = saved
     out = {}
     batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+    shapes = {n: tuple(p.shape) for n, p in _model(case, None).named_parameters()}
 
     # one loss and backward, each data rank on its own rows
     model = _model(case, mesh)
@@ -75,7 +100,7 @@ def run_case(case, mesh=None) -> dict:
         reduce_gradients(model.parameters())
         loss = data_mean(loss, mesh)
     out["loss"] = float(loss.detach())
-    out["grads"] = {n: _full(p.grad) for n, p in model.named_parameters()}
+    out["grads"] = {n: _full(p.grad, shapes[n]) for n, p in model.named_parameters()}
 
     # STEPS train steps in MICROBATCHES microbatches
     model = _model(case, mesh)
@@ -86,9 +111,9 @@ def run_case(case, mesh=None) -> dict:
     for _ in range(STEPS):
         state, metrics = step(state, batch)
         out["losses"].append(float(metrics["loss"]))
-    out["weights"] = {n: _full(p) for n, p in params.items()}
-    out["m"] = {n: _full(t) for n, t in state.m.items()}
-    out["v"] = {n: _full(t) for n, t in state.v.items()}
+    out["weights"] = {n: _full(p, shapes[n]) for n, p in params.items()}
+    out["m"] = {n: _full(t, shapes[n]) for n, t in state.m.items()}
+    out["v"] = {n: _full(t, shapes[n]) for n, t in state.v.items()}
     out["numel"] = {n: (p.to_local().numel() if mesh is not None else p.numel(),
                         state.m[n].to_local().numel() if mesh is not None
                         else state.m[n].numel()) for n, p in params.items()}
