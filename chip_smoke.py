@@ -14,20 +14,23 @@ heads, the cross-attention decoders llama-3.2-vision-11b and
 seamless-m4t-large-v2 through both attention kernels over their image and
 audio caches, and rag_reranker's two encoders through the flash kernel's
 non-causal mode, then trains every family (qwen2.5-3b, the encoders,
-hymba-1.5b, seamless-m4t-large-v2 and the VLM through the flash forward
-and its backward kernel, rwkv6-7b through the chunked WKV6 forward and the
-WKV6 backward kernel), and prints one JSON object per phase:
+hymba-1.5b, seamless-m4t-large-v2, the VLM, gemma-7b at head dim 256 and
+olmoe-1b-7b through the flash forward and its backward kernel, rwkv6-7b
+through the chunked WKV6 forward and the WKV6 backward kernel), and
+prints one JSON object per phase:
 
 1. ``device``: the card's name and ``nvidia-smi`` name/power limit;
 2. ``build``: the six kernels compiled from ``src/repro_torch/csrc`` for
-   sm_90a, in parallel, with nvcc's register/spill report; then one
+   sm_90a, in parallel, with nvcc's register/spill report (the flash
+   backward's D = 256 and f32 entries must not spill); then one
    ``sass`` line per kernel library with its HGMMA, HMMA and FFMA
    instructions per entry (``cuobjdump -sass``), which fails the run if a
    bf16 attention entry, the chunked WKV6 entry or a dQ or dK/dV entry of
    the attention backward has no tensor-core instruction;
 3. ``kernel_checks``: the attention kernels against their plain PyTorch
    versions on the card at the llama path's shapes, then the encoders'
-   non-causal and head-dim-32 shapes (within TOL, and each
+   non-causal and head-dim-32 shapes (an f32 case also through the
+   forward with its LSE, the training forward; within TOL, and each
    output row within ROW_REL_TOL of its RMS), with times (CUDA
    events, and device time through a CUDA graph), the bound of each call
    and one PyTorch library call as a yardstick, timed the same two ways;
@@ -95,8 +98,11 @@ WKV6 backward kernel), and prints one JSON object per phase:
    plain versions in f32, within TOL and ROW_REL_TOL, at the train shape
    B=2, S=2048, H=16, KV=2, D=128, a ragged S=1000, hymba's window, the
    encoders' non-causal D=64 and D=32, the VLM's cross shape, seamless's
-   encoder (1024 x 1024) and cross (512 over 1024) shapes at B=4 and the
-   train_4k length B=1, S=4096; two calls must give bit-equal gradients;
+   encoder (1024 x 1024) and cross (512 over 1024) shapes at B=4, the
+   train_4k length B=1, S=4096, gemma-7b's D=256 (B=2, S=2048, H=KV=16,
+   and a ragged S=1000), and the f32 kernels at D=128 and 256 over
+   2 x 2048, D=64 under a window and seamless's cross shape, held to the
+   f32 TOL; two calls must give bit-equal gradients;
    each with its dK/dV plan, graph ms, bound and SDPA's backward ms), and
    of the WKV6 backward (``wkv6_bwd``: dr, dk, dv, dlogw, du and dstate
    against ``wkv6_bwd_ref`` in f64, within TOL and ROW_REL_TOL, dlogw
@@ -111,7 +117,11 @@ WKV6 backward kernel), and prints one JSON object per phase:
    self layers and a cross layer) through the kernels and through their
    plain versions, held against an f32 plain run (loss within TOL, each
    gradient's RMS error within BF16_ERR_RATIO of the plain bf16 run's, no
-   gradient zero); then ``train``, bf16 seeded weights and AdamW on the
+   gradient zero; qwen2.5-3b and gemma-7b also in f32 through the
+   kernels, loss and each gradient within the f32 TOL of the f32 plain
+   run; olmoe-1b-7b's runs replay the f32 plain step's experts, and each
+   bf16 run's free routing agreement is printed); then ``train``, bf16
+   seeded weights and AdamW on the
    reference's synthetic corpus, with seeded stub image or audio inputs
    and nonzero VLM gates (the steps of TRAIN_RUNS): qwen2.5-3b at full
    width and depth for 30 steps of 8 x 2048 tokens in 4 microbatches,
@@ -120,7 +130,9 @@ WKV6 backward kernel), and prints one JSON object per phase:
    frames a row, 2 microbatches), the VLM at full width and 2 of its 8
    groups (15 of 4 x 512 over 1601 image embeddings; the f32 moments of
    all 11.47 B weights would not fit) and rwkv6-7b at full width and 8 of
-   its 32 layers (20 of qwen's 8 x 2048 in 4 microbatches), one
+   its 32 layers (20 of qwen's 8 x 2048 in 4 microbatches), gemma-7b and
+   olmoe-1b-7b at full width and 8 layers (30 of 4 x 2048 in 2
+   microbatches), one
    ``train_step`` line per step (loss, ms, tokens/s, grad norm, model
    FLOPs share), peak memory, a ``torch.profiler`` window of one step
    (busy share, the backward kernel's ms); a run fails unless every loss
@@ -160,13 +172,17 @@ WKV6 backward kernel), and prints one JSON object per phase:
    counts of every kernel (flash and decode; rwkv6-7b's wkv6_chunk and
    wkv6_scan) with only plain tensors reaching the kernel wrappers, its
    wall seconds and step ms printed beside the unsharded run's; then
-   qwen2.5-3b at full width and 18 layers, rwkv6-7b at full width and 8
+   qwen2.5-3b at full width and 4 layers, rwkv6-7b at full width and 8
    of its 32 layers (4 x 2048 tokens) and hymba-1.5b at full width and its
    layers 0-3 (a full-attention layer and three window layers; 2 x 2048
    tokens, past the window) each take 3 train steps (one
    microbatch) unsharded and 3 sharded with ZeRO-1 moments from the same
    seed, which must be bit-equal in every loss, weight and moment, with
-   exactly ``train_launches`` in every step; the summary line sums each
+   exactly ``train_launches`` in every step; qwen2.5-3b's sharded run
+   saves a checkpoint after its first step (gathered from the DTensors,
+   written once at the unsharded shapes) and a sharded model from another
+   seed restores it, each DTensor its own slice, and takes steps 1-2,
+   which must be bit-equal to the uninterrupted run; the summary line sums each
    kernel's launches over the sharded runs (the ``kernels`` line's
    ``launches_shard``) and lists them by run;
 14. ``dryrun``: the dry-run's counts (``launch.dryrun.count_step``, the
@@ -372,8 +388,8 @@ TENSOR_CORES = ("HGMMA", "HMMA")
 # instructions of which each such entry needs one): the bf16 attention
 # kernels, the chunked WKV6 kernel and the attention backward's dQ and dK/dV
 # kernels: one persistent wgmma kernel for both at D = 64 and 128, and
-# mma.sync at D = 32; and the WKV6 backward's two kernels, the chunks'
-# walks and every chunk on its own
+# mma.sync at D = 32 and 256; and the WKV6 backward's two kernels, the
+# chunks' walks and every chunk on its own
 TENSOR_CORE_ENTRIES = {
     "flash_attention": (("flash_fwd_tc", TENSOR_CORES),),
     "decode_attention": (("decode_split", TENSOR_CORES),),
@@ -381,8 +397,15 @@ TENSOR_CORE_ENTRIES = {
     "flash_attention_bwd": (("bwd_dq_dkdv_tcILi64E", ("HGMMA",)),
                             ("bwd_dq_dkdv_tcILi128E", ("HGMMA",)),
                             ("bwd_dq_mmaILi32E", ("HMMA",)),
-                            ("bwd_dkdv_mmaILi32E", ("HMMA",))),
+                            ("bwd_dkdv_mmaILi32E", ("HMMA",)),
+                            ("bwd_dq_mmaILi256E", ("HMMA",)),
+                            ("bwd_dkdv_mmaILi256E", ("HMMA",))),
     "wkv6_bwd": (("wkv6_bwd_states", TENSOR_CORES), ("wkv6_bwd_chunk", TENSOR_CORES))}
+
+
+# entries whose nvcc report must show no spill: the flash backward's
+# D = 256 (mma.sync) and f32 (CUDA-core) entries
+NO_SPILL_ENTRIES = {"flash_attention_bwd": ("ILi256E", "3f32")}
 
 
 def sass_counts(common, name: str) -> dict:
@@ -478,7 +501,24 @@ def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
     flops = 4.0 * B * H * D * pairs
     b_ms, b_by = bound(flops, nbytes, dtype)
     kernel_graph_ms = graph_ms(torch, kernel)
-    return {"kernel": "flash_attention", "dtype": dtype,
+    lse_check = {}
+    if dtype == "float32":
+        # the f32 training forward: the same output, and each row's
+        # log-sum-exp against the plain version's
+        from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_lse_ref
+
+        out_l, lse = ops_mod.flash_attention_fwd_lse(q, k, v, window=window,
+                                                     causal=causal)
+        _, lse_ref = flash_attention_fwd_lse_ref(qt, kt, vt, window=window,
+                                                 causal=causal)
+        lse_err = (lse - lse_ref).abs()
+        lse_check = {"lse_max_abs_err": float(lse_err.max()),
+                     "lse_out_equal": bool(torch.equal(out_l, out)),
+                     "lse_ok": bool((lse_err <= tol + tol * lse_ref.abs()).all()),
+                     "fwd_lse_graph_ms": graph_ms(torch, lambda: ops_mod.flash_attention_fwd_lse(
+                         q, k, v, window=window, causal=causal))}
+        ok_abs = ok_abs and lse_check["lse_ok"] and lse_check["lse_out_equal"]
+    return {"kernel": "flash_attention", "dtype": dtype, **lse_check,
             "shape": {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
                       "window": window, "causal": causal},
             "max_abs_err": float(err.max()), "tol": tol,
@@ -858,14 +898,18 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
                                                        window, causal)
     kernel_graph_ms = graph_ms(torch, kernel)
     row_err = max(row_errs)
+    # the bf16 kernels' dK/dV plan as the wrapper makes it; the f32 ones
+    # walk whole tiles
     plan = ops_mod.plan_bwd_units(B, KV, H // KV, S, Sk, window, causal,
-                                  torch.cuda.get_device_properties(dev).multi_processor_count)
+                                  torch.cuda.get_device_properties(dev).multi_processor_count,
+                                  slots=ops_mod.bwd_slots_per_sm(D))
     result = {"kernel": "flash_attention_bwd", "dtype": dtype,
               "shape": {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
                         "window": window, "causal": causal},
-              "plan": {"cap": plan.cap, "units": len(plan.units) * B * KV,
-                       "partial_tiles": plan.partials * B * KV,
-                       "merged_tiles": len(plan.merges) * B * KV},
+              "plan": None if dtype == "float32" else {
+                  "cap": plan.cap, "units": len(plan.units) * B * KV,
+                  "partial_tiles": plan.partials * B * KV,
+                  "merged_tiles": len(plan.merges) * B * KV},
               "deterministic": deterministic,
               "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs, "tol": tol,
               "max_row_rel_err": row_err, "row_rel_err_dq_dk_dv": row_errs,
@@ -985,9 +1029,12 @@ WKV6_CASES += [(B, S, 64, 64, "float32", split, "mild")
 # train shapes: hymba's window, the encoders' non-causal attention at D=64
 # and D=32, the VLM's cross-attention (512 over 1601), seamless-m4t's
 # encoder (1024 x 1024 frames, H = KV = 16, D = 64) and its cross-attention
-# (512 over the 1024 frames), at its microbatch of 4 rows; last, the
-# reference's train_4k length (B=1, S=4096), the longest walk the dK/dV
-# planner splits
+# (512 over the 1024 frames), at its microbatch of 4 rows; the reference's
+# train_4k length (B=1, S=4096), the longest walk the dK/dV planner splits;
+# gemma-7b's microbatch (H = KV = 16, D = 256, the mma.sync path) and a
+# ragged S; then the f32 kernels at the f32 parity steps' shapes (qwen's
+# D = 128 and gemma's D = 256 over 2 x 2048), a window at D = 64 and
+# seamless's cross shape
 FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (1, 1000, 32, 8, 128, 0, "bfloat16"),
                    (1, 2048, 25, 5, 64, 1024, "bfloat16"),
@@ -996,7 +1043,13 @@ FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (8, 512, 32, 8, 128, 0, "bfloat16", 1601, False),
                    (4, 1024, 16, 16, 64, 0, "bfloat16", 1024, False),
                    (4, 512, 16, 16, 64, 0, "bfloat16", 1024, False),
-                   (1, 4096, 16, 2, 128, 0, "bfloat16")]
+                   (1, 4096, 16, 2, 128, 0, "bfloat16"),
+                   (2, 2048, 16, 16, 256, 0, "bfloat16"),
+                   (1, 1000, 16, 16, 256, 0, "bfloat16"),
+                   (2, 2048, 16, 2, 128, 0, "float32"),
+                   (2, 2048, 16, 16, 256, 0, "float32"),
+                   (1, 1000, 25, 5, 64, 256, "float32"),
+                   (4, 512, 16, 16, 64, 0, "float32", 1024, False)]
 # the WKV6 backward at rwkv6-7b's train shape (H = 64, D = 64; B = 2 per
 # microbatch, S = 2048), a ragged S, the strong and slow decays of
 # WKV6_CASES, a single partial chunk and rwkv_grad's shape (B = 4):
@@ -1647,7 +1700,8 @@ class TrainSpec(NamedTuple):
     """One training run: SyntheticCorpus batches of ``batch`` x ``seq``
     tokens in ``microbatches``, ``steps`` AdamW steps at peak rate ``lr``
     (after TRAIN_WARMUP steps of warm-up), at full width; the depth cut to
-    ``layers`` where given."""
+    ``layers`` where given.  With ``f32_kernels``, ``train_parity`` also
+    runs its step in f32 through the kernels."""
     arch: str
     batch: int
     seq: int
@@ -1655,6 +1709,7 @@ class TrainSpec(NamedTuple):
     steps: int
     layers: Optional[int] = None
     lr: float = TRAIN_LR
+    f32_kernels: bool = False
 
 
 # qwen2.5-3b first (8 x 2048 in 4 microbatches of 2), then the other
@@ -1670,13 +1725,22 @@ class TrainSpec(NamedTuple):
 # 700.00 W: the last 5 steps' mean over the first 5's at 15 steps e5
 # 0.193, reranker 0.075, seamless 0.530 and the VLM 0.586, at 10 hymba
 # 0.638, at 20 rwkv 0.698; qwen2.5-3b needs its 30: 0.718 at 25)
-TRAIN_RUNS = [TrainSpec("qwen2.5-3b", 8, 2048, 4, 30),
+#
+# gemma-7b (head dim 256: the backward's mma.sync path) at full width and 8
+# of its 28 layers, 3.00 B weights: bf16 weights and gradients and f32
+# moments of all 8.54 B would take 102 GB; olmoe-1b-7b at full width and 8
+# of its 16 layers, 3.56 B (6.92 B at full depth: 83 GB), routed through
+# every expert; each at 4 x 2048 tokens in 2 microbatches.  qwen2.5-3b and
+# gemma-7b also check a step in f32 through the kernels (``train_parity``)
+TRAIN_RUNS = [TrainSpec("qwen2.5-3b", 8, 2048, 4, 30, f32_kernels=True),
               TrainSpec("e5-base-v2", 16, 512, 1, 15),
               TrainSpec("reranker-minilm", 16, 512, 1, 15),
               TrainSpec("hymba-1.5b", 2, 2048, 1, 10),
               TrainSpec("seamless-m4t-large-v2", 8, 512, 2, 15),
               TrainSpec("llama-3.2-vision-11b", 4, 512, 1, 15, layers=10, lr=3e-4),
-              TrainSpec(RWKV_ARCH, 8, 2048, 4, 20, layers=8)]
+              TrainSpec(RWKV_ARCH, 8, 2048, 4, 20, layers=8),
+              TrainSpec("gemma-7b", 4, 2048, 2, 30, layers=8, f32_kernels=True),
+              TrainSpec(MOE_ARCHS[0], 4, 2048, 2, 30, layers=8)]
 # the gradients at full depth, one forward_loss and backward each, no
 # update: (phase, rows, seq) by arch; the VLM's 48 layers over 4 x 512
 # tokens, rwkv6-7b's 32 over 4 x 2048
@@ -1699,12 +1763,12 @@ def parity_config(cfg):
     return dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
 
 
-def seeded_model(torch, np, cfg, dev, build_model, dtype):
-    """``cfg`` with weights drawn from SEED in ``dtype``; a VLM's gates set
-    to ``vlm_gates`` (zero gates would leave every cross weight but the
+def seeded_model(torch, np, cfg, dev, build_model, dtype, seed=SEED):
+    """``cfg`` with weights drawn from ``seed`` in ``dtype``; a VLM's gates
+    set to ``vlm_gates`` (zero gates would leave every cross weight but the
     gates without a gradient)."""
     model = build_model(cfg, device=dev, dtype=dtype)
-    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    model.init_params(torch.Generator(device=dev).manual_seed(seed))
     if cfg.family == "vlm":
         set_gates(torch, model, vlm_gates(np, len(model.cross_layers)))
     return model
@@ -1816,16 +1880,26 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     with a seeded stub input where the family takes one) of ``cfg`` at full
     width and the depth of ``parity_config``, from weights drawn from one
     seed: in f32 with the plain versions of the kernels (the reference
-    run), in bf16 with the plain versions and in bf16 through the kernels.
+    run), in bf16 with the plain versions and in bf16 through the kernels;
+    with ``spec.f32_kernels``, in f32 through the kernels too.
     The kernels' loss must be within bf16 TOL of the plain bf16 loss's
     scale, no gradient of the f32 run may be zero, and each gradient's RMS
     error against the f32 run at most BF16_ERR_RATIO times the plain bf16
     run's, as ``model_check`` holds logits; a 0-dim gradient (the VLM's
     gates), one number, for which that ratio of two single errors is
     noise, is held as the loss is: within TOL of the plain bf16 run's.
-    The kernel run launches exactly ``train_launches``, the plain runs
-    nothing."""
+    The f32 kernel run differs from the f32 plain run only by the kernels'
+    order of f32 sums: its loss, and each gradient's RMS error over the
+    gradient's RMS, within the f32 TOL.  The kernel runs launch exactly
+    ``train_launches``, the plain runs nothing.
+
+    An MoE model routes discontinuously (``model_check``): the f32 plain
+    run's experts, recorded over its step (the forward and the checkpoint's
+    recompute, in call order), are replayed in every other run's step, and
+    each bf16 run's free forward is held to them by routing agreement
+    (printed)."""
     from repro_torch.analysis.op_stats import train_launches
+    from repro_torch.models import moe
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import AdamWConfig, init_state
     from repro_torch.training.train_loop import make_train_step
@@ -1833,16 +1907,30 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
     small = parity_config(cfg)
     batch = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, PARITY_ROWS,
                                        seed=SEED + 7)).batch_at(0)
-    runs = {}
-    for dtype, plain in (("float32", True), ("bfloat16", True), ("bfloat16", False)):
+    kinds = [("float32", True), ("bfloat16", True), ("bfloat16", False)]
+    if spec.f32_kernels:
+        kinds.append(("float32", False))
+    runs, routes, agreement = {}, None, {}
+    for dtype, plain in kinds:
         model = seeded_model(torch, np, small, dev, build_model, getattr(torch, dtype))
         model.plain_kernels = plain
         step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP))
         state = init_state(dict(model.named_parameters()))
         inputs = {**batch, **stub_batch(torch, model, PARITY_ROWS, dev, SEED + 9)}
+        if cfg.is_moe and routes is not None and dtype == "bfloat16":
+            with torch.no_grad():
+                _, free = routed_run(moe, lambda: model.forward_loss(
+                    **{k: torch.as_tensor(v, device=dev) for k, v in batch.items()}))
+            agreement[f"{dtype}_{'plain' if plain else 'kernel'}"] = \
+                routing_agreement(free, routes)
         torch.cuda.synchronize()
         common.reset_launch_counts()
-        _, metrics = step_fn(state, inputs)
+        if cfg.is_moe:
+            (_, metrics), calls = routed_run(moe, lambda: step_fn(state, inputs),
+                                             replay=routes)
+            routes = calls if routes is None else routes
+        else:
+            _, metrics = step_fn(state, inputs)
         loss = float(metrics["loss"])
         launches = {k: n for k, n in common.launch_counts.items() if n}
         grads = {n: p.grad.float() for n, p in model.named_parameters()}
@@ -1881,13 +1969,31 @@ def train_parity(torch, np, spec: TrainSpec, cfg, dev, build_model, common):
               "grad_rms_err_ratio_tol": BF16_ERR_RATIO, "scalar_grads": scalars,
               "launches_kernel_run": kern_launches, "launches_kernel_expected": want,
               "launches_plain_run": plain_launches}
+    ok = (abs(kern_loss - plain_loss) <= tol * abs(plain_loss)
+          and all(np.isfinite([ref_loss, plain_loss, kern_loss]))
+          and worst[0][1] <= BF16_ERR_RATIO and not zero
+          and all(v["ok"] for v in scalars.values())
+          and kern_launches == want and not plain_launches)
+    if spec.f32_kernels:
+        f32_loss, f32_g, f32_launches = runs["float32", False]
+        rel = {name: _rms(torch, f32_g[name], g) / float(g.square().mean().sqrt())
+               for name, g in ref.items() if bool(g.abs().max() > 0)}
+        worst32 = sorted(rel.items(), key=lambda kv: -kv[1])
+        loss32 = abs(f32_loss - ref_loss) / abs(ref_loss)
+        result.update({"loss_f32_kernel": f32_loss, "f32_kernel_loss_rel_diff": loss32,
+                       "f32_kernel_grad_rel_rms_err_max": worst32[0][1],
+                       "f32_kernel_grad_rel_rms_err_worst5": dict(worst32[:5]),
+                       "f32_tol": TOL["float32"],
+                       "launches_f32_kernel_run": f32_launches})
+        ok = (ok and bool(np.isfinite(f32_loss)) and loss32 <= TOL["float32"]
+              and worst32[0][1] <= TOL["float32"] and f32_launches == want)
+    if cfg.is_moe:
+        result.update({"routing": "replayed from the f32 plain step",
+                       "route_calls": len(routes),
+                       "routing_agreement_free_vs_f32": agreement})
     if cfg.family == "audio":
         result["encoder_layers"] = small.encoder_layers
-    result["ok"] = (abs(kern_loss - plain_loss) <= tol * abs(plain_loss)
-                    and all(np.isfinite([ref_loss, plain_loss, kern_loss]))
-                    and worst[0][1] <= BF16_ERR_RATIO and not zero
-                    and all(v["ok"] for v in scalars.values())
-                    and kern_launches == want and not plain_launches)
+    result["ok"] = ok
     return result
 
 
@@ -2164,19 +2270,23 @@ def resume_phase(torch, np, cfg, dev, build_model, common):
 # prefix hits whose suffixes decode token by token, took llama 77 s
 # unsharded and sharded on a slow host, the whole script 1150 s of its
 # 1200); the VLM and seamless-m4t generate 16 steps from GENERATE's batch;
-# qwen2.5-3b trains 3 steps at full width and 18 of its 36 layers (two
-# runs' weights and f32 moments, 17 GB each, stay on the card at once for
-# the bit comparison; at full depth they would take 62 GB), rwkv6-7b 3
+# qwen2.5-3b trains 3 steps at full width and 4 of its 36 layers (0.62 B
+# weights: its sharded run checkpoints, 7.4 GB of f32 weights and moments;
+# 18 layers until the checkpoint came, whose 20 GB would take ~50 s to
+# write and read), rwkv6-7b 3
 # steps of 4 x 2048 tokens at 8 of its 32 layers (23 GB a run); hymba-1.5b
 # serves the hymba engine phase's first 4 requests and trains 3 steps of
 # 2 x 2048 tokens at its layers 0-3 (layer 0 attends over the whole
 # prefix, 1-3 over the 1024-token window)
 SHARD_REQUESTS, SHARD_NEW = 4, 16
 SHARD_SERVE = (ARCH, MOE_ARCHS[0], RWKV_ARCH, HYMBA_ARCH, *CROSS_ARCHS)
-SHARD_TRAINS = (TrainSpec("qwen2.5-3b", 4, 2048, 1, 3, layers=18),
+SHARD_TRAINS = (TrainSpec("qwen2.5-3b", 4, 2048, 1, 3, layers=4),
                 TrainSpec(RWKV_ARCH, 4, 2048, 1, 3, layers=8),
                 TrainSpec(HYMBA_ARCH, 2, 2048, 1, 3, layers=4))
 SHARD_WAYS = (1, 2, 4, 8)
+# the sharded train run that checkpoints (after SHARD_CKPT_AT steps) and is
+# resumed from the file by a sharded model from another seed
+SHARD_CKPT, SHARD_CKPT_AT = "qwen2.5-3b", 1
 
 
 def shard_bytes(get_config):
@@ -2341,9 +2451,22 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
     batches, ``spec.steps`` AdamW steps unsharded (U), then as many from
     the same seed sharded over ``mesh`` with ZeRO-1 moments (S).  ``ok``
     needs S's losses, weights, moments and step bit-equal to U's, and
-    exactly ``train_launches`` in every step of both."""
+    exactly ``train_launches`` in every step of both.
+
+    For SHARD_CKPT's arch, S saves a checkpoint (``training.checkpoint``,
+    gathered from the DTensors) after SHARD_CKPT_AT steps into a directory
+    under ``build/`` that is removed at the end, and R, a sharded model
+    drawn from another seed, restores it (each DTensor its own slice) and
+    takes the remaining steps: ``ok`` also needs the file written once at
+    the unsharded shapes (``writers`` 1, one shard) and R bit-equal to S
+    in every loss after the save and in the final weights, moments and
+    step."""
+    import shutil
+    import tempfile
+
     from repro_torch.analysis.op_stats import train_launches
     from repro_torch.distributed.sharding import local, shard_model
+    from repro_torch.training import checkpoint as ckpt
     from repro_torch.training.data import DataConfig, SyntheticCorpus
     from repro_torch.training.optimizer import AdamWConfig, init_state
     from repro_torch.training.train_loop import make_train_step
@@ -2352,9 +2475,14 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
     data = SyntheticCorpus(DataConfig(cfg.vocab_size, spec.seq, spec.batch, seed=SEED))
     per_step = train_launches(cfg, spec.microbatches)
     expected = {name: per_step.get(name, 0) for name in common.KERNELS}
+    ckpt_dir = None
+    if spec.arch == SHARD_CKPT:
+        (ROOT / "build").mkdir(exist_ok=True)
+        ckpt_dir = tempfile.mkdtemp(prefix="shard_ckpt_", dir=ROOT / "build")
+    io = {}
 
-    def run(sharded):
-        model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16)
+    def run(sharded, seed=SEED, restore=False):
+        model = seeded_model(torch, np, cfg, dev, build_model, torch.bfloat16, seed)
         # each weight's unsharded shape: hymba's ``w_in`` is sharded as its
         # (d, 2, h) view, which the comparison reads back as (d, 2h)
         shapes = {n: p.shape for n, p in model.named_parameters()}
@@ -2363,8 +2491,15 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
         step_fn = make_train_step(model, AdamWConfig(lr=spec.lr, warmup_steps=TRAIN_WARMUP),
                                   num_microbatches=spec.microbatches)
         state = init_state(dict(model.named_parameters()))
+        start = 0
+        if restore:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, start, _ = ckpt.restore_checkpoint(ckpt_dir, model, state)
+            torch.cuda.synchronize()
+            io["restore_s"] = time.perf_counter() - t
         losses, ms, launches_ok, totals = [], [], True, Counter()
-        for step in range(spec.steps):
+        for step in range(start, spec.steps):
             torch.cuda.synchronize()
             common.reset_launch_counts()
             t = time.perf_counter()
@@ -2374,6 +2509,18 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
             ms.append((time.perf_counter() - t) * 1e3)
             launches_ok = launches_ok and dict(common.launch_counts) == expected
             totals.update(common.launch_counts)
+            if sharded and not restore and ckpt_dir and step + 1 == SHARD_CKPT_AT:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                path = Path(ckpt.save_checkpoint(ckpt_dir, step + 1, model, state))
+                io["save_s"] = time.perf_counter() - t
+                io["files"] = sorted(f.name for f in path.iterdir())
+                io["bytes"] = sum(f.stat().st_size for f in path.iterdir())
+                manifest = json.loads((path / "manifest.json").read_text())
+                io["writers"] = manifest["writers"]
+                io["shapes_unsharded"] = all(
+                    manifest["leaves"][f"param/{n}"]["shape"] == list(shp)
+                    for n, shp in shapes.items())
         tensors = {f"param/{n}": local(p).detach().reshape(shapes[n])
                    for n, p in model.named_parameters()}
         tensors.update({f"m/{n}": local(t).reshape(shapes[n]) for n, t in state.m.items()})
@@ -2381,14 +2528,34 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
         tensors["step"] = state.step
         return losses, ms, launches_ok, totals, tensors
 
-    losses_u, ms_u, ok_u, totals_u, tensors = run(False)
-    final_u = {k: t.clone() for k, t in tensors.items()}
-    del tensors
-    gc.collect()
-    torch.cuda.empty_cache()
-    losses_s, ms_s, ok_s, totals_s, tensors = run(True)
-    unequal = _unequal(torch, final_u, tensors)
-    del final_u, tensors
+    try:
+        losses_u, ms_u, ok_u, totals_u, tensors = run(False)
+        final_u = {k: t.clone() for k, t in tensors.items()}
+        del tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses_s, ms_s, ok_s, totals_s, tensors = run(True)
+        unequal = _unequal(torch, final_u, tensors)
+        del final_u
+        if ckpt_dir:
+            final_s = {k: t.clone() for k, t in tensors.items()}
+            del tensors
+            gc.collect()
+            torch.cuda.empty_cache()
+            losses_r, _, ok_r, totals_r, tensors = run(True, seed=SEED + 1, restore=True)
+            io["unequal_restored"] = _unequal(torch, final_s, tensors)[:8]
+            io["losses_restored"] = losses_r
+            io["ok"] = (losses_r == losses_s[SHARD_CKPT_AT:] and not io["unequal_restored"]
+                        and ok_r and io["writers"] == 1 and io["files"] == [
+                            "manifest.json", "shard_0.npz"] and io["shapes_unsharded"])
+            io["gb_per_s_save"] = io["bytes"] / io["save_s"] / 1e9
+            io["gb_per_s_restore"] = io["bytes"] / io["restore_s"] / 1e9
+            totals_s.update(totals_r)
+            del final_s
+        del tensors
+    finally:
+        if ckpt_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     result = {
         "run": "train", "arch": cfg.name, "layers": cfg.num_layers,
         "batch": spec.batch, "seq": spec.seq, "microbatches": spec.microbatches,
@@ -2398,8 +2565,11 @@ def shard_train(torch, np, spec: TrainSpec, dev, build_model, common, get_config
         "launches_per_step_expected": {k: n for k, n in expected.items() if n},
         "launches": {k: n for k, n in totals_u.items() if n},
         "launches_sharded": {k: n for k, n in totals_s.items() if n}}
+    if ckpt_dir:
+        result["checkpoint"] = {"at_step": SHARD_CKPT_AT, **io}
     result["ok"] = (losses_s == losses_u and not unequal and ok_u and ok_s
-                    and bool(np.isfinite(losses_u).all()))
+                    and bool(np.isfinite(losses_u).all())
+                    and (not ckpt_dir or io["ok"]))
     return result
 
 
@@ -2895,6 +3065,12 @@ def run():
                              "ptxas": ptxas_summary(r["ptxas"])}
                       for name, r in reports.items()},
           "cached": sorted(set(common.KERNELS) - set(reports))})
+    spills = [(name, e["entry"]) for name, r in reports.items()
+              for e in ptxas_summary(r["ptxas"])
+              if any(m in e["entry"] for m in NO_SPILL_ENTRIES.get(name, ()))
+              and e.get("spill_store_bytes", 0) > 0]
+    if spills:
+        raise SmokeFailure(f"kernel entries that must not spill do: {spills}")
     counting = start_dryrun_counts()
     for name in common.KERNELS:
         result = sass_counts(common, name)

@@ -15,8 +15,10 @@ shapes of ``chip_smoke.py``, and of PyTorch's
 ``scaled_dot_product_attention`` on the same inputs; then of ``wkv6_op``
 at rwkv6-7b's prefill shapes (bf16, B=1, H=64, D=64, the model's mild
 decays), on whichever kernel that checkout routes them to; then of
-``flash_attention_bwd_op`` at each shape of ``chip_smoke.FLASH_BWD_CASES``
-(the first is the train shape) beside SDPA's backward on the same inputs,
+``flash_attention_bwd_op`` at each shape and dtype of
+``chip_smoke.FLASH_BWD_CASES`` (the first is the train shape; the other
+checkout must take every dtype and head dim there) beside SDPA's backward
+on the same inputs,
 timed as ``chip_smoke.sdpa_calls`` does (its forward and backward less its
 forward); last of ``wkv6_bwd_op`` at each shape of
 ``chip_smoke.WKV6_BWD_CASES`` (the first is rwkv6-7b's train shape), on
@@ -86,11 +88,13 @@ def worker(root: Path) -> dict:
             u = torch.randn(WKV6_H, WKV6_D, generator=gen, device=dev) * 0.2
             s0 = torch.randn(1, WKV6_H, WKV6_D, WKV6_D, generator=gen, device=dev) * 0.1
             out[f"wkv6_S{S}"] = graph_ms(torch, lambda: wkv6_op(r, k, v, logw, u, s0))
-    for B, S, Hb, KVb, Db, window, _dtype, *rest in FLASH_BWD_CASES:
+    for B, S, Hb, KVb, Db, window, dtype, *rest in FLASH_BWD_CASES:
         Sk, causal = rest if rest else (S, True)
-        q, k, v, do = rnd(B, S, Hb, Db), rnd(B, Sk, KVb, Db), rnd(B, Sk, KVb, Db), rnd(B, S, Hb, Db)
+        q, k, v, do = (x.to(getattr(torch, dtype)) for x in (
+            rnd(B, S, Hb, Db), rnd(B, Sk, KVb, Db), rnd(B, Sk, KVb, Db), rnd(B, S, Hb, Db)))
         o, lse = flash_ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal)
-        tag = f"bwd_B{B}_S{S}x{Sk}_H{Hb}_KV{KVb}_D{Db}_w{window}{'' if causal else '_full'}"
+        tag = (f"bwd_B{B}_S{S}x{Sk}_H{Hb}_KV{KVb}_D{Db}_w{window}{'' if causal else '_full'}"
+               f"{'' if dtype == 'bfloat16' else '_' + dtype}")
         out[tag] = graph_ms(torch, lambda: flash_ops.flash_attention_bwd_op(
             q, k, v, o, do, lse, window=window, causal=causal))
         fwd, fwd_bwd, _ = sdpa_calls(torch, F, *(x.transpose(1, 2) for x in (q, k, v, do)),

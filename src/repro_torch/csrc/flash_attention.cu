@@ -47,7 +47,9 @@
 // f32 (f32::flash_fwd) keeps the first design, on the CUDA cores: the f32
 // model checks hold it to 2e-5, which TF32 on the tensor cores would miss.
 // Q, K and V tiles are staged in shared memory and each thread keeps a
-// register tile of scores and a slice of the output accumulator.
+// register tile of scores and a slice of the output accumulator.  Given an
+// lse pointer (f32 training) it stores each row's log-sum-exp as the bf16
+// path does, from the m and l the row's eight lanes already share.
 #include <cuda.h>  // CUtensorMap types only: nothing here links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,8 +113,8 @@ constexpr size_t smem_floats() {
 template <typename T, int D, int BQ, int BKV>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int G,
-          int window, int causal, float scale, Strides qs_, Strides ks_,
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, int Sq,
+          int Sk, int G, int window, int causal, float scale, Strides qs_, Strides ks_,
           Strides vs_, Strides os_) {
   constexpr int RM = BQ / 16;  // query rows per thread
   constexpr int CN = BKV / 8;  // score columns per thread
@@ -248,12 +250,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * os_.b + h * os_.h + qpos * os_.s;
 #pragma unroll
     for (int j = 0; j < DN; ++j) store_elem(orow + tx + 8 * j, acc[i][j] * inv);
+    // the row's log-sum-exp for the backward, as the bf16 path writes it:
+    // natural log (q was staged times scale, so m is in natural units),
+    // +inf for a row with no key
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + qpos] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <typename T, int D, int BQ, int BKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Sk, int window, int causal, Strides qs, Strides ks,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int H, int KV, int Sq, int Sk, int window, int causal, Strides qs, Strides ks,
            Strides vs, Strides os, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D, BQ, BKV>() * sizeof(float);
   static bool configured = false;
@@ -268,7 +276,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const float scale = 1.f / sqrtf((float)D);
   flash_fwd<T, D, BQ, BKV><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H / KV, window, causal, scale, qs, ks, vs, os);
+      static_cast<T*>(o), lse, Sq, Sk, H / KV, window, causal, scale, qs, ks, vs, os);
   return (int)cudaGetLastError();
 }
 
@@ -296,13 +304,13 @@ int with_tile(int D, F f) {
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-             int KV, int Sq, int Sk, int D, int window, int causal, Strides qs,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int H, int KV, int Sq, int Sk, int D, int window, int causal, Strides qs,
              Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   return with_tile(D, [&](auto tile) {
     using C = decltype(tile);
-    return launch<T, C::D, C::BQ, C::BKV>(q, k, v, o, B, H, KV, Sq, Sk, window, causal,
-                                          qs, ks, vs, os, stream);
+    return launch<T, C::D, C::BQ, C::BKV>(q, k, v, o, lse, B, H, KV, Sq, Sk, window,
+                                          causal, qs, ks, vs, os, stream);
   });
 }
 
@@ -961,9 +969,10 @@ extern "C" {
 // strides (batch, head, position); the last dim is contiguous.  out has q's
 // shape.  causal = 1 (Sq == Sk, optional window) or 0 (no mask, window 0).
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  lse, when
-// not null (bf16 only), receives each row's log-sum-exp of the scaled,
-// masked scores, natural log, as a contiguous (B, H, Sq) f32 tensor; the
-// backward (flash_attention_bwd.cu) recomputes the probabilities from it.
+// not null, receives each row's log-sum-exp of the scaled, masked scores,
+// natural log (+inf for a row with no key), as a contiguous (B, H, Sq) f32
+// tensor; the backward (flash_attention_bwd.cu) recomputes the
+// probabilities from it.
 // Returns cudaGetLastError().
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int B, int H, int KV, int Sq, int Sk, int D, int window,
@@ -976,9 +985,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && lse == nullptr)
-    return f32::dispatch<float>(q, k, v, o, B, H, KV, Sq, Sk, D, window, causal, qs, ks,
-                                vs, os, st);
+  if (dtype == 0)
+    return f32::dispatch<float>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, D,
+                                window, causal, qs, ks, vs, os, st);
   if (dtype == 1)
     return tc::dispatch(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, D, window,
                         causal, qs, ks, vs, os, st);

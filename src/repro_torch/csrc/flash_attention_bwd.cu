@@ -1,7 +1,7 @@
 // Backward of the GQA flash attention of flash_attention.cu on Hopper:
 // dQ, dK and dV for causal (optionally sliding-window) attention at
-// Sq == Sk and for non-causal attention at any Sk, bf16, head dims 32, 64
-// and 128.
+// Sq == Sk and for non-causal attention at any Sk, head dims 32, 64, 128
+// and 256, in bf16 (tensor cores) and in f32 (CUDA cores).
 //
 // The port's own kernel: the TPU kernel it pairs with,
 // src/repro/kernels/flash_attention/kernel.py :: flash_attention, has no
@@ -73,12 +73,32 @@
 //      and writes bf16 (only where a tile was split).
 // D = 32 (reranker-minilm) keeps the first design's mma.sync kernels
 // (bwd_dq_mma, bwd_dkdv_mma: m16n8k16 fed by ldmatrix from a 2-stage
-// cp.async ring), under the same schedule, scratch and merge.  Fully masked
+// cp.async ring), under the same schedule, scratch and merge.  So does
+// D = 256 (gemma-7b), where the persistent wgmma kernel fits no stage ring
+// (a K + V or Q + dO tile pair is 64 KB) and its registers no f32 dK and
+// dV (2 x 64 x 256 over 128 threads): its dK/dV block runs eight warps over
+// one ring, warps 0-3 summing dV and 4-7 dK for the same 16-key rows (S^T
+// recomputed by both), so a thread holds 128 accumulators; its dQ block
+// reads Q's and dO's fragments from shared memory at every step instead of
+// holding them.  Each takes ~193 KB of shared memory, one block an SM, so
+// the planner counts one dK/dV worker an SM at D = 256 (ops.py ::
+// bwd_slots_per_sm).  Fully masked
 // tiles are skipped as the forward skips them (the key walk runs from the
 // window's edge to the diagonal, the query walk from the diagonal to the
 // window's end); the mask runs only on the tiles it cuts.  Rows past S are
 // read as zeros (TMA, or cp.async with a zero source size), masked, and
 // never stored.
+//
+// f32 (f32::bwd_f32, any D of the four): the f32 checks hold to 2e-5, which
+// TF32 would miss, so every product is an f32 FMA on the CUDA cores (67
+// TFLOP/s, the bound).  A simpler design: bwd_prep_f32 writes D_i (one warp
+// a row), then one block per (64 queries, head, batch) sums dQ and one per
+// (64 keys, KV head, batch) dK and dV over its G query heads, whole and
+// deterministic (no split, no merge, no atomics).  The fixed 64-row tile
+// pair stays in shared memory and the other pair streams past in 32-row
+// tiles (~217 KB at D = 256); scores and P, dS go through shared memory,
+// each thread a 4 x 2 register tile of them and 4 rows x D/16 columns of
+// each output.
 //
 // What it measured (NVIDIA H100 80GB HBM3, 700 W, kernel_ab.py against the
 // first design's tree in one call): 0.44 ms at the train shape, 0.30x the first
@@ -918,12 +938,20 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D, S
 
 namespace mma {
 
-constexpr int THREADS = 128;  // four warps
+constexpr int THREADS = 128;  // four warps: the dQ kernel, dK/dV up to D = 128
 constexpr int STEP = 16;      // keys (dq) or queries (dkdv) per inner step
 constexpr int STAGES = 2;
 
 template <int D>
 struct Smem {
+  // D = 256: dK and dV of a warp's 16 keys would take 256 f32 registers a
+  // thread, so the dK/dV block runs eight warps, four for dV and four for
+  // dK over the same 16-key rows, both streaming the one stage ring
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int DKDV_THREADS = SPLIT ? 2 * THREADS : THREADS;
+  // the dQ kernel holds Q's and dO's fragments in registers up to D = 128
+  // and reads them from shared memory at every step beyond
+  static constexpr bool KEEP_QDO = D <= 128;
   static constexpr int TILE_BYTES = TILE * D * 2;
   // dkdv: K and V, then STAGES x (Q, dO, lse2[TILE], delta[TILE])
   static constexpr int STAGE_A = 2 * TILE_BYTES + 2 * TILE * 4;
@@ -994,11 +1022,12 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 
 // Rows [lo, lo + TILE) of a (rows x D) bf16 matrix (row stride rs
 // elements) into the swizzled tile at dst; rows at or past n are zeros.
-template <int D>
+// NT threads share the copy.
+template <int D, int NT = THREADS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, long long rs,
                                           int lo, int n) {
   constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < TILE * CH; i += THREADS) {
+  for (int i = threadIdx.x; i < TILE * CH; i += NT) {
     const int r = i / CH, c = i % CH;
     const bool valid = lo + r < n;
     const bf16* src = base + (valid ? (long long)(lo + r) * rs : 0) + c * 8;
@@ -1050,15 +1079,20 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   cp_async_wait<1>();
   __syncthreads();
 
-  // this warp's 16 query rows of Q and dO as A fragments, and the lse (in
-  // log2 units) and D of its rows g4 and g4 + 8
+  // this warp's 16 query rows of Q and dO as A fragments (held up to
+  // D = 128, read at every step beyond), and the lse (in log2 units) and D
+  // of its rows g4 and g4 + 8
   const int qw = q_lo + warp * 16;
-  uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  constexpr bool KEEP = S::KEEP_QDO;
+  uint32_t qa[KEEP ? D / 16 : 1][4], da[KEEP ? D / 16 : 1][4];
+  auto qdo_frag = [&](int kk, uint32_t(&fq)[4], uint32_t(&fd)[4]) {
     const int r = warp * 16 + (mi % 2) * 8 + mr, c = 2 * kk + mi / 2;
-    ldmatrix_x4(qa[kk], sq + swz<D>(r, c));
-    ldmatrix_x4(da[kk], sdo + swz<D>(r, c));
+    ldmatrix_x4(fq, sq + swz<D>(r, c));
+    ldmatrix_x4(fd, sdo + swz<D>(r, c));
+  };
+  if constexpr (KEEP) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) qdo_frag(kk, qa[kk], da[kk]);
   }
   float lse2[2], dl[2];
   const long long row0 = ((long long)b * s.H + h) * s.NQ * TILE;
@@ -1094,10 +1128,20 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
         const int r = step * STEP + (mi / 2) * 8 + mr, c = 2 * kk + mi % 2;
         ldmatrix_x4(bk, sk + swz<D>(r, c));
         ldmatrix_x4(bv, sv + swz<D>(r, c));
-        mma_bf16(x[0], qa[kk], bk[0], bk[1]);
-        mma_bf16(x[1], qa[kk], bk[2], bk[3]);
-        mma_bf16(dp[0], da[kk], bv[0], bv[1]);
-        mma_bf16(dp[1], da[kk], bv[2], bv[3]);
+        uint32_t fq[4], fd[4];
+        if constexpr (KEEP) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            fq[e] = qa[kk][e];
+            fd[e] = da[kk][e];
+          }
+        } else {
+          qdo_frag(kk, fq, fd);
+        }
+        mma_bf16(x[0], fq, bk[0], bk[1]);
+        mma_bf16(x[1], fq, bk[2], bk[3]);
+        mma_bf16(dp[0], fd, bv[0], bv[1]);
+        mma_bf16(dp[1], fd, bv[2], bv[3]);
       }
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
@@ -1135,12 +1179,107 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     }
 }
 
+// One 64-query iteration of a dK/dV warp over its 16 keys kw..kw+15: S^T =
+// K Q^T, P^T = exp2(S^T scale log2e - lse2), then with DV dV += P^T dO and
+// with DK dP^T = V dO^T, dS^T = P^T (dP^T - D) and dK += dS^T Q, in steps
+// of 16 queries.  f holds the iteration's lse2 and D rows.
+template <int D, bool DV, bool DK>
+__device__ __forceinline__ void dkdv_iter(float (&dva)[D / 8][4], float (&dka)[D / 8][4],
+                                          uint32_t sk, uint32_t sv, uint32_t sq, uint32_t sdo,
+                                          const float* f, int qlo, int q_end, int kw,
+                                          int kr, const Shape& s, float scale_log2) {
+  const int lane = threadIdx.x % 32;
+  const int mi = lane / 8, mr = lane % 8;
+  const int g4 = lane / 4, t4 = lane % 4;
+#pragma unroll 1
+  for (int step = 0; step < TILE / STEP; ++step) {
+    const int q0 = qlo + step * STEP;
+    // queries past the range, keys past Sk, or 16 x 16 wholly masked
+    if (q0 >= q_end || kw >= s.Sk) break;
+    if (s.causal && (q0 + STEP - 1 < kw ||
+                     (s.window > 0 && q0 >= kw + STEP - 1 + s.window)))
+      continue;
+    // S^T and dP^T: 16 keys x 16 queries
+    float x[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4], bq[4];
+      const int ra = kr + (mi % 2) * 8 + mr, ca = 2 * kk + mi / 2;
+      const int rb = step * STEP + (mi / 2) * 8 + mr, cb = 2 * kk + mi % 2;
+      ldmatrix_x4(a, sk + swz<D>(ra, ca));
+      ldmatrix_x4(bq, sq + swz<D>(rb, cb));
+      mma_bf16(x[0], a, bq[0], bq[1]);
+      mma_bf16(x[1], a, bq[2], bq[3]);
+      if constexpr (DK) {
+        ldmatrix_x4(a, sv + swz<D>(ra, ca));
+        ldmatrix_x4(bq, sdo + swz<D>(rb, cb));
+        mma_bf16(dp[0], a, bq[0], bq[1]);
+        mma_bf16(dp[1], a, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int xq = step * STEP + nb * 8 + 2 * t4 + (e & 1);  // query in tile
+        const int i = qlo + xq, j = kw + g4 + 8 * (e >> 1);
+        const float p = kept(i, j, s) ? exp2f(fmaf(x[nb][e], scale_log2, -f[xq])) : 0.f;
+        x[nb][e] = p;
+        if constexpr (DK) dp[nb][e] = p * (dp[nb][e] - f[TILE + xq]);  // dS^T
+      }
+    uint32_t pa[4], dsa[4];
+    if constexpr (DV) to_a(pa, x);
+    if constexpr (DK) to_a(dsa, dp);
+#pragma unroll
+    for (int jj = 0; jj < D / 16; ++jj) {
+      uint32_t bt[4];
+      const int r = step * STEP + (mi % 2) * 8 + mr, c = 2 * jj + mi / 2;
+      if constexpr (DV) {
+        ldmatrix_x4_trans(bt, sdo + swz<D>(r, c));
+        mma_bf16(dva[2 * jj], pa, bt[0], bt[1]);
+        mma_bf16(dva[2 * jj + 1], pa, bt[2], bt[3]);
+      }
+      if constexpr (DK) {
+        ldmatrix_x4_trans(bt, sq + swz<D>(r, c));
+        mma_bf16(dka[2 * jj], dsa, bt[0], bt[1]);
+        mma_bf16(dka[2 * jj + 1], dsa, bt[2], bt[3]);
+      }
+    }
+  }
+}
+
+// A warp's 16 keys of dK (times scale) or dV: bf16 into the output, or the
+// f32 partial of a split tile's unit (slot >= 0) into `part`.
+template <int D>
+__device__ __forceinline__ void store_keys(const float (&acc)[D / 8][4], float mul, int slot,
+                                           float* part, bf16* out, Strides os, int b, int kvh,
+                                           int k_lo, int kw, const Shape& s) {
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw + g4 + 8 * r;
+      const int col = j * 8 + 2 * t4;
+      if (slot >= 0) {
+        *reinterpret_cast<float2*>(part + (key - k_lo) * D + col) =
+            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      } else if (key < s.Sk) {
+        *reinterpret_cast<uint32_t*>(out + b * os.b + kvh * os.h + key * os.s + col) =
+            pack_bf16(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+      }
+    }
+}
+
 // Block u (of U x B x KV): unit u / (B KV) of the schedule for batch and KV
 // head u % (B KV): dK and dV of the tile's 64 keys over the unit's
 // (query head, query tile) iterations, written as bf16 or, for a split
-// tile, as f32 partials.
+// tile, as f32 partials.  Warp w % 4 takes keys 16 (w % 4)..+15; up to
+// D = 128 each warp sums both dK and dV, at D = 256 warps 0-3 sum dV and
+// warps 4-7 dK (Smem::SPLIT).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Smem<D>::DKDV_THREADS)
 bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse2p, const float* __restrict__ deltap,
@@ -1148,6 +1287,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              bf16* __restrict__ dk, bf16* __restrict__ dv, Shape s, int P, float scale,
              Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs) {
   using S = Smem<D>;
+  constexpr int NT = S::DKDV_THREADS;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t base = smem_u32(smem);
   const uint32_t sk = base, sv = base + S::TILE_BYTES;
@@ -1158,9 +1298,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int4 un = units[blockIdx.x / BKV];
   const int b = bkv / s.KV, kvh = bkv % s.KV;
   const int k_lo = un.x * TILE, it0 = un.y, n_it = un.z - un.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mi = lane / 8, mr = lane % 8;
-  const int g4 = lane / 4, t4 = lane % 4;
+  const int warp = threadIdx.x / 32;
   const float scale_log2 = scale * LOG2E;
   const int Sqp = s.NQ * TILE;
 
@@ -1172,26 +1310,34 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int it = it0 + n;
     const int h = kvh * s.G + it / nq, qlo = (qt0 + it % nq) * TILE;
     const int off = stage_off(n % STAGES);
-    load_tile<D>(base + off, q + b * qs.b + h * qs.h, qs.s, qlo, s.Sq);
-    load_tile<D>(base + off + S::TILE_BYTES, dout + b * dos.b + h * dos.h, dos.s, qlo, s.Sq);
+    load_tile<D, NT>(base + off, q + b * qs.b + h * qs.h, qs.s, qlo, s.Sq);
+    load_tile<D, NT>(base + off + S::TILE_BYTES, dout + b * dos.b + h * dos.h, dos.s, qlo,
+                     s.Sq);
     float* f = reinterpret_cast<float*>(smem + off + 2 * S::TILE_BYTES);
     const long long row0 = ((long long)b * s.H + h) * Sqp + qlo;
-    for (int x = threadIdx.x; x < 2 * TILE; x += THREADS)
+    for (int x = threadIdx.x; x < 2 * TILE; x += NT)
       f[x] = x < TILE ? lse2p[row0 + x] : deltap[row0 + x - TILE];
   };
 
-  load_tile<D>(sk, k + b * ks.b + kvh * ks.h, ks.s, k_lo, s.Sk);
-  load_tile<D>(sv, v + b * vs.b + kvh * vs.h, vs.s, k_lo, s.Sk);
+  load_tile<D, NT>(sk, k + b * ks.b + kvh * ks.h, ks.s, k_lo, s.Sk);
+  load_tile<D, NT>(sv, v + b * vs.b + kvh * vs.h, vs.s, k_lo, s.Sk);
   if (n_it > 0) load_it(0);
   cp_async_commit();
 
-  float dka[D / 8][4], dva[D / 8][4];
+  // dV then dK; at D = 256 a warp sums one of them, in the first array
+  float dva[D / 8][4], dka[S::SPLIT ? 1 : D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dva[j][e] = 0.f;
+  if constexpr (!S::SPLIT) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[j][e] = 0.f;
+  }
 
-  const int kw = k_lo + warp * 16;  // this warp's 16 keys
+  const int kr = (warp % 4) * 16, kw = k_lo + kr;  // this warp's 16 keys
   for (int n = 0; n < n_it; ++n) {
     if (n + 1 < n_it) load_it(n + 1);
     cp_async_commit();
@@ -1202,81 +1348,300 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int off = stage_off(n % STAGES);
     const uint32_t sq = base + off, sdo = sq + S::TILE_BYTES;
     const float* f = reinterpret_cast<const float*>(smem + off + 2 * S::TILE_BYTES);
-#pragma unroll 1
-    for (int step = 0; step < TILE / STEP; ++step) {
-      const int q0 = qlo + step * STEP;
-      // queries past the range, keys past Sk, or 16 x 16 wholly masked
-      if (q0 >= q_end || kw >= s.Sk) break;
-      if (s.causal && (q0 + STEP - 1 < kw ||
-                       (s.window > 0 && q0 >= kw + STEP - 1 + s.window)))
-        continue;
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries
-      float x[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4], bq[4];
-        const int ra = warp * 16 + (mi % 2) * 8 + mr, ca = 2 * kk + mi / 2;
-        const int rb = step * STEP + (mi / 2) * 8 + mr, cb = 2 * kk + mi % 2;
-        ldmatrix_x4(a, sk + swz<D>(ra, ca));
-        ldmatrix_x4(bq, sq + swz<D>(rb, cb));
-        mma_bf16(x[0], a, bq[0], bq[1]);
-        mma_bf16(x[1], a, bq[2], bq[3]);
-        ldmatrix_x4(a, sv + swz<D>(ra, ca));
-        ldmatrix_x4(bq, sdo + swz<D>(rb, cb));
-        mma_bf16(dp[0], a, bq[0], bq[1]);
-        mma_bf16(dp[1], a, bq[2], bq[3]);
-      }
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int xq = step * STEP + nb * 8 + 2 * t4 + (e & 1);  // query in tile
-          const int i = qlo + xq, j = kw + g4 + 8 * (e >> 1);
-          const float p = kept(i, j, s) ? exp2f(fmaf(x[nb][e], scale_log2, -f[xq])) : 0.f;
-          x[nb][e] = p;
-          dp[nb][e] = p * (dp[nb][e] - f[TILE + xq]);  // dS^T
-        }
-      uint32_t pa[4], dsa[4];
-      to_a(pa, x);
-      to_a(dsa, dp);
-#pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj) {
-        uint32_t bt[4];
-        const int r = step * STEP + (mi % 2) * 8 + mr, c = 2 * jj + mi / 2;
-        ldmatrix_x4_trans(bt, sdo + swz<D>(r, c));
-        mma_bf16(dva[2 * jj], pa, bt[0], bt[1]);
-        mma_bf16(dva[2 * jj + 1], pa, bt[2], bt[3]);
-        ldmatrix_x4_trans(bt, sq + swz<D>(r, c));
-        mma_bf16(dka[2 * jj], dsa, bt[0], bt[1]);
-        mma_bf16(dka[2 * jj + 1], dsa, bt[2], bt[3]);
-      }
-    }
+    if constexpr (!S::SPLIT)
+      dkdv_iter<D, true, true>(dva, dka, sk, sv, sq, sdo, f, qlo, q_end, kw, kr, s,
+                               scale_log2);
+    else if (warp < 4)
+      dkdv_iter<D, true, false>(dva, dva, sk, sv, sq, sdo, f, qlo, q_end, kw, kr, s,
+                                scale_log2);
+    else
+      dkdv_iter<D, false, true>(dva, dva, sk, sv, sq, sdo, f, qlo, q_end, kw, kr, s,
+                                scale_log2);
     __syncthreads();  // the stage is reloaded by the next iteration
   }
   cp_async_wait<0>();
 
   float* pk = part + (long long)(bkv * P + imax(un.w, 0)) * 2 * TILE * D;
   float* pv = pk + TILE * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = kw + g4 + 8 * r;
-      const int col = j * 8 + 2 * t4;
-      if (un.w >= 0) {
-        const int e = (key - k_lo) * D + col;
-        *reinterpret_cast<float2*>(pk + e) = make_float2(dka[j][2 * r], dka[j][2 * r + 1]);
-        *reinterpret_cast<float2*>(pv + e) = make_float2(dva[j][2 * r], dva[j][2 * r + 1]);
-      } else if (key < s.Sk) {
-        *reinterpret_cast<uint32_t*>(dk + b * dks.b + kvh * dks.h + key * dks.s + col) =
-            pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + b * dvs.b + kvh * dvs.h + key * dvs.s + col) =
-            pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
-      }
-    }
+  if constexpr (!S::SPLIT) {
+    store_keys<D>(dka, scale, un.w, pk, dk, dks, b, kvh, k_lo, kw, s);
+    store_keys<D>(dva, 1.f, un.w, pv, dv, dvs, b, kvh, k_lo, kw, s);
+  } else if (warp < 4) {
+    store_keys<D>(dva, 1.f, un.w, pv, dv, dvs, b, kvh, k_lo, kw, s);
+  } else {
+    store_keys<D>(dva, scale, un.w, pk, dk, dks, b, kvh, k_lo, kw, s);
+  }
 }
 
 }  // namespace mma
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernels
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int NT = 256;    // 16 row lanes (tr) x 16 column lanes (tc)
+constexpr int FIX = 64;    // rows of the fixed tile: keys (dK/dV) or queries (dQ)
+constexpr int STR = 32;    // rows of each streamed tile
+constexpr int WP = STR + 1;  // pitch of the (FIX x STR) P and dS tiles
+
+template <int D>
+struct Smem {
+  static constexpr int PITCH = D + 4;  // conflict-free float4 reads of rows
+  static constexpr int FLOATS = 2 * FIX * PITCH + 2 * STR * PITCH + 2 * FIX * WP + 2 * STR;
+  static constexpr int BYTES = FLOATS * 4;
+  static_assert(BYTES <= 232448, "the f32 tiles exceed a block's shared memory");
+};
+
+// Rows [lo, lo + rows) of a (n x D) f32 matrix (row stride rs elements)
+// into shared memory at dst (pitch D + 4); rows at or past n are zeros.
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* base, long long rs, int lo,
+                                      int rows, int n) {
+  constexpr int C4 = D / 4;
+  for (int i = threadIdx.x; i < rows * C4; i += NT) {
+    const int r = i / C4, c = (i % C4) * 4;
+    const float4 x = lo + r < n
+                         ? *reinterpret_cast<const float4*>(base + (long long)(lo + r) * rs + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * Smem<D>::PITCH + c) = x;
+  }
+}
+
+// x[i][j] = sum_d A[tr + 16 i][d] C[tc + 16 j][d]: A the fixed (FIX x D)
+// tile, C a streamed (STR x D) tile, both of pitch D + 4.
+template <int D>
+__device__ __forceinline__ void dots(float (&x)[4][2], const float* A, const float* C,
+                                     int tr, int tc) {
+  constexpr int P = Smem<D>::PITCH;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i][0] = x[i][1] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], c[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (tr + 16 * i) * P + d);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) c[j] = *reinterpret_cast<const float4*>(C + (tc + 16 * j) * P + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        x[i][j] = fmaf(a[i].x, c[j].x, x[i][j]);
+        x[i][j] = fmaf(a[i].y, c[j].y, x[i][j]);
+        x[i][j] = fmaf(a[i].z, c[j].z, x[i][j]);
+        x[i][j] = fmaf(a[i].w, c[j].w, x[i][j]);
+      }
+  }
+}
+
+// acc[i][j] += sum_s W[tr + 16 i][s] E[s][tc + 16 j]: W a (FIX x STR) tile
+// of pitch WP, E a streamed (STR x D) tile of pitch D + 4.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[4][D / 16], const float* W,
+                                           const float* E, int tr, int tc) {
+  constexpr int P = Smem<D>::PITCH;
+#pragma unroll 2
+  for (int t = 0; t < STR; ++t) {
+    float w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = W[(tr + 16 * i) * WP + t];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const float e = E[t * P + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(w[i], e, acc[i][j]);
+    }
+  }
+}
+
+// Rows (b, h, i) of delta = D_i = rowsum(dO * O) in f32, one warp a row.
+template <int D>
+__global__ void __launch_bounds__(256)
+bwd_prep_f32(const float* __restrict__ o, const float* __restrict__ dout,
+             float* __restrict__ deltap, Shape s, Strides os, Strides dos) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)s.B * s.H * s.Sq) return;
+  const int i = (int)(row % s.Sq), h = (int)(row / s.Sq % s.H), b = (int)(row / s.Sq / s.H);
+  const float* x = o + b * os.b + h * os.h + i * os.s;
+  const float* y = dout + b * dos.b + h * dos.h + i * dos.s;
+  float sum = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) sum = fmaf(x[c], y[c], sum);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) deltap[row] = sum;
+}
+
+// Block (64 keys, KV head, batch) with DKDV, or (64 queries, head, batch)
+// without: the fixed tile (K and V, or Q and dO) stays in shared memory and
+// the other two stream past in tiles of 32 rows (Q and dO of each query head
+// of the group over the queries that reach the keys, or K and V over the
+// keys the queries reach).  Each streamed tile: X = the scores (S^T or S)
+// and dX = dP^T or dP, from dots over D; P = exp(scale X - lse) under the
+// forward's mask, dS = P (dX - D_i); then dV += P^T dO and dK += dS^T Q,
+// or dQ += dS K.  Every thread holds rows tr + 16 i of the fixed tile and
+// columns tc + 16 j of its outputs, all sums in f32 FMA.
+template <int D, bool DKDV>
+__global__ void __launch_bounds__(NT, 1)
+bwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+        const float* __restrict__ dout, const float* __restrict__ lse,
+        const float* __restrict__ deltap, float* __restrict__ g0, float* __restrict__ g1,
+        Shape s, float scale, Strides qs, Strides ks, Strides vs, Strides dos, Strides g0s,
+        Strides g1s) {
+  using S = Smem<D>;
+  extern __shared__ float4 smem4[];
+  float* fa = reinterpret_cast<float*>(smem4);  // K or Q
+  float* fb = fa + FIX * S::PITCH;              // V or dO
+  float* sa = fb + FIX * S::PITCH;              // streamed Q or K
+  float* sb = sa + STR * S::PITCH;              // streamed dO or V
+  float* pw = sb + STR * S::PITCH;              // P (or P^T)
+  float* dsw = pw + FIX * WP;                   // dS (or dS^T)
+  float* rows = dsw + FIX * WP;                 // lse and D of streamed queries
+
+  const int tr = threadIdx.x % 16, tc = threadIdx.x / 16;
+  const int b = blockIdx.z, hh = blockIdx.y;  // KV head (DKDV) or query head
+  const int tile = DKDV || !s.causal ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+  const int lo = tile * FIX;
+
+  float acc0[4][D / 16], acc1[4][D / 16];  // dV and dK, or dQ (acc0)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc0[i][j] = acc1[i][j] = 0.f;
+
+  // the fixed rows' lse and D (dQ)
+  float lse_f[4] = {0.f, 0.f, 0.f, 0.f}, dl_f[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (DKDV) {
+    stage<D>(fa, k + b * ks.b + hh * ks.h, ks.s, lo, FIX, s.Sk);
+    stage<D>(fb, v + b * vs.b + hh * vs.h, vs.s, lo, FIX, s.Sk);
+  } else {
+    stage<D>(fa, q + b * qs.b + hh * qs.h, qs.s, lo, FIX, s.Sq);
+    stage<D>(fb, dout + b * dos.b + hh * dos.h, dos.s, lo, FIX, s.Sq);
+    const long long r0 = ((long long)b * s.H + hh) * s.Sq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = lo + tr + 16 * i;
+      if (qi < s.Sq) {
+        lse_f[i] = lse[r0 + qi];
+        dl_f[i] = deltap[r0 + qi];
+      }
+    }
+  }
+
+  // the streamed walk: per query head of the group (DKDV), the rows
+  // [walk_lo, walk_hi) in tiles of STR
+  int walk_lo = 0, walk_hi, heads = 1;
+  if constexpr (DKDV) {
+    heads = s.G;
+    walk_hi = s.Sq;
+    if (s.causal) {
+      walk_lo = lo / STR * STR;
+      if (s.window > 0) walk_hi = imin(s.Sq, lo + FIX - 1 + s.window);
+    }
+  } else {
+    walk_hi = s.causal ? imin(s.Sk, lo + FIX) : s.Sk;
+    if (s.causal && s.window > 0) walk_lo = imax(0, lo - s.window + 1) / STR * STR;
+  }
+
+  for (int g = 0; g < heads; ++g) {
+    const int h = DKDV ? hh * s.G + g : hh;
+    const long long r0 = ((long long)b * s.H + h) * s.Sq;
+    for (int slo = walk_lo; slo < walk_hi; slo += STR) {
+      __syncthreads();  // the previous tile's readers are done
+      if constexpr (DKDV) {
+        stage<D>(sa, q + b * qs.b + h * qs.h, qs.s, slo, STR, s.Sq);
+        stage<D>(sb, dout + b * dos.b + h * dos.h, dos.s, slo, STR, s.Sq);
+        for (int x = threadIdx.x; x < 2 * STR; x += NT) {
+          const int qi = slo + x % STR;
+          rows[x] = qi < s.Sq ? (x < STR ? lse[r0 + qi] : deltap[r0 + qi]) : 0.f;
+        }
+      } else {
+        const int kvh = h / s.G;
+        stage<D>(sa, k + b * ks.b + kvh * ks.h, ks.s, slo, STR, s.Sk);
+        stage<D>(sb, v + b * vs.b + kvh * vs.h, vs.s, slo, STR, s.Sk);
+      }
+      __syncthreads();
+      float x[4][2], dx[4][2];
+      dots<D>(x, fa, sa, tr, tc);
+      dots<D>(dx, fb, sb, tr, tc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int fi = lo + tr + 16 * i, si = slo + tc + 16 * j;
+          const int qi = DKDV ? si : fi, kj = DKDV ? fi : si;
+          const float l = DKDV ? rows[tc + 16 * j] : lse_f[i];
+          const float dl = DKDV ? rows[STR + tc + 16 * j] : dl_f[i];
+          const float p = kept(qi, kj, s) ? expf(fmaf(x[i][j], scale, -l)) : 0.f;
+          pw[(tr + 16 * i) * WP + tc + 16 * j] = p;
+          dsw[(tr + 16 * i) * WP + tc + 16 * j] = p * (dx[i][j] - dl);
+        }
+      __syncthreads();
+      if constexpr (DKDV) {
+        accumulate<D>(acc0, pw, sb, tr, tc);   // dV += P^T dO
+        accumulate<D>(acc1, dsw, sa, tr, tc);  // dK += dS^T Q
+      } else {
+        accumulate<D>(acc0, dsw, sa, tr, tc);  // dQ += dS K
+      }
+    }
+  }
+
+  // dK = scale acc1 and dV = acc0 of the keys, or dQ = scale acc0
+  const int n = DKDV ? s.Sk : s.Sq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = lo + tr + 16 * i;
+    if (r >= n) continue;
+    float* o0 = g0 + b * g0s.b + hh * g0s.h + (long long)r * g0s.s;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) o0[tc + 16 * j] = DKDV ? acc0[i][j] : acc0[i][j] * scale;
+    if constexpr (DKDV) {
+      float* o1 = g1 + b * g1s.b + hh * g1s.h + (long long)r * g1s.s;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) o1[tc + 16 * j] = acc1[i][j] * scale;
+    }
+  }
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* o, const float* dout,
+           const float* lse, void* work, long long work_bytes, float* dq, float* dk,
+           float* dv, const Shape& s, Strides qs, Strides ks, Strides vs, Strides os,
+           Strides dos, Strides dqs, Strides dks, Strides dvs, cudaStream_t stream) {
+  const long long rows = (long long)s.B * s.H * s.Sq;
+  if (work_bytes < rows * 4) return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(bwd_f32<D, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Smem<D>::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(bwd_f32<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<D>::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  float* deltap = static_cast<float*>(work);
+  bwd_prep_f32<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(o, dout, deltap, s, os, dos);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const float scale = 1.f / sqrtf((float)D);
+  // dQ: the longest causal walks (the last query tiles) launch first
+  bwd_f32<D, false><<<dim3(cdiv(s.Sq, FIX), s.H, s.B), NT, Smem<D>::BYTES, stream>>>(
+      q, k, v, dout, lse, deltap, dq, nullptr, s, scale, qs, ks, vs, dos, dqs, dqs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // dK/dV: the first key tiles walk the most queries and launch first
+  bwd_f32<D, true><<<dim3(cdiv(s.Sk, FIX), s.KV, s.B), NT, Smem<D>::BYTES, stream>>>(
+      q, k, v, dout, lse, deltap, dv, dk, s, scale, qs, ks, vs, dos, dvs, dks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32
+
 
 // The scratch of one call: lse2 and delta (B H NQ 64 f32 each), the schedule
 // (U + M int4), the partials (B KV P x 2 x 64 x D f32).
@@ -1320,7 +1685,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
   plan_counts(s, U, P, M);
   const Work w = layout(work, s, U, P, M, D);
   if (work_bytes < w.bytes) return (int)cudaErrorInvalidValue;
-  constexpr bool TC = D >= 64;
+  constexpr bool TC = D == 64 || D == 128;
   static bool configured = false;
   if (!configured) {
     cudaError_t e;
@@ -1366,7 +1731,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
         q, k, v, dout, w.lse2p, w.deltap, dq, s, scale, qs, ks, vs, dos, dqs);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    mma::bwd_dkdv_mma<D><<<(unsigned)units, mma::THREADS, mma::Smem<D>::DKDV, stream>>>(
+    mma::bwd_dkdv_mma<D><<<(unsigned)units, mma::Smem<D>::DKDV_THREADS, mma::Smem<D>::DKDV,
+                           stream>>>(
         q, k, v, dout, w.lse2p, w.deltap, w.units, w.part, dk, dv, s, P, scale, qs, ks, vs,
         dos, dks, dvs);
   }
@@ -1381,20 +1747,20 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
 
 extern "C" {
 
-// The backward of flash_attention_fwd's bf16 path.  q, o, dout, dq:
-// (B, H, Sq, D); k, v, dk, dv: (B, KV, Sk, D); each addressed through
-// element strides (batch, head, position) with a contiguous last dim and
-// 16-byte aligned rows.  lse: the forward's contiguous (B, H, Sq) f32
-// log-sum-exp.  causal and window as in the forward.  D of 32, 64 or 128;
-// Sq >= 1.  unit_cap: the dK/dV schedule's cap T (ops.py ::
-// plan_bwd_units); work: a 256-byte aligned scratch of work_bytes, at least
-// what the schedule needs (ops.py :: bwd_work_bytes).  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
-// take.
+// The backward of flash_attention_fwd.  q, o, dout, dq: (B, H, Sq, D); k,
+// v, dk, dv: (B, KV, Sk, D); each addressed through element strides (batch,
+// head, position) with a contiguous last dim and 16-byte aligned rows.
+// lse: the forward's contiguous (B, H, Sq) f32 log-sum-exp.  causal and
+// window as in the forward.  dtype: 0 = float32 (CUDA cores), 1 = bfloat16
+// (tensor cores).  D of 32, 64, 128 or 256; Sq >= 1.  unit_cap: the bf16
+// dK/dV schedule's cap T (ops.py :: plan_bwd_units; the f32 kernels do not
+// read it); work: a 256-byte aligned scratch of work_bytes, at least what
+// the call needs (ops.py :: bwd_work_bytes).  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for arguments it does not take.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* work, void* dq, void* dk,
                         void* dv, int B, int H, int KV, int Sq, int Sk, int D, int window,
-                        int causal, int unit_cap, long long work_bytes, long long qsb,
+                        int causal, int dtype, int unit_cap, long long work_bytes, long long qsb,
                         long long qsh, long long qss, long long ksb, long long ksh,
                         long long kss, long long vsb, long long vsh, long long vss,
                         long long osb, long long osh, long long oss, long long dosb,
@@ -1408,8 +1774,16 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss},
       dos{dosb, dosh, doss}, dqs{dqsb, dqsh, dqss}, dks{dksb, dksh, dkss},
       dvs{dvsb, dvsh, dvss};
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   auto args = [&](auto tag) {
     constexpr int DD = decltype(tag)::value;
+    if (dtype == 0)
+      return f32::launch<DD>(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), static_cast<const float*>(o),
+                             static_cast<const float*>(dout), static_cast<const float*>(lse),
+                             work, work_bytes, static_cast<float*>(dq),
+                             static_cast<float*>(dk), static_cast<float*>(dv), s, qs, ks, vs,
+                             os, dos, dqs, dks, dvs, static_cast<cudaStream_t>(stream));
     return launch<DD>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
                       static_cast<const bf16*>(dout), static_cast<const float*>(lse), work,
@@ -1424,6 +1798,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
       return args(std::integral_constant<int, 64>{});
     case 128:
       return args(std::integral_constant<int, 128>{});
+    case 256:
+      return args(std::integral_constant<int, 256>{});
     default:
       return (int)cudaErrorInvalidValue;
   }

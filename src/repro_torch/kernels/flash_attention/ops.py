@@ -8,15 +8,18 @@ A call that needs a gradient (grad mode on and an input that requires
 grad) goes through ``FlashAttentionFn``: its forward also keeps each row's
 log-sum-exp, and its backward launches the backward kernels (on the CPU,
 the plain forward-with-LSE and the plain backward).  Every other call
-takes the forward alone, with no LSE.
+takes the forward alone, with no LSE.  Both take bf16 and f32 at every
+head dim of ``HEAD_DIMS``.
 
-The backward's dK/dV work is spread over the card by ``plan_bwd_units``, a
-pure host planner: each 64-key tile's walk over its (query head, query
-tile) iterations is cut into units of at most ``cap`` iterations, which
-launch heaviest first.  The kernel rebuilds the same order on the card
-from its scalar arguments, so a call copies nothing to the card and never
-waits for it.  The wrapper allocates one scratch (``bwd_work_bytes``) for
-the padded lse and D rows, the order and the f32 partials of split tiles.
+The bf16 backward's dK/dV work is spread over the card by
+``plan_bwd_units``, a pure host planner: each 64-key tile's walk over its
+(query head, query tile) iterations is cut into units of at most ``cap``
+iterations, which launch heaviest first.  The kernel rebuilds the same
+order on the card from its scalar arguments, so a call copies nothing to
+the card and never waits for it.  The wrapper allocates one scratch
+(``bwd_work_bytes``) for the padded lse and D rows, the order and the f32
+partials of split tiles.  The f32 backward walks whole tiles and needs
+only its D rows (``bwd_work_bytes_f32``).
 
 A meta tensor (the dry-run) takes the card's checks and allocations,
 scratch included, with ``hw.H100``'s SM count for the plan, launches
@@ -41,16 +44,22 @@ from repro_torch.kernels.tile_plan import HEAD_DIMS
 
 NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
-# the backward kernel's head dims; it takes bf16 only
-BWD_HEAD_DIMS = (32, 64, 128)
+# the backward kernels' dtypes and head dims: bf16 on the tensor cores,
+# f32 on the CUDA cores, each at every head dim the forward takes
+BWD_DTYPES = (torch.bfloat16, torch.float32)
+BWD_HEAD_DIMS = HEAD_DIMS
 # rows of the backward's query and key tiles, and the dK/dV units the
-# planner counts on at once per SM (the kernel's two consumer warpgroups)
+# planner counts on at once per SM: the persistent kernel's two consumer
+# warpgroups (D = 64, 128) or two mma.sync blocks (D = 32); at D = 256 one
+# eight-warp mma.sync block of ~193 KB of shared memory fills an SM
 BWD_TILE = 64
 BWD_SLOTS_PER_SM = 2
+# shared memory of an SM that one block may take (the H100's 227 KB)
+SM_SMEM_BYTES = 232448
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 5 + [_I] * 9 + [_L] * 12 + [_P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_L] * 25 + [_P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 10 + [_L] * 25 + [_P]
 
 
 def _bhs_strides(*tensors):
@@ -68,7 +77,8 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Causal attention needs Sq == Sk; non-causal takes any Sk >= 1 and no
     window.  Returns (B, Sq, H, D) in q's dtype.  With grad mode on and an
     input that requires grad the call goes through ``FlashAttentionFn``
-    (on the card: bf16 and a head dim of ``BWD_HEAD_DIMS`` only).
+    (on the card: a dtype of ``BWD_DTYPES`` and a head dim of
+    ``BWD_HEAD_DIMS``).
     """
     check_shapes(q, k, v, window, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -135,7 +145,7 @@ def _launch_forward(q, k, v, window: int, causal: bool, with_lse: bool):
 def flash_attention_fwd_lse(q, k, v, *, window: int = 0, causal: bool = True):
     """The forward and each row's log-sum-exp of the scaled, masked scores
     (natural log): (out (B, Sq, H, D), lse (B, H, Sq) f32).  The forward of
-    ``FlashAttentionFn``; on the card, bf16 only."""
+    ``FlashAttentionFn``; on the card, a dtype of ``BWD_DTYPES``."""
     check_shapes(q, k, v, window, causal)
     if q.device.type == "cpu":
         out, lse = flash_attention_fwd_lse_ref(
@@ -176,16 +186,35 @@ def _tile_walk(t: int, Sq: int, window: int, causal: bool) -> Tuple[int, int]:
     return qt0, ((q_end - 1) // BWD_TILE - qt0 + 1 if q_end > q_begin else 0)
 
 
+def bwd_mma_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of the ``mma.sync`` dK/dV block (the kernel's
+    ``mma::Smem<D>::DKDV``): K and V of 64 keys, then two stages of Q and
+    dO of 64 queries with their lse and D rows, all bf16 but the f32 rows."""
+    tile = BWD_TILE * D * 2
+    return 2 * tile + 2 * (2 * tile + 2 * BWD_TILE * 4)
+
+
+def bwd_slots_per_sm(D: int) -> int:
+    """The dK/dV workers the bf16 backward runs at once on an SM at head
+    dim ``D``: ``BWD_SLOTS_PER_SM``, or at D = 256, the ``mma.sync``
+    blocks whose shared memory (``bwd_mma_smem_bytes``) an SM holds: one."""
+    if D > 128:
+        return SM_SMEM_BYTES // bwd_mma_smem_bytes(D)
+    return BWD_SLOTS_PER_SM
+
+
 @functools.lru_cache(maxsize=256)
 def plan_bwd_units(B: int, KV: int, G: int, Sq: int, Sk: int, window: int,
-                   causal: bool, sms: int, cap: int = 0) -> BwdPlan:
+                   causal: bool, sms: int, cap: int = 0,
+                   slots: int = BWD_SLOTS_PER_SM) -> BwdPlan:
     """The dK/dV units of the backward kernel, from the shape and the
     card's SM count ``sms`` alone (no tensor is read).
 
     Key tile t walks w(t) = G x nq(t) iterations.  The cap T is the
-    balanced share of the card's ``BWD_SLOTS_PER_SM * sms`` consumer
-    warpgroups, ceil(B KV sum w / slots), so no unit is longer than that
-    share plus one (``cap`` > 0 sets T instead, for tests).  Each walk is
+    balanced share of the card's ``slots * sms`` dK/dV workers
+    (``bwd_slots_per_sm`` of the head dim), ceil(B KV sum w / (slots
+    sms)), so no unit is longer than that share plus one (``cap`` > 0 sets
+    T instead, for tests).  Each walk is
     cut into full units of T and a remainder; the full units launch
     first in (tile, chunk) order, then the remainders, larger first and
     ties by tile.  The kernel's ``plan_block`` builds the same order."""
@@ -193,7 +222,7 @@ def plan_bwd_units(B: int, KV: int, G: int, Sq: int, Sk: int, window: int,
                   for t in range(-(-Sk // BWD_TILE)))
     work = tuple(G * nq for _, nq in walks)
     if cap <= 0:
-        cap = max(1, -(-B * KV * sum(work) // (BWD_SLOTS_PER_SM * sms)))
+        cap = max(1, -(-B * KV * sum(work) // (slots * sms)))
     full, rest, merges, slot = [], [], [], 0
     for t, w in enumerate(work):
         f, r = divmod(w, cap)
@@ -222,6 +251,12 @@ def bwd_work_bytes(plan: BwdPlan, B: int, H: int, KV: int, Sq: int,
     return off_part + B * KV * plan.partials * 2 * BWD_TILE * D * 4
 
 
+def bwd_work_bytes_f32(B: int, H: int, Sq: int) -> int:
+    """Bytes of the f32 backward's scratch: the D rows (B, H, Sq) f32,
+    256-byte aligned."""
+    return -(-4 * B * H * Sq // 256) * 256
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -241,11 +276,12 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
     and v: q/out/dout (B, Sq, H, D), k/v (B, Sk, KV, D), lse (B, H, Sq)
     from ``flash_attention_fwd_lse``.
 
-    A CUDA call (bf16, head dim of ``BWD_HEAD_DIMS``) plans the dK/dV
-    units on the host (``plan_bwd_units``, cached by shape), allocates one
-    scratch of ``bwd_work_bytes`` and runs the backward's kernels on the
-    current stream: D and the schedule, dQ, dK/dV, and the merge of split
-    tiles.  It copies nothing to the card and does not wait for it, so it
+    A bf16 CUDA call plans the dK/dV units on the host
+    (``plan_bwd_units`` with the head dim's ``bwd_slots_per_sm``, cached
+    by shape), allocates one scratch of ``bwd_work_bytes`` and runs the
+    backward's kernels on the current stream: D and the schedule, dQ,
+    dK/dV, and the merge of split tiles.  An f32 call allocates the D rows
+    (``bwd_work_bytes_f32``) and runs D, dQ and dK/dV on the CUDA cores.  It copies nothing to the card and does not wait for it, so it
     can be captured in a CUDA graph, and it bumps the backward's launch
     count once, whatever the number of kernels.  Meta tensors get the
     same checks and allocations, and the call is counted."""
@@ -281,9 +317,12 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if Sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    plan = plan_bwd_units(B, KV, H // KV, Sq, Sk, int(window), bool(causal),
-                          _sms(q.device))
-    nbytes = bwd_work_bytes(plan, B, H, KV, Sq, D)
+    if q.dtype == torch.float32:
+        cap, nbytes = 1, bwd_work_bytes_f32(B, H, Sq)
+    else:
+        plan = plan_bwd_units(B, KV, H // KV, Sq, Sk, int(window), bool(causal),
+                              _sms(q.device), slots=bwd_slots_per_sm(D))
+        cap, nbytes = plan.cap, bwd_work_bytes(plan, B, H, KV, Sq, D)
     work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     if q.device.type == "meta":
         common.count_meta_call(BWD_NAME, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D,
@@ -294,7 +333,7 @@ def flash_attention_bwd_op(q, k, v, out, dout, lse, *, window: int = 0,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Sk, D, int(window),
-            int(causal), plan.cap, nbytes,
+            int(causal), common.DTYPE_CODES[q.dtype], cap, nbytes,
             *_bhs_strides(q, k, v, out, dout, dq, dk, dv),
             common.current_stream(q.device))
     common.check(BWD_NAME, rc)
@@ -326,11 +365,12 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def check_backward_operands(q: torch.Tensor) -> None:
-    """What a CUDA call that needs a gradient takes: bf16 (the training
-    dtype) and a head dim of ``BWD_HEAD_DIMS``."""
-    if q.dtype != torch.bfloat16:
-        raise RuntimeError(f"{BWD_NAME}: the backward kernel takes bf16, got "
-                           f"{q.dtype}")
+    """What a CUDA call that needs a gradient takes: a dtype of
+    ``BWD_DTYPES`` (bf16, the training dtype, or f32) and a head dim of
+    ``BWD_HEAD_DIMS``."""
+    if q.dtype not in BWD_DTYPES:
+        raise RuntimeError(f"{BWD_NAME}: the backward kernels take bf16 and "
+                           f"f32, got {q.dtype}")
     if q.shape[-1] not in BWD_HEAD_DIMS:
         raise RuntimeError(f"{BWD_NAME}: head_dim {q.shape[-1]} not in "
                            f"{BWD_HEAD_DIMS}")

@@ -63,9 +63,8 @@ def capacity_per_row(seq: int, cfg: ArchConfig) -> int:
     return max(cfg.experts_per_token, min(c, seq))
 
 
-def _ieee_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in f32 without TF32, whatever the global setting: TF32 router
-    logits would route differently from the reference."""
+def _no_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.matmul(a, b) with TF32 off around it on the card."""
     if not a.is_cuda:
         return torch.matmul(a, b)
     flags = torch.backends.cuda.matmul
@@ -75,6 +74,35 @@ def _ieee_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a, b)
     finally:
         flags.allow_tf32 = tf32
+
+
+class _IeeeF32Matmul(torch.autograd.Function):
+    """(..., n, k) @ (k, m) in f32 without TF32, whatever the global
+    setting, in the forward and in both products of the backward: TF32
+    router logits would route differently from the reference, and TF32
+    gradients would train the router off the reference's."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _no_tf32_matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _no_tf32_matmul(grad, b.transpose(-1, -2))
+        if ctx.needs_input_grad[1]:
+            # summed over every leading dim of a: (k, n') @ (n', m)
+            db = _no_tf32_matmul(a.reshape(-1, a.shape[-1]).transpose(0, 1),
+                                 grad.reshape(-1, grad.shape[-1]))
+        return da, db
+
+
+def _ieee_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (b a matrix) in f32 without TF32, its gradients too."""
+    return _IeeeF32Matmul.apply(a, b)
 
 
 def router_probs(router: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

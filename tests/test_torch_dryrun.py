@@ -8,9 +8,10 @@ and its prefill and decode against the reference's compiled HLO
 (``repro.analysis.hlo_stats``).  qwen2.5-3b at full width (cut to 2
 layers) at both production meshes under torch's fake process group gives
 the argument bytes and the all-reduce count a layer and microbatch; and
-gemma-7b's train step is refused as the card refuses it.  Four gloo ranks
-check that the ``pod`` axis is data parallelism: (2, 1, 2) bit-equal to
-(1, 2, 2).  Then the CLI and ``reanalyze``.
+gemma-7b's train step (head dim 256) counts its backward calls as the card
+launches them.  Four gloo ranks check that the ``pod`` axis is data
+parallelism: (2, 1, 2) bit-equal to (1, 2, 2).  Then the CLI and
+``reanalyze``.
 """
 import dataclasses
 import json
@@ -246,14 +247,19 @@ def test_all_reduce_count_per_layer_and_microbatch(fake_world, mesh_name, mb):
 
 @pytest.mark.parametrize("mesh_name", MESHES)
 def test_gemma_train_is_refused_as_on_the_card(tmp_path, mesh_name):
-    """gemma-7b's head dim of 256 has no backward kernel: its train cell is
-    refused with the check's own message.  qwen2-7b's 28 heads over 8 model
-    ways (3.5 a rank) count: per layer one decode launch, the two
-    Megatron all-reduces and the gather of q's columns, plus the
+    """gemma-7b's train cell runs as the card now runs it: the flash
+    backward takes its head dim of 256 (the ``mma.sync`` path), so the
+    cell is ``ok`` and counts one backward call per layer and microbatch,
+    ``train_launches``' count, beside two forwards.  qwen2-7b's 28 heads
+    over 8 model ways (3.5 a rank) count: per layer one decode launch, the
+    two Megatron all-reduces and the gather of q's columns, plus the
     embedding's all-reduce and the logits' all-gather."""
     rec = dryrun.run_cell("gemma-7b", "train_4k", mesh_name, tmp_path)
-    assert rec["status"] == "refused"
-    assert "flash_attention_bwd: head_dim 256 not in (32, 64, 128)" in rec["reason"]
+    assert rec["status"] == "ok", rec.get("reason") or rec.get("error")
+    want = train_launches(get_config("gemma-7b"), rec["microbatches"])
+    kernels = rec["op_stats"]["kernels"]
+    assert kernels["flash_attention_bwd"]["calls"] == want["flash_attention_bwd"] > 0
+    assert kernels["flash_attention"]["calls"] == want["flash_attention"]
     rec = dryrun.run_cell("qwen2-7b", "decode_32k", mesh_name, tmp_path)
     assert rec["status"] == "ok", rec.get("error")
     L = get_config("qwen2-7b").num_layers

@@ -7,8 +7,8 @@ the log-sum-exp) is held against ``jax.vjp`` of the reference's
 ``causal_flash_attention`` (with ``q_chunk`` below S, so its chunking is
 exercised) and ``bidirectional_attention``, and against ``torch.autograd``
 of the plain forward; inputs and cotangents are numpy draws from a seed,
-in f32, and the bound is 1e-5 of each gradient's scale (its largest
-magnitude).  ``FlashAttentionFn`` (the autograd plumbing around the
+in f32, at head dims 32 to 256, and the bound is 1e-5 of each gradient's
+scale (its largest magnitude).  ``FlashAttentionFn`` (the autograd plumbing around the
 kernels) passes ``gradcheck`` on the CPU in f64, where it runs the plain
 forward-with-LSE and backward.  The ``gpu``-marked tests hold the CUDA
 kernels against the plain versions and skip where there is no card; the
@@ -29,8 +29,9 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
-# (B, Sq, Sk, H, KV, D, window, causal): G of 1, 4 and 8, D of 32, 64 and
-# 128, ragged lengths, a sliding window, non-causal at Sq != Sk
+# (B, Sq, Sk, H, KV, D, window, causal): G of 1, 4 and 8, D of 32, 64, 128
+# and 256 (gemma-7b's, causal, windowed and non-causal), ragged lengths, a
+# sliding window, non-causal at Sq != Sk
 CASES = [
     (2, 37, 37, 4, 4, 32, 0, True),
     (1, 40, 40, 8, 2, 64, 0, True),
@@ -40,6 +41,9 @@ CASES = [
     (2, 19, 41, 4, 4, 64, 0, False),
     (1, 29, 13, 8, 2, 128, 0, False),
     (1, 23, 31, 8, 1, 32, 0, False),
+    (1, 35, 35, 4, 4, 256, 0, True),
+    (2, 30, 30, 4, 2, 256, 9, True),
+    (1, 21, 37, 2, 2, 256, 0, False),
 ]
 IDS = [f"{'causal' if c[7] else 'full'}-w{c[6]}-S{c[1]}x{c[2]}-G{c[3] // c[4]}-D{c[5]}"
        for c in CASES]
@@ -179,6 +183,65 @@ def test_op_takes_the_function_only_when_a_gradient_is_needed():
     assert all(n == 0 for n in common.launch_counts.values())
 
 
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, device="meta", dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_backward_takes_bf16_and_f32_at_every_head_dim(dtype):
+    """On the meta device (the card's checks, no card): a call that needs a
+    gradient is taken in bf16 and in f32 at D = 256 as at the other head
+    dims of ``HEAD_DIMS``, and refused by name in f16 or at a head dim
+    outside ``HEAD_DIMS``; the backward's meta call plans and counts as the
+    card's would."""
+    assert flash_ops.BWD_HEAD_DIMS == (32, 64, 128, 256)
+    for D in flash_ops.BWD_HEAD_DIMS:
+        assert flash_ops.check_backward_operands(_meta(1, 8, 2, D, dtype=dtype)) is None
+    with pytest.raises(RuntimeError, match="flash_attention_bwd: the backward kernels "
+                       "take bf16 and f32, got torch.float16"):
+        flash_ops.check_backward_operands(_meta(1, 8, 2, 256, dtype=torch.float16))
+    with pytest.raises(RuntimeError, match=r"head_dim 96 not in \(32, 64, 128, 256\)"):
+        flash_ops.check_backward_operands(_meta(1, 8, 2, 96, dtype=dtype))
+    seen = []
+    common.meta_counters.append(lambda name, shape: seen.append((name, shape)))
+    try:
+        q = _meta(2, 40, 4, 256, dtype=dtype).requires_grad_(True)
+        k, v = _meta(2, 40, 4, 256, dtype=dtype), _meta(2, 40, 4, 256, dtype=dtype)
+        out = flash_ops.flash_attention_op(q, k, v)
+        dq, dk, dv = flash_ops.flash_attention_bwd_op(
+            q.detach(), k, v, out.detach(), _meta(2, 40, 4, 256, dtype=dtype),
+            _meta(2, 4, 40))
+    finally:
+        common.meta_counters.pop()
+    assert out.dtype == dtype and dq.shape == q.shape and dk.shape == k.shape
+    assert [name for name, _ in seen] == ["flash_attention", "flash_attention_bwd"]
+    assert seen[0][1]["lse"] is True and seen[0][1]["dtype"] == str(dtype)
+    want = (flash_ops.bwd_work_bytes_f32(2, 4, 40) if dtype == torch.float32 else
+            flash_ops.bwd_work_bytes(flash_ops.plan_bwd_units(
+                2, 4, 1, 40, 40, 0, True, 132, slots=1), 2, 4, 4, 40, 256))
+    assert seen[1][1]["scratch"] == want
+
+
+def test_f32_forward_with_lse_counts_one_call():
+    """``flash_attention_fwd_lse`` on f32 meta tensors (the f32 training
+    forward) takes the card's checks and counts one flash call with its
+    LSE: the output in q's layout and dtype, the (B, H, Sq) f32 rows."""
+    seen = []
+    common.meta_counters.append(lambda name, shape: seen.append((name, shape)))
+    common.reset_launch_counts()
+    try:
+        out, lse = flash_ops.flash_attention_fwd_lse(
+            _meta(2, 33, 8, 128), _meta(2, 33, 2, 128), _meta(2, 33, 2, 128), window=16)
+    finally:
+        common.meta_counters.pop()
+    assert out.shape == (2, 33, 8, 128) and out.dtype == torch.float32
+    assert lse.shape == (2, 8, 33) and lse.dtype == torch.float32
+    assert seen == [("flash_attention", {"B": 2, "Sq": 33, "Sk": 33, "H": 8, "KV": 2,
+                                         "D": 128, "window": 16, "causal": True,
+                                         "dtype": "torch.float32", "lse": True})]
+    assert all(n == 0 for n in common.launch_counts.values())
+
+
 def test_wrappers_without_a_backward_refuse_a_gradient_off_the_cpu():
     """``decode_attention_op`` refuses, by the wrapper's name, a call off
     the CPU whose input requires grad, and ``wkv6_op`` one its backward
@@ -223,9 +286,19 @@ GPU_CASES = [
     (2, 137, 137, 12, 12, 32, 0, False),   # reranker-minilm
     (1, 77, 301, 32, 8, 128, 0, False),    # cross-attention, Sq != Sk
     (1, 1, 1, 4, 2, 64, 0, True),
+    (1, 300, 300, 16, 16, 256, 0, True),   # gemma-7b's heads: mma.sync
+    (1, 200, 200, 4, 2, 256, 64, True),    # D = 256 under a window
+]
+# the f32 kernels: (case, dtype)
+GPU_CASES = [(c, torch.bfloat16) for c in GPU_CASES] + [
+    ((1, 300, 300, 16, 2, 128, 0, True), torch.float32),
+    ((1, 200, 200, 16, 16, 256, 32, True), torch.float32),
+    ((2, 77, 130, 12, 12, 64, 0, False), torch.float32),
+    ((1, 90, 90, 4, 4, 32, 0, True), torch.float32),
 ]
 ROW_REL_TOL = 0.05
 BF16_TOL = 2e-2
+F32_TOL = 2e-5
 
 
 def _rows_close(out, truth, rows=None):
@@ -244,9 +317,10 @@ def _rows_close(out, truth, rows=None):
 @pytest.mark.gpu
 def test_cuda_flash_backward_matches_plain_version():
     """The backward kernel's dq, dk, dv and the forward's lse against the
-    plain versions in f32 on the same bf16 inputs, within BF16_TOL and,
-    row by row, ROW_REL_TOL of the row's RMS; one backward launch per
-    call; and the same through autograd (``FlashAttentionFn``).  The dq of
+    plain versions in f32 on the same bf16 (or f32) inputs, within
+    BF16_TOL (F32_TOL) and, row by row, ROW_REL_TOL of the row's RMS; one
+    backward launch per call; and the same through autograd
+    (``FlashAttentionFn``).  The dq of
     a query that sees one key (a causal call's first) is zero
     analytically, and so is the dk of a key that only such queries see,
     which both sides reach only up to rounding: those rows are held by
@@ -256,10 +330,11 @@ def test_cuda_flash_backward_matches_plain_version():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     common.reset_launch_counts()
-    for B, Sq, Sk, H, KV, D, window, causal in GPU_CASES:
+    for (B, Sq, Sk, H, KV, D, window, causal), dtype in GPU_CASES:
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+
         def rnd(*shape):
-            return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(
-                torch.bfloat16)
+            return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(dtype)
         q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, KV, D), rnd(B, Sk, KV, D), rnd(B, Sq, H, D)
         out, lse = flash_ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal)
         grads = flash_ops.flash_attention_bwd_op(q, k, v, out, do, lse,
@@ -267,7 +342,7 @@ def test_cuda_flash_backward_matches_plain_version():
         torch.cuda.synchronize()
         t = [x.transpose(1, 2).float() for x in (q, k, v, out, do)]
         _, lse_ref = flash_attention_fwd_lse_ref(*t[:3], window=window, causal=causal)
-        torch.testing.assert_close(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL)
+        torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=tol)
         truth = flash_attention_bwd_ref(*t, lse, window=window, causal=causal)
         mask = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
         if causal:
@@ -280,7 +355,7 @@ def test_cuda_flash_backward_matches_plain_version():
         held = (multi_q[None, :, None], multi_k[None, :, None], None)
         for g, ref, rows in zip(grads, truth, held):
             ref = ref.transpose(1, 2)
-            torch.testing.assert_close(g.float(), ref, atol=BF16_TOL, rtol=BF16_TOL)
+            torch.testing.assert_close(g.float(), ref, atol=tol, rtol=tol)
             _rows_close(g, ref, rows)
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         flash_ops.flash_attention_op(*leaves, window=window, causal=causal).backward(do)
@@ -309,7 +384,8 @@ def test_cuda_wrappers_without_a_backward_raise_on_a_gradient():
     with pytest.raises(RuntimeError, match="wkv6_op"):
         wkv6_op(r, r.detach(), r.detach(), logw, torch.zeros(2, 64, device=dev),
                 torch.zeros(1, 2, 64, 64, device=dev))
-    with pytest.raises(RuntimeError, match="bf16"):
-        flash_ops.flash_attention_op(q.float()[:, None].expand(2, 4, 4, 64),
-                                     kc.float().transpose(1, 2)[:, :4],
-                                     kc.float().transpose(1, 2)[:, :4])
+    # f16: the flash backward kernels take bf16 and f32
+    with pytest.raises(RuntimeError, match="bf16 and f32"):
+        flash_ops.flash_attention_op(q.half()[:, None].expand(2, 4, 4, 64),
+                                     kc.half().transpose(1, 2)[:, :4],
+                                     kc.half().transpose(1, 2)[:, :4])

@@ -53,7 +53,9 @@ def _case(c):
     return B, S, Sk, H, KV, D, window, causal
 
 
-CARD_CASES = [TRAIN] + [_case(c) for c in chip_smoke.FLASH_BWD_CASES]
+# the bf16 cases: the f32 kernels walk whole tiles and take no plan
+CARD_CASES = [TRAIN] + [_case(c) for c in chip_smoke.FLASH_BWD_CASES
+                        if c[6] == "bfloat16"]
 CARD_IDS = [f"{'causal' if c[7] else 'full'}-w{c[6]}-B{c[0]}-S{c[1]}x{c[2]}-H{c[3]}-KV{c[4]}"
             for c in CARD_CASES]
 # small shapes that split at caps of 1 and 7: G of 2, 4 and 8, ragged
@@ -70,12 +72,15 @@ CAPS = [1, 7, "tile"]
 
 
 def _plan(case, cap=0):
+    """The case's plan as the wrapper makes it: the head dim's dK/dV
+    workers an SM (``bwd_slots_per_sm``)."""
     B, Sq, Sk, H, KV, D, window, causal = case
+    slots = flash_ops.bwd_slots_per_sm(D)
     if cap == "tile":  # a whole tile's walk: nothing splits
         cap = max(flash_ops.plan_bwd_units(B, KV, H // KV, Sq, Sk, window, causal,
-                                           H100_SMS).work)
+                                           H100_SMS, slots=slots).work)
     return flash_ops.plan_bwd_units(B, KV, H // KV, Sq, Sk, window, causal,
-                                    H100_SMS, cap)
+                                    H100_SMS, cap, slots)
 
 
 def _pairs(case):
@@ -127,16 +132,16 @@ def test_plan_covers_every_iteration_once(case, cap):
 @pytest.mark.parametrize("case", CARD_CASES, ids=CARD_IDS)
 def test_plan_balances_the_card(case):
     """At the card's shapes the longest unit is within BALANCE_RATIO of the
-    balanced share of its 2 x 132 consumer warpgroups, and the units run
-    heaviest first."""
+    balanced share of its dK/dV workers (2 x 132, or 132 at D = 256), and
+    the units run heaviest first."""
     B, Sq, Sk, H, KV, D, window, causal = case
     plan = _plan(case)
     sizes = [it1 - it0 for _, it0, it1, _ in plan.units]
-    share = B * KV * sum(plan.work) / (flash_ops.BWD_SLOTS_PER_SM * H100_SMS)
+    workers = flash_ops.bwd_slots_per_sm(D) * H100_SMS
+    share = B * KV * sum(plan.work) / workers
     assert max(sizes) <= BALANCE_RATIO * share
     assert sizes == sorted(sizes, reverse=True)
-    assert plan.cap == max(1, -(-B * KV * sum(plan.work)
-                                // (flash_ops.BWD_SLOTS_PER_SM * H100_SMS)))
+    assert plan.cap == max(1, -(-B * KV * sum(plan.work) // workers))
 
 
 def test_plan_at_the_train_shape():
@@ -155,6 +160,31 @@ def test_plan_at_the_train_shape():
     # the longest walk (tile 0: 8 heads x 32 query tiles) is cut in four
     assert [u[1:3] for u in plan.units if u[0] == 0] == [(0, 64), (64, 128),
                                                          (128, 192), (192, 256)]
+
+
+def test_plan_at_head_dim_256_counts_the_blocks_an_sm_holds():
+    """At D = 256 the dK/dV block is the eight-warp ``mma.sync`` one, whose
+    shared memory (K and V, two stages of Q, dO, lse and D rows: 197632
+    bytes) leaves no room on an SM for a second, so the plan is balanced
+    over one worker an SM (two at the other head dims).  At gemma-7b's
+    microbatch (B=2, S=2048, H = KV = 16, causal) the 32 (batch, KV head)
+    pairs walk 528 iterations each over 132 workers: cap 128 (64 at two a
+    SM), above every tile's walk (G = 1, at most 32 query tiles), so each
+    tile is one unit and nothing splits."""
+    smem = flash_ops.bwd_mma_smem_bytes(256)
+    assert smem == 2 * 64 * 256 * 2 + 2 * (2 * 64 * 256 * 2 + 2 * 64 * 4) == 197632
+    assert 2 * smem > flash_ops.SM_SMEM_BYTES >= smem
+    assert flash_ops.bwd_slots_per_sm(256) == 1
+    assert [flash_ops.bwd_slots_per_sm(D) for D in (32, 64, 128)] == [2, 2, 2]
+    case = (2, 2048, 2048, 16, 16, 256, 0, True)
+    plan = _plan(case)
+    assert sum(plan.work) == 32 * 33 // 2
+    assert plan.cap == -(-2 * 16 * sum(plan.work) // H100_SMS) == 128
+    assert plan == flash_ops.plan_bwd_units(2, 16, 1, 2048, 2048, 0, True, H100_SMS,
+                                            slots=1)
+    assert plan != flash_ops.plan_bwd_units(2, 16, 1, 2048, 2048, 0, True, H100_SMS)
+    # every key tile's walk (at most 32 query tiles, G = 1) fits the cap
+    assert plan.partials == 0 and len(plan.units) == 32
 
 
 def test_plan_without_splits_needs_no_partials():

@@ -2,7 +2,8 @@
 scripts ``chip_smoke.py``, ``kernel_ab.py``, ``wkv6_split_probe.py`` and
 ``shard_probe.py``
 nor its example ``examples/train_model_torch.py`` nor the sharded tests'
-rank worker ``tests/torch_sharded_worker.py`` imports JAX or anything of
+rank worker ``tests/torch_sharded_worker.py`` nor the sharded checkpoint's
+tests ``tests/test_torch_checkpoint_sharded.py`` imports JAX or anything of
 the JAX package, and its entry points run on the card unless the caller
 names the CPU."""
 import ast
@@ -25,7 +26,8 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "kernel_ab.py", REPO / "wkv6_split_probe.py",
      REPO / "shard_probe.py",
      REPO / "examples" / "train_model_torch.py",
-     REPO / "tests" / "torch_sharded_worker.py"]
+     REPO / "tests" / "torch_sharded_worker.py",
+     REPO / "tests" / "test_torch_checkpoint_sharded.py"]
 
 
 def _imported_roots(path: Path):
@@ -61,7 +63,8 @@ def test_scan_finds_the_port():
             "train_model_torch.py", "op_stats.py", "dryrun.py",
             "reanalyze.py", "admission.py", "telemetry.py", "drift.py",
             "forecast.py", "replan.py", "accuracy.py", "metrics.py",
-            "spans.py", "torch_sharded_worker.py", "shard_probe.py"} <= names
+            "spans.py", "torch_sharded_worker.py", "shard_probe.py",
+            "test_torch_checkpoint_sharded.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):

@@ -273,3 +273,53 @@ def test_router_stays_f32_under_tf32():
     finally:
         flags.allow_tf32 = before
     assert torch.equal(ieee, under_tf32)
+
+
+@pytest.mark.parametrize("lead", [(5,), (2, 7)], ids=["2d", "3d"])
+def test_router_product_gradients_are_matmuls(lead):
+    """``_ieee_f32_matmul`` (an autograd Function, so that its backward's
+    products run without TF32 on the card too) gives torch.matmul's
+    gradients on the CPU: dx = g router^T and, over every leading dim,
+    drouter = x^T g; with only one input requiring grad, only that one."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(*lead, 16, generator=gen, dtype=torch.float64)
+    router = torch.randn(16, 6, generator=gen, dtype=torch.float64)
+    g = torch.randn(*lead, 6, generator=gen, dtype=torch.float64)
+    ours = [t.clone().requires_grad_(True) for t in (x, router)]
+    ref = [t.clone().requires_grad_(True) for t in (x, router)]
+    out = moe._ieee_f32_matmul(*ours)
+    assert type(out.grad_fn).__name__ == "_IeeeF32MatmulBackward"
+    out.backward(g)
+    torch.matmul(*ref).backward(g)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-12, atol=1e-12)
+    assert torch.autograd.gradcheck(moe._ieee_f32_matmul,
+                                    [t.clone().requires_grad_(True) for t in (x, router)])
+    xg = x.clone().requires_grad_(True)
+    moe._ieee_f32_matmul(xg, router).backward(g)
+    torch.testing.assert_close(xg.grad, g @ router.T, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_router_gradients_stay_f32_under_tf32():
+    """The router product's backward ignores a global TF32 setting on the
+    card: both gradients equal the ones taken with TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: TF32 exists only there")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, 512, 2048, generator=gen, device="cuda")
+    router = torch.randn(2048, 64, generator=gen, device="cuda") / 2048 ** 0.5
+    g = torch.randn(1, 512, 64, generator=gen, device="cuda")
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    grads = []
+    try:
+        for tf32 in (False, True):
+            flags.allow_tf32 = tf32
+            leaves = [t.clone().requires_grad_(True) for t in (x, router)]
+            moe._ieee_f32_matmul(*leaves).backward(g)
+            grads.append([t.grad for t in leaves])
+    finally:
+        flags.allow_tf32 = before
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

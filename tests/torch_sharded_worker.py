@@ -1,6 +1,6 @@
 """The ranks of the sharded runs of ``tests/test_torch_sharding.py``,
-``tests/test_torch_sharding_families.py``, ``tests/test_torch_sharding_heads.py``
-and ``tests/test_torch_dryrun.py``:
+``tests/test_torch_sharding_families.py``, ``tests/test_torch_sharding_heads.py``,
+``tests/test_torch_dryrun.py`` and ``tests/test_torch_checkpoint_sharded.py``:
 processes of one gloo group on the CPU that run a sharded model of any
 family ``shard_model`` takes on every case and return numpy results.  It
 imports no JAX: the parent bridges the reference's weights and hands them
@@ -18,7 +18,9 @@ query columns' gather keeps only this rank's slice of its gradient (a
 mutation that a head split must fail).  ``run_case`` computes the same
 results for an unsharded model when it is given no mesh.  A weight comes
 back at its unsharded shape (a paired-halves weight's (d, 2, h) view as
-its (d, 2h)).
+its (d, 2h)).  A case with ``ckpt`` runs ``checkpoint_case`` instead:
+train steps that save a checkpoint, a resume from it and a restore of
+another run's.
 """
 from __future__ import annotations
 
@@ -157,6 +159,64 @@ def run_case(case, mesh=None) -> dict:
     return out
 
 
+CKPT_AT = 2  # the step after which a checkpoint case saves
+
+
+def _state(model, state, shapes) -> dict:
+    """Every weight and moment at its unsharded shape, and the step, by the
+    checkpoint's keys, as numpy."""
+    out = {f"param/{n}": _full(p, shapes[n]) for n, p in model.named_parameters()}
+    out.update({f"m/{n}": _full(t, shapes[n]) for n, t in state.m.items()})
+    out.update({f"v/{n}": _full(t, shapes[n]) for n, t in state.v.items()})
+    out["step"] = state.step.numpy().copy()
+    return out
+
+
+def checkpoint_case(case, mesh=None) -> dict:
+    """The checkpoint round trips of one case, on ``mesh`` or unsharded
+    (``case["ckpt"]``: ``save``, the directory this run saves to, and
+    ``restore``, the other kind's checkpoint directory, each optional).
+
+    ``run``: the model from ``seed``, CKPT_AT + STEPS train steps with a
+    checkpoint into ``save`` after CKPT_AT of them: its losses and final
+    state.
+    ``resumed``: a model from ``seed + 1`` restores ``save`` and takes the
+    remaining steps.  With ``restore``, ``crossed``: a model from ``seed +
+    1`` restores that directory (its state right after the restore, then
+    its remaining steps)."""
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    batch = case["batch"]
+    shapes = {n: tuple(p.shape) for n, p in _model(case, None).named_parameters()}
+
+    def steps(seed, save=None, restore=None):
+        model = _model(dict(case, seed=seed), mesh)
+        step_fn = make_train_step(model, AdamWConfig(**OPT))
+        state = init_state(dict(model.named_parameters()))
+        start, out = 0, {}
+        if restore is not None:
+            state, start, _ = ckpt.restore_checkpoint(restore, model, state)
+            out["restored"] = _state(model, state, shapes)
+        out["losses"] = []
+        for step in range(start, STEPS + CKPT_AT):
+            state, metrics = step_fn(state, batch)
+            out["losses"].append(float(metrics["loss"]))
+            if save is not None and step + 1 == CKPT_AT:
+                ckpt.save_checkpoint(save, CKPT_AT, model, state, extra={"key": case["key"]})
+        out["final"] = _state(model, state, shapes)
+        return out
+
+    paths, out = case["ckpt"], {}
+    if paths.get("save"):
+        out["run"] = steps(case["seed"], save=paths["save"])
+        out["resumed"] = steps(case["seed"] + 1, restore=paths["save"])
+    if paths.get("restore"):
+        out["crossed"] = steps(case["seed"] + 1, restore=paths["restore"])
+    return out
+
+
 def _leaves(cache):
     """(name, leaf) of a cache: a (k, v) pair or a dict."""
     return cache.items() if isinstance(cache, dict) else zip("kv", cache)
@@ -225,6 +285,9 @@ def rank_main(rank: int, world: int, store_path: str, cases, queue) -> None:
         for case in cases:
             axes = ("pod", "data", "model")[-len(case["mesh"]):]
             mesh = make_mesh(case["mesh"], axes, device_type="cpu")
+            if "ckpt" in case:
+                results[case["key"]] = checkpoint_case(case, mesh)
+                continue
             results[case["key"]] = run_case(case, mesh)
             results[case["key"]]["kernel_input_types"] = sorted(seen)
         dist.destroy_process_group()
