@@ -100,10 +100,12 @@ prints one JSON object per phase:
    encoders' non-causal D=64 and D=32, the VLM's cross shape, seamless's
    encoder (1024 x 1024) and cross (512 over 1024) shapes at B=4, the
    train_4k length B=1, S=4096, gemma-7b's D=256 (B=2, S=2048, H=KV=16,
-   and a ragged S=1000), and the f32 kernels at D=128 and 256 over
+   a ragged S=1000, grouped heads H=16, KV=4 under a window of 512, and
+   non-causal 512 over 1024), and the f32 kernels at D=128 and 256 over
    2 x 2048, D=64 under a window and seamless's cross shape, held to the
    f32 TOL; two calls must give bit-equal gradients;
-   each with its dK/dV plan, graph ms, bound and SDPA's backward ms), and
+   each with its dK/dV plan, graph ms, bound and SDPA's backward ms, and
+   the forward's graph ms beside SDPA's forward and its bound), and
    of the WKV6 backward (``wkv6_bwd``: dr, dk, dv, dlogw, du and dstate
    against ``wkv6_bwd_ref`` in f64, within TOL and ROW_REL_TOL, dlogw
    also as a whole (its error's norm within ROW_REL_TOL of its norm), at
@@ -387,24 +389,24 @@ TENSOR_CORES = ("HGMMA", "HMMA")
 # entries that must run on the tensor cores: (a name they contain, the
 # instructions of which each such entry needs one): the bf16 attention
 # kernels, the chunked WKV6 kernel and the attention backward's dQ and dK/dV
-# kernels: one persistent wgmma kernel for both at D = 64 and 128, and
-# mma.sync at D = 32 and 256; and the WKV6 backward's two kernels, the
-# chunks' walks and every chunk on its own
+# kernels: one persistent wgmma kernel for both at D = 64, 128 and 256, and
+# mma.sync at D = 32; and the WKV6 backward's two kernels, the chunks' walks
+# and every chunk on its own
 TENSOR_CORE_ENTRIES = {
     "flash_attention": (("flash_fwd_tc", TENSOR_CORES),),
     "decode_attention": (("decode_split", TENSOR_CORES),),
     "wkv6_chunk": (("wkv6_chunk_kernel", TENSOR_CORES),),
     "flash_attention_bwd": (("bwd_dq_dkdv_tcILi64E", ("HGMMA",)),
                             ("bwd_dq_dkdv_tcILi128E", ("HGMMA",)),
+                            ("bwd_dq_dkdv_tcILi256E", ("HGMMA",)),
                             ("bwd_dq_mmaILi32E", ("HMMA",)),
-                            ("bwd_dkdv_mmaILi32E", ("HMMA",)),
-                            ("bwd_dq_mmaILi256E", ("HMMA",)),
-                            ("bwd_dkdv_mmaILi256E", ("HMMA",))),
+                            ("bwd_dkdv_mmaILi32E", ("HMMA",))),
     "wkv6_bwd": (("wkv6_bwd_states", TENSOR_CORES), ("wkv6_bwd_chunk", TENSOR_CORES))}
 
 
 # entries whose nvcc report must show no spill: the flash backward's
-# D = 256 (mma.sync) and f32 (CUDA-core) entries
+# D = 256 entries (the persistent wgmma kernel bwd_dq_dkdv_tcILi256E, its
+# prep and merge) and f32 (CUDA-core) entries
 NO_SPILL_ENTRIES = {"flash_attention_bwd": ("ILi256E", "3f32")}
 
 
@@ -830,8 +832,9 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
     are held by TOL alone.  Times: the backward by CUDA events over
     back-to-back calls and through a CUDA graph, its plain version, SDPA's
     backward on the same inputs both ways (``sdpa_calls``: its forward
-    and backward less its forward), and the forward with and without the
-    LSE (graph)."""
+    and backward less its forward), the forward with and without the LSE
+    (graph) beside SDPA's forward without grad (graph) and the forward's
+    bound (4 D flops a kept pair; q, k, v read and the output written)."""
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_lse_ref)
 
@@ -894,10 +897,17 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
               + esize * (B * S * H * D + 2 * B * Sk * KV * D))
     flops = 10.0 * B * H * D * pairs
     b_ms, b_by = bound(flops, nbytes, dtype)
+    fwd_b_ms, fwd_b_by = bound(4.0 * B * H * D * pairs,
+                               esize * (2 * B * S * H * D + 2 * B * Sk * KV * D), dtype)
     sdpa_fwd, sdpa_fwd_bwd, library_error = sdpa_calls(torch, F, *t[:3], t[4],
                                                        window, causal)
     kernel_graph_ms = graph_ms(torch, kernel)
     row_err = max(row_errs)
+
+    def sdpa_inference():
+        with torch.no_grad():
+            return sdpa_fwd()
+
     # the bf16 kernels' dK/dV plan as the wrapper makes it; the f32 ones
     # walk whole tiles
     plan = ops_mod.plan_bwd_units(B, KV, H // KV, S, Sk, window, causal,
@@ -924,6 +934,8 @@ def check_flash_bwd(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
                   q, k, v, window=window, causal=causal)),
               "fwd_lse_graph_ms": graph_ms(torch, lambda: ops_mod.flash_attention_fwd_lse(
                   q, k, v, window=window, causal=causal)),
+              "library_fwd_graph_ms": graph_ms(torch, sdpa_inference) if sdpa_fwd else None,
+              "fwd_bound_ms": fwd_b_ms, "fwd_bound_by": fwd_b_by,
               "library": "SDPA backward (flash, efficient or cuDNN backend)",
               "library_ms": (cuda_ms(torch, sdpa_fwd_bwd) - cuda_ms(torch, sdpa_fwd)
                              if sdpa_fwd else None),
@@ -1031,10 +1043,11 @@ WKV6_CASES += [(B, S, 64, 64, "float32", split, "mild")
 # encoder (1024 x 1024 frames, H = KV = 16, D = 64) and its cross-attention
 # (512 over the 1024 frames), at its microbatch of 4 rows; the reference's
 # train_4k length (B=1, S=4096), the longest walk the dK/dV planner splits;
-# gemma-7b's microbatch (H = KV = 16, D = 256, the mma.sync path) and a
-# ragged S; then the f32 kernels at the f32 parity steps' shapes (qwen's
-# D = 128 and gemma's D = 256 over 2 x 2048), a window at D = 64 and
-# seamless's cross shape
+# gemma-7b's microbatch (H = KV = 16, D = 256, one worker a block of the
+# wgmma kernel), a ragged S, and at D = 256 grouped heads under a window
+# and non-causal cross-attention (512 over 1024); then the f32 kernels at
+# the f32 parity steps' shapes (qwen's D = 128 and gemma's D = 256 over
+# 2 x 2048), a window at D = 64 and seamless's cross shape
 FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (1, 1000, 32, 8, 128, 0, "bfloat16"),
                    (1, 2048, 25, 5, 64, 1024, "bfloat16"),
@@ -1046,6 +1059,8 @@ FLASH_BWD_CASES = [(2, 2048, 16, 2, 128, 0, "bfloat16"),
                    (1, 4096, 16, 2, 128, 0, "bfloat16"),
                    (2, 2048, 16, 16, 256, 0, "bfloat16"),
                    (1, 1000, 16, 16, 256, 0, "bfloat16"),
+                   (1, 1000, 16, 4, 256, 512, "bfloat16"),
+                   (2, 512, 16, 16, 256, 0, "bfloat16", 1024, False),
                    (2, 2048, 16, 2, 128, 0, "float32"),
                    (2, 2048, 16, 16, 256, 0, "float32"),
                    (1, 1000, 25, 5, 64, 256, "float32"),
@@ -1726,12 +1741,13 @@ class TrainSpec(NamedTuple):
 # 0.193, reranker 0.075, seamless 0.530 and the VLM 0.586, at 10 hymba
 # 0.638, at 20 rwkv 0.698; qwen2.5-3b needs its 30: 0.718 at 25)
 #
-# gemma-7b (head dim 256: the backward's mma.sync path) at full width and 8
-# of its 28 layers, 3.00 B weights: bf16 weights and gradients and f32
-# moments of all 8.54 B would take 102 GB; olmoe-1b-7b at full width and 8
-# of its 16 layers, 3.56 B (6.92 B at full depth: 83 GB), routed through
-# every expert; each at 4 x 2048 tokens in 2 microbatches.  qwen2.5-3b and
-# gemma-7b also check a step in f32 through the kernels (``train_parity``)
+# gemma-7b (head dim 256: the backward's wgmma kernel, one worker a block)
+# at full width and 8 of its 28 layers, 3.00 B weights: bf16 weights and
+# gradients and f32 moments of all 8.54 B would take 102 GB; olmoe-1b-7b at
+# full width and 8 of its 16 layers, 3.56 B (6.92 B at full depth: 83 GB),
+# routed through every expert; each at 4 x 2048 tokens in 2 microbatches.
+# qwen2.5-3b and gemma-7b also check a step in f32 through the kernels
+# (``train_parity``)
 TRAIN_RUNS = [TrainSpec("qwen2.5-3b", 8, 2048, 4, 30, f32_kernels=True),
               TrainSpec("e5-base-v2", 16, 512, 1, 15),
               TrainSpec("reranker-minilm", 16, 512, 1, 15),

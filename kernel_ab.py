@@ -22,8 +22,8 @@ on the same inputs,
 timed as ``chip_smoke.sdpa_calls`` does (its forward and backward less its
 forward); last of ``wkv6_bwd_op`` at each shape of
 ``chip_smoke.WKV6_BWD_CASES`` (the first is rwkv6-7b's train shape), on
-inputs made as ``chip_smoke.check_wkv6_bwd`` makes them.  Needs one CUDA
-card.
+inputs made as ``chip_smoke.check_wkv6_bwd`` makes them.  The card's
+name and power limit (``nvidia-smi``) print first.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -124,6 +124,8 @@ def main(argv=None) -> int:
     other = args.other.resolve() if args.other else ROOT
     if not other.is_relative_to(ROOT / "build") or not (other / "src").is_dir():
         ap.error("--other must be a checkout unpacked under this one's build/")
+    from chip_smoke import nvidia_smi_line
+    print(nvidia_smi_line(), flush=True)
     env = dict(os.environ, PYTHONPATH="")  # each worker its own src/
     for tag, root in (("other", other), ("this", ROOT), ("this", ROOT),
                       ("other", other)):

@@ -40,22 +40,26 @@
 //   2. The schedule.  Key tile t of 64 keys walks its G query heads and,
 //      for each, the query tiles that reach it: w(t) = G nq(t) iterations
 //      in a fixed order.  The host planner (ops.py :: plan_bwd_units) picks
-//      a cap T, the balanced share of the card's 2 x SMs consumer
-//      warpgroups; each walk is cut into units of at most T iterations, the
+//      a cap T, the balanced share of the card's workers (2 x SMs, or SMs
+//      at D = 256: ops.py :: bwd_slots_per_sm); each walk is cut into units
+//      of at most T iterations, the
 //      full units first in (tile, chunk) order, then the remainders, larger
 //      first.  bwd_prep writes the same order as a table from the kernel's
 //      scalar arguments alone (one thread a tile, each with a loop over the
 //      tiles for its ranks): no host-to-device copy and no host sync, so a
 //      call can be captured in a CUDA graph.
-//   3. bwd_dq_dkdv_tc (D = 64 and 128): dQ and dK/dV in one persistent
-//      launch of one block per SM.  A block holds two consumer warpgroups,
-//      each a worker with jobs of its own, and a producer warpgroup that
-//      gives up its registers (setmaxnreg: 24 + 2 x 240) and whose warps 8
-//      and 9 feed the two workers by TMA (128-byte swizzle) through rings of
-//      mbarrier stages.  The jobs are the dK/dV units (heaviest first) and
+//   3. bwd_dq_dkdv_tc (D = 64, 128 and 256): dQ and dK/dV in one
+//      persistent launch of one block per SM.  At D = 64 and 128 a block
+//      holds two consumer warpgroups, each a worker with jobs of its own,
+//      and a producer warpgroup that gives up its registers (setmaxnreg:
+//      24 + 2 x 240) and whose warps 8 and 9 feed the two workers by TMA
+//      (128-byte swizzle) through rings of mbarrier stages.  At D = 256 the
+//      block is one worker that both consumer warpgroups serve (below).
+//      The jobs are the dK/dV units (heaviest first) and
 //      then the dQ jobs, one per (64 queries, head, batch), the longest
 //      causal walks first, dealt round-robin in snake order.  The stage
-//      ring runs on across a worker's jobs, so the next job's tiles load
+//      ring runs on across a worker's jobs, and the producer queues a job's
+//      first stage before its fixed tiles, so the next job's tiles load
 //      while the current one finishes.
 //      A dK/dV unit keeps K and V of its 64 keys in shared memory and
 //      streams Q, dO, lse and D of each iteration: S^T = K Q^T and
@@ -69,20 +73,30 @@
 //      A dQ job keeps Q and dO and streams K and V: S = Q K^T and
 //      dP = dO V^T from shared memory, dS rounded to bf16 in registers as
 //      the A operand of dQ += dS K (K a transposed B operand).
+//      D = 256 (gemma-7b).  A 64-row tile pair is 64 KB, so two slots of
+//      two stages do not fit, and one warpgroup would hold 256 f32 dK and
+//      dV accumulators a thread.  So the block is one worker (Cfg::W = 1,
+//      one dK/dV worker an SM for the planner): its slot holds the fixed
+//      pair, two 64.5 KB stages and two 64 x 64 f32 exchange tiles, the
+//      whole 227 KB, and both consumer warpgroups serve each of its jobs
+//      (serve_one), each holding half of the accumulators and computing
+//      one of the two 64 x 64 products that the D = 64/128 worker computes
+//      both of.  dK/dV: warpgroup 0 computes S^T, forms P^T, passes it to
+//      warpgroup 1 through an exchange tile (an mbarrier pair in place of
+//      a named barrier) and sums dV += P^T dO; warpgroup 1 computes dP^T,
+//      forms dS^T and sums dK += dS^T Q (m64n256k16, 128 accumulators a
+//      thread), so S^T is computed once and the two do equal work.  dQ:
+//      warpgroup 0 computes S and P, warpgroup 1 dP; each passes its tile
+//      to the other, both form the same dS, and each sums half of dQ's
+//      columns (m64n128k16).  The producer thread keeps 40 registers and
+//      the consumers 232, which take all of the 168 x 384 the block
+//      launches with; at 24 the producer spilled.  Each warpgroup releases
+//      a job's fixed tiles after its last product that reads them.
 //   4. bwd_merge sums each split tile's partials in unit order, scales dK
 //      and writes bf16 (only where a tile was split).
 // D = 32 (reranker-minilm) keeps the first design's mma.sync kernels
 // (bwd_dq_mma, bwd_dkdv_mma: m16n8k16 fed by ldmatrix from a 2-stage
-// cp.async ring), under the same schedule, scratch and merge.  So does
-// D = 256 (gemma-7b), where the persistent wgmma kernel fits no stage ring
-// (a K + V or Q + dO tile pair is 64 KB) and its registers no f32 dK and
-// dV (2 x 64 x 256 over 128 threads): its dK/dV block runs eight warps over
-// one ring, warps 0-3 summing dV and 4-7 dK for the same 16-key rows (S^T
-// recomputed by both), so a thread holds 128 accumulators; its dQ block
-// reads Q's and dO's fragments from shared memory at every step instead of
-// holding them.  Each takes ~193 KB of shared memory, one block an SM, so
-// the planner counts one dK/dV worker an SM at D = 256 (ops.py ::
-// bwd_slots_per_sm).  Fully masked
+// cp.async ring), under the same schedule, scratch and merge.  Fully masked
 // tiles are skipped as the forward skips them (the key walk runs from the
 // window's edge to the diagonal, the query walk from the diagonal to the
 // window's end); the mask runs only on the tiles it cuts.  Rows past S are
@@ -106,6 +120,14 @@
 // stages only (32 KB of K and V plus 33 KB a stage), and a stage is
 // released only when its last product is done: issuing the next tile's
 // products earlier held stages longer and ran slower (0.49 ms).
+// At D = 256 its times beside SDPA's and the mma.sync design's are in
+// PERF.md section 6 (kernel_ab.py), and what each part of an iteration
+// costs there (flash_bwd_probe.py).  Two lessons: a branch per element
+// around the exponentials (the mask test) serialised their latencies, so
+// the mask now goes first, as -inf, and the exponentials run straight, as
+// in the forward; and issuing the next iteration's first product before
+// waiting for the second gained nothing, so each warpgroup waits per
+// iteration.
 #include <cuda.h>  // CUtensorMap types only: nothing here links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -489,6 +511,42 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x 256) += A(64 x 16, registers) * B(16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
                                          uint64_t db);
@@ -501,6 +559,11 @@ template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db) {
   wgmma_rs_n128(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n256(d, a, db);
 }
 
 // X(64 x 64) = A(64 x D) B(64 x D)^T, both 64-row tiles of DC boxes of
@@ -538,14 +601,20 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) 
 }
 
 // A block: two consumer warpgroups (warps 0-7) and a producer warpgroup
-// (warps 8-11) whose warps 8 and 9 feed them.  Each consumer warpgroup is a
-// worker with a list of jobs of its own (see bwd_dq_dkdv_tc) and a slot of
-// shared memory: FB buffers of two fixed 64-row tiles (a dK/dV job's K and
-// V, a dQ job's Q and dO), a ring of STAGES pairs of streamed tiles (Q and
-// dO, or K and V), STAGES x 512 bytes of lse2 and D (dK/dV jobs), and
-// barriers: fixed_full[FB], fixed_empty[FB], full[STAGES], empty[STAGES].
-// With two fixed buffers (D = 64) the producer loads the next job's fixed
-// tiles while the consumer still works on the current job's.
+// (warps 8-11) whose warps 8 .. 8 + W - 1 feed them.  A worker has a list of
+// jobs of its own (see bwd_dq_dkdv_tc) and a slot of shared memory: FB
+// buffers of two fixed 64-row tiles (a dK/dV job's K and V, a dQ job's Q
+// and dO), a ring of STAGES pairs of streamed tiles (Q and dO, or K and V),
+// STAGES x 512 bytes of lse2 and D (dK/dV jobs), and barriers:
+// fixed_full[FB], fixed_empty[FB], full[STAGES], empty[STAGES].  With two
+// fixed buffers (D = 64) the producer loads the next job's fixed tiles
+// while the consumer still works on the current job's.
+// Where two slots of two stages each fit (D = 64 and 128) each consumer
+// warpgroup is a worker (W = 2).  At D = 256 a tile pair is 64 KB, so the
+// block is one worker (W = 1) served by both consumer warpgroups, and its
+// slot adds two 64 x 64 f32 exchange tiles (channel 0 written by warpgroup
+// 0, channel 1 by warpgroup 1) with barriers xfull[2], xempty[2]:
+// 64 + 2 x 64.5 + 32 KB, all of the 227 KB but the alignment slack.
 template <int D>
 struct Cfg {
   static constexpr int BOX = TILE * 128;         // one (64 x 64) bf16 box
@@ -555,25 +624,41 @@ struct Cfg {
   static constexpr int FB = D <= 64 ? 2 : 1;
   static constexpr int FIXED = 2 * TILE_BYTES;
   static constexpr int STAGE = 2 * TILE_BYTES;
-  static constexpr int STAGES_FIT = (BUDGET / 2 - FB * FIXED - 1024) / (STAGE + 512);
+  static constexpr int W = (BUDGET / 2 - FB * FIXED - 1024) / (STAGE + 512) >= 2 ? 2 : 1;
+  static constexpr int XT = TILE * TILE * 4;     // one exchange tile
+  static constexpr int XCH = W == 1 ? 2 * XT : 0;
+  static constexpr int STAGES_FIT = (BUDGET / W - FB * FIXED - XCH - 1024) / (STAGE + 512);
   static constexpr int STAGES = STAGES_FIT > 4 ? 4 : STAGES_FIT;
   static constexpr int STG = FB * FIXED;
   static constexpr int F32 = STG + STAGES * STAGE;
-  static constexpr int BAR = F32 + STAGES * 512;
-  static constexpr int SLOT = (BAR + 16 * (FB + STAGES) + 1023) / 1024 * 1024;
-  static constexpr int SMEM = 2 * SLOT + 1024;
+  static constexpr int X = F32 + STAGES * 512;
+  static constexpr int BAR = X + XCH;
+  static constexpr int NBAR = 2 * (FB + STAGES) + (W == 1 ? 4 : 0);
+  static constexpr int SLOT = (BAR + 8 * NBAR + 1023) / 1024 * 1024;
+  static constexpr int SMEM = W * SLOT + 1024;
+  static constexpr int CONSUMERS = 256 / W;      // threads that release a stage
+  // registers a thread of the producer and of the consumer warpgroups,
+  // which take all of the 168 x 384 the block launches with: one worker's
+  // producer thread needs more than 24 not to spill, and its consumers no
+  // more than 232 (128 f32 of dK or dV, 64 of S^T or dP^T and P^T)
+  static constexpr int PRODUCER_REGS = W == 1 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = W == 1 ? 232 : 240;
   static_assert(STAGES >= 2, "shared memory holds fewer than two stages");
+  static_assert(SMEM <= 232448, "the slots exceed a block's shared memory");
 };
 
 // Barrier addresses of a slot.
 template <int D>
 struct Bars {
+  using C = Cfg<D>;
   uint32_t base;
   __device__ uint32_t fixed_full(int f) const { return base + 8 * f; }
-  __device__ uint32_t fixed_empty(int f) const { return base + 8 * (Cfg<D>::FB + f); }
-  __device__ uint32_t full(int s) const { return base + 8 * (2 * Cfg<D>::FB + s); }
-  __device__ uint32_t empty(int s) const {
-    return base + 8 * (2 * Cfg<D>::FB + Cfg<D>::STAGES + s);
+  __device__ uint32_t fixed_empty(int f) const { return base + 8 * (C::FB + f); }
+  __device__ uint32_t full(int s) const { return base + 8 * (2 * C::FB + s); }
+  __device__ uint32_t empty(int s) const { return base + 8 * (2 * C::FB + C::STAGES + s); }
+  __device__ uint32_t xfull(int c) const { return base + 8 * (2 * C::FB + 2 * C::STAGES + c); }
+  __device__ uint32_t xempty(int c) const {
+    return base + 8 * (2 * C::FB + 2 * C::STAGES + 2 + c);
   }
 };
 
@@ -629,13 +714,244 @@ __device__ __forceinline__ long long item_of(int k, int w, int NW) {
   return (long long)k * NW + ((k & 1) ? NW - 1 - w : w);
 }
 
-// The backward's dQ and dK/dV jobs on wgmma.  Block x runs workers 2x and
-// 2x + 1 (its two consumer warpgroups) of NW = 2 gridDim.x.  A dK/dV job
+// A 64 x 64 f32 accumulator through an exchange tile, in fragment order:
+// thread t of a warpgroup writes its 32 values to float4s t, t + 128, ..
+// (each warp's stores one contiguous 512-byte run), and thread t of the
+// other warpgroup, which holds the same (row, column) pairs of its own
+// accumulators, reads them back.
+__device__ __forceinline__ void put_tile(float4* t, const float (&x)[32]) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    t[e * 128 + tid] = make_float4(x[4 * e], x[4 * e + 1], x[4 * e + 2], x[4 * e + 3]);
+}
+__device__ __forceinline__ void get_tile(float (&x)[32], const float4* t) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float4 v = t[e * 128 + tid];
+    x[4 * e] = v.x;
+    x[4 * e + 1] = v.y;
+    x[4 * e + 2] = v.z;
+    x[4 * e + 3] = v.w;
+  }
+}
+
+// The consumers of a one-worker block (W = 1, D = 256): warpgroups g = 0
+// and 1 take every job of the worker together, so each holds half of the
+// job's accumulators (128 f32 a thread at most) and the two trade the
+// 64 x 64 products each computes once through the exchange tiles.
+//   dK/dV: g 0 computes S^T = K Q^T, forms P^T and sends it on channel 0,
+//   then sums dV += P^T dO; g 1 computes dP^T = V dO^T, takes P^T, forms
+//   dS^T = P^T (dP^T - D) and sums dK += dS^T Q (both m64n256k16, A from
+//   registers).  S^T is computed once and the two do equal work.
+//   dQ: g 0 computes S = Q K^T and forms P, g 1 computes dP = dO V^T; each
+//   sends its tile on its own channel and takes the other's, both form the
+//   same dS = P (dP - D), and g sums columns 128 g .. 128 g + 127 of
+//   dQ += dS K (m64n128k16).
+// Each warpgroup releases a job's fixed tiles after its last product that
+// reads them, so the next job's K and V (or Q and dO) load during the last
+// iteration's second product.  Channel c's uses are counted alike by both
+// warpgroups (u0, u1): the writer of use u waits for the reader to have
+// taken use u - 1.
+template <int D>
+__device__ __forceinline__ void serve_one(
+    uint32_t slot, uint8_t* slot_ptr, const Bars<D>& bar, int w, int NW, long long n_units,
+    long long n_items, const int4* __restrict__ units, const float* __restrict__ lse2p,
+    const float* __restrict__ deltap, float* __restrict__ part, bf16* __restrict__ dq,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const Shape& s, int P, float scale,
+    Strides dqs, Strides dks, Strides dvs) {
+  using C = Cfg<D>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4;                     // this warpgroup
+  const int r0 = (warp % 4) * 16 + lane / 4;  // this thread's rows r0 and r0 + 8
+  const int c0 = (lane % 4) * 2;              // and columns c0 + 8i, c0 + 8i + 1
+  const float scale_log2 = scale * LOG2E;
+  const int Sqp = s.NQ * TILE;
+  float4* const ch0 = reinterpret_cast<float4*>(slot_ptr + C::X);  // channel 0
+  float4* const mine = ch0 + g * (C::XT / 16);          // channel g
+  float4* const theirs = ch0 + (1 - g) * (C::XT / 16);  // channel 1 - g
+  int n = 0;           // stages consumed so far
+  int u0 = 0, u1 = 0;  // uses of channels 0 and 1 so far
+  for (int k = 0;; ++k) {
+    const long long item = item_of(k, w, NW);
+    if (item >= n_items) break;
+    const Job j = job_of(item, n_units, units, s);
+    const uint32_t fa = slot, fbt = fa + C::TILE_BYTES;
+    mbar_wait(bar.fixed_full(0), k & 1);
+
+    if (j.dkdv) {
+      // ---- g 0: dV, g 1: dK of keys k_lo + r0 (+ 8) ----
+      const int k_lo = j.t * TILE;
+      int qt0, nq;
+      tile_walk(s, j.t, qt0, nq);
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int it = j.it0; it < j.it1; ++it, ++n) {
+        const int st = n % C::STAGES;
+        const int qlo = (qt0 + it % nq) * TILE;
+        const uint32_t sq = slot + C::STG + st * C::STAGE, sdo = sq + C::TILE_BYTES;
+        const float* f = reinterpret_cast<const float*>(slot_ptr + C::F32 + st * 512);
+        mbar_wait(bar.full(st), (n / C::STAGES) & 1);
+        float x[32];
+        wgmma_fence();
+        wgmma_abt<D>(x, g == 0 ? fa : fbt, g == 0 ? sq : sdo);  // S^T = K Q^T, dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(x);
+        if (it + 1 == j.it1) mbar_arrive(bar.fixed_empty(0));
+        if (g == 0) {
+          // the mask first, then the exponentials with no branch between
+          // them (a branch per element serialised their latencies)
+          if (!all_kept(qlo, k_lo, s)) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const int col = (i / 4) * 8 + c0 + (i & 1);  // query in the tile
+              x[i] = kept(qlo + col, k_lo + r0 + 8 * ((i >> 1) & 1), s) ? x[i] : -INFINITY;
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 l2 = *reinterpret_cast<const float2*>(f + jj * 8 + c0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              x[4 * jj + e] = exp2f(fmaf(x[4 * jj + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          }
+          if (u0 > 0) mbar_wait(bar.xempty(0), (u0 - 1) & 1);
+          put_tile(ch0, x);
+          mbar_arrive(bar.xfull(0));
+        } else {
+          float p[32];
+          mbar_wait(bar.xfull(0), u0 & 1);
+          get_tile(p, ch0);
+          mbar_arrive(bar.xempty(0));
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 dl = *reinterpret_cast<const float2*>(f + TILE + jj * 8 + c0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * jj + e;
+              x[i] = p[i] * (x[i] - ((e & 1) ? dl.y : dl.x));  // dS^T
+            }
+          }
+        }
+        ++u0;
+        uint32_t a[4][4];
+        to_a(a, x);
+        fence_regs(acc);
+        wgmma_fence();
+        wgmma_ab<D>(acc, a, g == 0 ? sdo : sq);  // dV += P^T dO, dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(bar.empty(st));
+      }
+      if (j.it1 <= j.it0) mbar_arrive(bar.fixed_empty(0));
+      const float mul = g == 0 ? 1.f : scale;
+      if (j.slot < 0) {
+        bf16* out = g == 0 ? dv : dk;
+        const Strides os = g == 0 ? dvs : dks;
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 2) {
+          const int key = k_lo + r0 + 8 * ((i >> 1) & 1);
+          if (key < s.Sk) {
+            const int col = (i / 4) * 8 + c0;
+            *reinterpret_cast<uint32_t*>(out + j.b * os.b + j.head * os.h + key * os.s + col) =
+                pack_bf16(acc[i] * mul, acc[i + 1] * mul);
+          }
+        }
+      } else {
+        // partials: dK's then dV's 64 x D f32 of the slot
+        const int bkv = j.b * s.KV + j.head;
+        float* pp = part + ((long long)(bkv * P + j.slot) * 2 + (g == 0)) * TILE * D;
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 2) {
+          const int e = (r0 + 8 * ((i >> 1) & 1)) * D + (i / 4) * 8 + c0;
+          *reinterpret_cast<float2*>(pp + e) = make_float2(acc[i], acc[i + 1]);
+        }
+      }
+    } else {
+      // ---- dQ of queries q_lo + r0 (+ 8), columns 128 g .. 128 g + 127 ----
+      const int q_lo = j.qi * TILE;
+      const long long prow = ((long long)j.b * s.H + j.head) * Sqp + q_lo + r0;
+      const float lse2[2] = {lse2p[prow], lse2p[prow + 8]};
+      const float dl[2] = {deltap[prow], deltap[prow + 8]};
+      float acc[D / 4];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+      for (int it = j.it0; it < j.it1; ++it, ++n) {
+        const int st = n % C::STAGES;
+        const int kv_lo = it * TILE;
+        const uint32_t sk = slot + C::STG + st * C::STAGE, sv = sk + C::TILE_BYTES;
+        mbar_wait(bar.full(st), (n / C::STAGES) & 1);
+        float x[32], y[32];
+        wgmma_fence();
+        wgmma_abt<D>(x, g == 0 ? fa : fbt, g == 0 ? sk : sv);  // S = Q K^T, dP = dO V^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(x);
+        if (it + 1 == j.it1) mbar_arrive(bar.fixed_empty(0));
+        if (g == 0) {
+          if (!all_kept(q_lo, kv_lo, s)) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const int key = kv_lo + (i / 4) * 8 + c0 + (i & 1);
+              x[i] = kept(q_lo + r0 + 8 * ((i >> 1) & 1), key, s) ? x[i] : -INFINITY;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            x[i] = exp2f(fmaf(x[i], scale_log2, -lse2[(i >> 1) & 1]));  // P
+        }
+        // send this warpgroup's tile on channel g, take the other's
+        const int um = g == 0 ? u0 : u1, ut = g == 0 ? u1 : u0;
+        if (um > 0) mbar_wait(bar.xempty(g), (um - 1) & 1);
+        put_tile(mine, x);
+        mbar_arrive(bar.xfull(g));
+        mbar_wait(bar.xfull(1 - g), ut & 1);
+        get_tile(y, theirs);
+        mbar_arrive(bar.xempty(1 - g));
+        ++u0;
+        ++u1;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float p = g == 0 ? x[i] : y[i], dp = g == 0 ? y[i] : x[i];
+          x[i] = p * (dp - dl[(i >> 1) & 1]);  // dS
+        }
+        uint32_t a[4][4];
+        to_a(a, x);
+        fence_regs(acc);
+        wgmma_fence();
+        wgmma_ab<D / 2>(acc, a, sk + g * (D / 128) * C::BOX);  // dQ += dS K, half the columns
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(bar.empty(st));
+      }
+      if (j.it1 <= j.it0) mbar_arrive(bar.fixed_empty(0));
+#pragma unroll
+      for (int i = 0; i < D / 4; i += 2) {
+        const int row = q_lo + r0 + 8 * ((i >> 1) & 1);
+        if (row < s.Sq) {
+          const int col = g * (D / 2) + (i / 4) * 8 + c0;
+          *reinterpret_cast<uint32_t*>(dq + j.b * dqs.b + j.head * dqs.h + row * dqs.s + col) =
+              pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+        }
+      }
+    }
+  }
+}
+
+// The backward's dQ and dK/dV jobs on wgmma.  Block x runs workers W x ..
+// W x + W - 1 of NW = W gridDim.x: its two consumer warpgroups at W = 2,
+// both on one worker's jobs at W = 1 (D = 256, see serve_one).  A dK/dV job
 // (unit u of U x B x KV: rank u / (B KV), batch and KV head u % (B KV))
 // keeps K and V of its 64 keys fixed and streams Q, dO, lse2 and D of each
 // (query head, query tile) iteration; a dQ job keeps Q and dO of its 64
 // queries and streams K and V of each key tile.  The stage ring runs on
-// across the worker's jobs, so the next job's first tiles load while the
+// across the worker's jobs, and the producer queues a job's first stage
+// before its fixed tiles, so the next job's first tiles load while the
 // current one finishes.
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
@@ -649,15 +965,21 @@ bwd_dq_dkdv_tc(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   if (threadIdx.x == 0) {
-    for (int sl = 0; sl < 2; ++sl) {
+    for (int sl = 0; sl < C::W; ++sl) {
       const Bars<D> bar{base + sl * C::SLOT + C::BAR};
       for (int f = 0; f < C::FB; ++f) {
         mbar_init(bar.fixed_full(f), 1);
-        mbar_init(bar.fixed_empty(f), 128);
+        mbar_init(bar.fixed_empty(f), C::CONSUMERS);
       }
       for (int st = 0; st < C::STAGES; ++st) {
         mbar_init(bar.full(st), 1);
-        mbar_init(bar.empty(st), 128);
+        mbar_init(bar.empty(st), C::CONSUMERS);
+      }
+      if constexpr (C::W == 1) {
+        for (int c = 0; c < 2; ++c) {
+          mbar_init(bar.xfull(c), 128);
+          mbar_init(bar.xempty(c), 128);
+        }
       }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -665,8 +987,8 @@ bwd_dq_dkdv_tc(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sl = warp < 8 ? warp / 4 : warp - 8;
-  const int NW = 2 * gridDim.x, w = 2 * blockIdx.x + sl;
+  const int sl = warp >= 8 ? warp - 8 : C::W == 2 ? warp / 4 : 0;
+  const int NW = C::W * gridDim.x, w = C::W * blockIdx.x + sl;
   const long long n_units = (long long)U * s.B * s.KV;
   const long long n_items = n_units + (long long)s.NQ * s.B * s.H;
   const uint32_t slot = base + sl * C::SLOT;
@@ -675,26 +997,28 @@ bwd_dq_dkdv_tc(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
 
   if (warp >= 8) {
     // ---- producer ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (sl >= 2 || lane != 0) return;
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
+    if (sl >= C::W || lane != 0) return;
     int n = 0;  // stage loads so far
     for (int k = 0;; ++k) {
       const long long item = item_of(k, w, NW);
       if (item >= n_items) break;
       const Job j = job_of(item, n_units, units, s);
       const int fb = k % C::FB;
-      if (k >= C::FB) mbar_wait(bar.fixed_empty(fb), ((k / C::FB) & 1) ^ 1);
-      const uint32_t fixed = slot + fb * C::FIXED;
       // dK/dV: K, V of the key tile; dQ: Q, dO of the query tile
-      const CUtensorMap* ma = j.dkdv ? &tmk : &tmq;
-      const CUtensorMap* mb = j.dkdv ? &tmv : &tmdo;
-      const int row = j.dkdv ? j.t * TILE : j.qi * TILE;
-      mbar_expect_tx(bar.fixed_full(fb), C::FIXED);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(fixed + c * C::BOX, ma, bar.fixed_full(fb), c * 64, row, j.head, j.b);
-        tma_load_4d(fixed + C::TILE_BYTES + c * C::BOX, mb, bar.fixed_full(fb), c * 64, row,
-                    j.head, j.b);
-      }
+      auto load_fixed = [&] {
+        if (k >= C::FB) mbar_wait(bar.fixed_empty(fb), ((k / C::FB) & 1) ^ 1);
+        const uint32_t fixed = slot + fb * C::FIXED;
+        const CUtensorMap* ma = j.dkdv ? &tmk : &tmq;
+        const CUtensorMap* mb = j.dkdv ? &tmv : &tmdo;
+        const int row = j.dkdv ? j.t * TILE : j.qi * TILE;
+        mbar_expect_tx(bar.fixed_full(fb), C::FIXED);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(fixed + c * C::BOX, ma, bar.fixed_full(fb), c * 64, row, j.head, j.b);
+          tma_load_4d(fixed + C::TILE_BYTES + c * C::BOX, mb, bar.fixed_full(fb), c * 64, row,
+                      j.head, j.b);
+        }
+      };
       int qt0 = 0, nq = 1;
       if (j.dkdv) tile_walk(s, j.t, qt0, nq);
       for (int it = j.it0; it < j.it1; ++it, ++n) {
@@ -722,165 +1046,172 @@ bwd_dq_dkdv_tc(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
                         it * TILE, kvh, j.b);
           }
         }
+        if (it == j.it0) load_fixed();
       }
+      if (j.it1 <= j.it0) load_fixed();
     }
     return;
   }
 
   // ---- consumers ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  const int r0 = (warp % 4) * 16 + lane / 4;  // this thread's rows r0 and r0 + 8
-  const int c0 = (lane % 4) * 2;              // and columns c0 + 8i, c0 + 8i + 1
-  const float scale_log2 = scale * LOG2E;
-  const uint8_t* slot_ptr = smem_raw + (slot - smem_u32(smem_raw));
-  int n = 0;  // stages consumed so far
-  for (int k = 0;; ++k) {
-    const long long item = item_of(k, w, NW);
-    if (item >= n_items) break;
-    const Job j = job_of(item, n_units, units, s);
-    const int fb = k % C::FB;
-    const uint32_t fa = slot + fb * C::FIXED, fbt = fa + C::TILE_BYTES;
-    mbar_wait(bar.fixed_full(fb), (k / C::FB) & 1);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
+  uint8_t* slot_ptr = smem_raw + (slot - smem_u32(smem_raw));
+  if constexpr (C::W == 1) {
+    serve_one<D>(slot, slot_ptr, bar, w, NW, n_units, n_items, units, lse2p, deltap, part, dq,
+                 dk, dv, s, P, scale, dqs, dks, dvs);
+  } else {
+    const int r0 = (warp % 4) * 16 + lane / 4;  // this thread's rows r0 and r0 + 8
+    const int c0 = (lane % 4) * 2;              // and columns c0 + 8i, c0 + 8i + 1
+    const float scale_log2 = scale * LOG2E;
+    int n = 0;  // stages consumed so far
+    for (int k = 0;; ++k) {
+      const long long item = item_of(k, w, NW);
+      if (item >= n_items) break;
+      const Job j = job_of(item, n_units, units, s);
+      const int fb = k % C::FB;
+      const uint32_t fa = slot + fb * C::FIXED, fbt = fa + C::TILE_BYTES;
+      mbar_wait(bar.fixed_full(fb), (k / C::FB) & 1);
 
-    if (j.dkdv) {
-      // ---- dK and dV of keys k_lo + r0 (+ 8) ----
-      const int k_lo = j.t * TILE;
-      int qt0, nq;
-      tile_walk(s, j.t, qt0, nq);
-      float adk[D / 2], adv[D / 2];
+      if (j.dkdv) {
+        // ---- dK and dV of keys k_lo + r0 (+ 8) ----
+        const int k_lo = j.t * TILE;
+        int qt0, nq;
+        tile_walk(s, j.t, qt0, nq);
+        float adk[D / 2], adv[D / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
-      for (int it = j.it0; it < j.it1; ++it, ++n) {
-        const int st = n % C::STAGES;
-        const int qlo = (qt0 + it % nq) * TILE;
-        const uint32_t sq = slot + C::STG + st * C::STAGE, sdo = sq + C::TILE_BYTES;
-        const float* f = reinterpret_cast<const float*>(slot_ptr + C::F32 + st * 512);
-        mbar_wait(bar.full(st), (n / C::STAGES) & 1);
-        float x[32], dp[32];
-        wgmma_fence();
-        wgmma_abt<D>(x, fa, sq);  // S^T = K Q^T
-        wgmma_commit();
-        wgmma_abt<D>(dp, fbt, sdo);  // dP^T = V dO^T
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_regs(x);
-        const bool mask = !all_kept(qlo, k_lo, s);
+        for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+        for (int it = j.it0; it < j.it1; ++it, ++n) {
+          const int st = n % C::STAGES;
+          const int qlo = (qt0 + it % nq) * TILE;
+          const uint32_t sq = slot + C::STG + st * C::STAGE, sdo = sq + C::TILE_BYTES;
+          const float* f = reinterpret_cast<const float*>(slot_ptr + C::F32 + st * 512);
+          mbar_wait(bar.full(st), (n / C::STAGES) & 1);
+          float x[32], dp[32];
+          wgmma_fence();
+          wgmma_abt<D>(x, fa, sq);  // S^T = K Q^T
+          wgmma_commit();
+          wgmma_abt<D>(dp, fbt, sdo);  // dP^T = V dO^T
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(x);
+          const bool mask = !all_kept(qlo, k_lo, s);
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const float2 l2 = *reinterpret_cast<const float2*>(f + jj * 8 + c0);
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 l2 = *reinterpret_cast<const float2*>(f + jj * 8 + c0);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = 4 * jj + e;
-            const int col = jj * 8 + c0 + (e & 1);  // query in the tile
-            const int key = k_lo + r0 + 8 * (e >> 1);
-            x[i] = !mask || kept(qlo + col, key, s)
-                       ? exp2f(fmaf(x[i], scale_log2, -((e & 1) ? l2.y : l2.x)))
-                       : 0.f;
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * jj + e;
+              const int col = jj * 8 + c0 + (e & 1);  // query in the tile
+              const int key = k_lo + r0 + 8 * (e >> 1);
+              x[i] = !mask || kept(qlo + col, key, s)
+                         ? exp2f(fmaf(x[i], scale_log2, -((e & 1) ? l2.y : l2.x)))
+                         : 0.f;
+            }
           }
-        }
-        uint32_t pa[4][4];
-        to_a(pa, x);
-        fence_regs(adv);
-        wgmma_fence();
-        wgmma_ab<D>(adv, pa, sdo);  // dV += P^T dO
-        wgmma_commit();
-        wgmma_wait<1>();  // dP^T is in
-        fence_regs(dp);
+          uint32_t pa[4][4];
+          to_a(pa, x);
+          fence_regs(adv);
+          wgmma_fence();
+          wgmma_ab<D>(adv, pa, sdo);  // dV += P^T dO
+          wgmma_commit();
+          wgmma_wait<1>();  // dP^T is in
+          fence_regs(dp);
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const float2 dl = *reinterpret_cast<const float2*>(f + TILE + jj * 8 + c0);
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 dl = *reinterpret_cast<const float2*>(f + TILE + jj * 8 + c0);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = 4 * jj + e;
-            dp[i] = x[i] * (dp[i] - ((e & 1) ? dl.y : dl.x));  // dS^T
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * jj + e;
+              dp[i] = x[i] * (dp[i] - ((e & 1) ? dl.y : dl.x));  // dS^T
+            }
           }
+          uint32_t dsa[4][4];
+          to_a(dsa, dp);
+          fence_regs(adk);
+          wgmma_fence();
+          wgmma_ab<D>(adk, dsa, sq);  // dK += dS^T Q
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(adk);
+          fence_regs(adv);
+          mbar_arrive(bar.empty(st));
         }
-        uint32_t dsa[4][4];
-        to_a(dsa, dp);
-        fence_regs(adk);
-        wgmma_fence();
-        wgmma_ab<D>(adk, dsa, sq);  // dK += dS^T Q
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(adk);
-        fence_regs(adv);
-        mbar_arrive(bar.empty(st));
-      }
-      mbar_arrive(bar.fixed_empty(fb));
-      if (j.slot < 0) {
+        mbar_arrive(bar.fixed_empty(fb));
+        if (j.slot < 0) {
 #pragma unroll
-        for (int i = 0; i < D / 2; i += 2) {
-          const int key = k_lo + r0 + 8 * ((i >> 1) & 1);
-          if (key < s.Sk) {
-            const int col = (i / 4) * 8 + c0;
-            *reinterpret_cast<uint32_t*>(dk + j.b * dks.b + j.head * dks.h + key * dks.s +
-                                         col) = pack_bf16(adk[i] * scale, adk[i + 1] * scale);
-            *reinterpret_cast<uint32_t*>(dv + j.b * dvs.b + j.head * dvs.h + key * dvs.s +
-                                         col) = pack_bf16(adv[i], adv[i + 1]);
+          for (int i = 0; i < D / 2; i += 2) {
+            const int key = k_lo + r0 + 8 * ((i >> 1) & 1);
+            if (key < s.Sk) {
+              const int col = (i / 4) * 8 + c0;
+              *reinterpret_cast<uint32_t*>(dk + j.b * dks.b + j.head * dks.h + key * dks.s +
+                                           col) = pack_bf16(adk[i] * scale, adk[i + 1] * scale);
+              *reinterpret_cast<uint32_t*>(dv + j.b * dvs.b + j.head * dvs.h + key * dvs.s +
+                                           col) = pack_bf16(adv[i], adv[i + 1]);
+            }
+          }
+        } else {
+          const int bkv = j.b * s.KV + j.head;
+          float* pk = part + (long long)(bkv * P + j.slot) * 2 * TILE * D;
+          float* pv = pk + TILE * D;
+#pragma unroll
+          for (int i = 0; i < D / 2; i += 2) {
+            const int e = (r0 + 8 * ((i >> 1) & 1)) * D + (i / 4) * 8 + c0;
+            *reinterpret_cast<float2*>(pk + e) = make_float2(adk[i], adk[i + 1]);
+            *reinterpret_cast<float2*>(pv + e) = make_float2(adv[i], adv[i + 1]);
           }
         }
       } else {
-        const int bkv = j.b * s.KV + j.head;
-        float* pk = part + (long long)(bkv * P + j.slot) * 2 * TILE * D;
-        float* pv = pk + TILE * D;
+        // ---- dQ of queries q_lo + r0 (+ 8) ----
+        const int q_lo = j.qi * TILE;
+        const long long prow = ((long long)j.b * s.H + j.head) * Sqp + q_lo + r0;
+        const float lse2[2] = {lse2p[prow], lse2p[prow + 8]};
+        const float dl[2] = {deltap[prow], deltap[prow + 8]};
+        float acc[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        for (int it = j.it0; it < j.it1; ++it, ++n) {
+          const int st = n % C::STAGES;
+          const int kv_lo = it * TILE;
+          const uint32_t sk = slot + C::STG + st * C::STAGE, sv = sk + C::TILE_BYTES;
+          mbar_wait(bar.full(st), (n / C::STAGES) & 1);
+          float x[32], dp[32];
+          wgmma_fence();
+          wgmma_abt<D>(x, fa, sk);  // S = Q K^T
+          wgmma_commit();
+          wgmma_abt<D>(dp, fbt, sv);  // dP = dO V^T
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(x);
+          fence_regs(dp);
+          const bool mask = !all_kept(q_lo, kv_lo, s);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1;
+            const int key = kv_lo + (i / 4) * 8 + c0 + (i & 1);
+            const float p = !mask || kept(q_lo + r0 + 8 * r, key, s)
+                                ? exp2f(fmaf(x[i], scale_log2, -lse2[r]))
+                                : 0.f;
+            x[i] = p * (dp[i] - dl[r]);  // dS
+          }
+          uint32_t a[4][4];
+          to_a(a, x);
+          fence_regs(acc);
+          wgmma_fence();
+          wgmma_ab<D>(acc, a, sk);  // dQ += dS K
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          mbar_arrive(bar.empty(st));
+        }
+        mbar_arrive(bar.fixed_empty(fb));
 #pragma unroll
         for (int i = 0; i < D / 2; i += 2) {
-          const int e = (r0 + 8 * ((i >> 1) & 1)) * D + (i / 4) * 8 + c0;
-          *reinterpret_cast<float2*>(pk + e) = make_float2(adk[i], adk[i + 1]);
-          *reinterpret_cast<float2*>(pv + e) = make_float2(adv[i], adv[i + 1]);
-        }
-      }
-    } else {
-      // ---- dQ of queries q_lo + r0 (+ 8) ----
-      const int q_lo = j.qi * TILE;
-      const long long prow = ((long long)j.b * s.H + j.head) * Sqp + q_lo + r0;
-      const float lse2[2] = {lse2p[prow], lse2p[prow + 8]};
-      const float dl[2] = {deltap[prow], deltap[prow + 8]};
-      float acc[D / 2];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-      for (int it = j.it0; it < j.it1; ++it, ++n) {
-        const int st = n % C::STAGES;
-        const int kv_lo = it * TILE;
-        const uint32_t sk = slot + C::STG + st * C::STAGE, sv = sk + C::TILE_BYTES;
-        mbar_wait(bar.full(st), (n / C::STAGES) & 1);
-        float x[32], dp[32];
-        wgmma_fence();
-        wgmma_abt<D>(x, fa, sk);  // S = Q K^T
-        wgmma_commit();
-        wgmma_abt<D>(dp, fbt, sv);  // dP = dO V^T
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(x);
-        fence_regs(dp);
-        const bool mask = !all_kept(q_lo, kv_lo, s);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int r = (i >> 1) & 1;
-          const int key = kv_lo + (i / 4) * 8 + c0 + (i & 1);
-          const float p = !mask || kept(q_lo + r0 + 8 * r, key, s)
-                              ? exp2f(fmaf(x[i], scale_log2, -lse2[r]))
-                              : 0.f;
-          x[i] = p * (dp[i] - dl[r]);  // dS
-        }
-        uint32_t a[4][4];
-        to_a(a, x);
-        fence_regs(acc);
-        wgmma_fence();
-        wgmma_ab<D>(acc, a, sk);  // dQ += dS K
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc);
-        mbar_arrive(bar.empty(st));
-      }
-      mbar_arrive(bar.fixed_empty(fb));
-#pragma unroll
-      for (int i = 0; i < D / 2; i += 2) {
-        const int row = q_lo + r0 + 8 * ((i >> 1) & 1);
-        if (row < s.Sq) {
-          const int col = (i / 4) * 8 + c0;
-          *reinterpret_cast<uint32_t*>(dq + j.b * dqs.b + j.head * dqs.h + row * dqs.s + col) =
-              pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+          const int row = q_lo + r0 + 8 * ((i >> 1) & 1);
+          if (row < s.Sq) {
+            const int col = (i / 4) * 8 + c0;
+            *reinterpret_cast<uint32_t*>(dq + j.b * dqs.b + j.head * dqs.h + row * dqs.s + col) =
+                pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+          }
         }
       }
     }
@@ -938,20 +1269,13 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D, S
 
 namespace mma {
 
-constexpr int THREADS = 128;  // four warps: the dQ kernel, dK/dV up to D = 128
+constexpr int THREADS = 128;  // four warps a block, 16 rows each
 constexpr int STEP = 16;      // keys (dq) or queries (dkdv) per inner step
 constexpr int STAGES = 2;
 
 template <int D>
 struct Smem {
-  // D = 256: dK and dV of a warp's 16 keys would take 256 f32 registers a
-  // thread, so the dK/dV block runs eight warps, four for dV and four for
-  // dK over the same 16-key rows, both streaming the one stage ring
-  static constexpr bool SPLIT = D > 128;
-  static constexpr int DKDV_THREADS = SPLIT ? 2 * THREADS : THREADS;
-  // the dQ kernel holds Q's and dO's fragments in registers up to D = 128
-  // and reads them from shared memory at every step beyond
-  static constexpr bool KEEP_QDO = D <= 128;
+  static_assert(D == 32, "the mma.sync kernels serve D = 32 alone");
   static constexpr int TILE_BYTES = TILE * D * 2;
   // dkdv: K and V, then STAGES x (Q, dO, lse2[TILE], delta[TILE])
   static constexpr int STAGE_A = 2 * TILE_BYTES + 2 * TILE * 4;
@@ -1007,27 +1331,22 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c)[2][4]) {
   a[3] = pack_bf16(c[1][2], c[1][3]);
 }
 
-// Byte offset of 16-byte chunk c of row r in a tile of rows of D bf16:
-// chunk c is stored at c ^ f(r), so that the 8 rows an ldmatrix reads at
-// one chunk column fall in 8 different 16-byte bank groups: f(r) = r % 8
-// for rows of 128 bytes or more, (r / 2) % 4 for D = 32's 64-byte rows
-// (two rows to 128 bytes).
+// Byte offset of 16-byte chunk c of row r in a tile of rows of D = 32
+// bf16: chunk c is stored at c ^ ((r / 2) % 4), so that the 8 rows an
+// ldmatrix reads at one chunk column (two 64-byte rows to 128 bytes) fall
+// in 8 different 16-byte bank groups.
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  if constexpr (D >= 64)
-    return r * (D * 2) + ((c ^ (r & 7)) << 4);
-  else
-    return r * (D * 2) + ((c ^ ((r >> 1) & 3)) << 4);
+  return r * (D * 2) + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
 // Rows [lo, lo + TILE) of a (rows x D) bf16 matrix (row stride rs
 // elements) into the swizzled tile at dst; rows at or past n are zeros.
-// NT threads share the copy.
-template <int D, int NT = THREADS>
+template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, long long rs,
                                           int lo, int n) {
   constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < TILE * CH; i += NT) {
+  for (int i = threadIdx.x; i < TILE * CH; i += THREADS) {
     const int r = i / CH, c = i % CH;
     const bool valid = lo + r < n;
     const bf16* src = base + (valid ? (long long)(lo + r) * rs : 0) + c * 8;
@@ -1079,20 +1398,15 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   cp_async_wait<1>();
   __syncthreads();
 
-  // this warp's 16 query rows of Q and dO as A fragments (held up to
-  // D = 128, read at every step beyond), and the lse (in log2 units) and D
-  // of its rows g4 and g4 + 8
+  // this warp's 16 query rows of Q and dO as A fragments, and the lse (in
+  // log2 units) and D of its rows g4 and g4 + 8
   const int qw = q_lo + warp * 16;
-  constexpr bool KEEP = S::KEEP_QDO;
-  uint32_t qa[KEEP ? D / 16 : 1][4], da[KEEP ? D / 16 : 1][4];
-  auto qdo_frag = [&](int kk, uint32_t(&fq)[4], uint32_t(&fd)[4]) {
-    const int r = warp * 16 + (mi % 2) * 8 + mr, c = 2 * kk + mi / 2;
-    ldmatrix_x4(fq, sq + swz<D>(r, c));
-    ldmatrix_x4(fd, sdo + swz<D>(r, c));
-  };
-  if constexpr (KEEP) {
+  uint32_t qa[D / 16][4], da[D / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) qdo_frag(kk, qa[kk], da[kk]);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int r = warp * 16 + (mi % 2) * 8 + mr, c = 2 * kk + mi / 2;
+    ldmatrix_x4(qa[kk], sq + swz<D>(r, c));
+    ldmatrix_x4(da[kk], sdo + swz<D>(r, c));
   }
   float lse2[2], dl[2];
   const long long row0 = ((long long)b * s.H + h) * s.NQ * TILE;
@@ -1128,20 +1442,10 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
         const int r = step * STEP + (mi / 2) * 8 + mr, c = 2 * kk + mi % 2;
         ldmatrix_x4(bk, sk + swz<D>(r, c));
         ldmatrix_x4(bv, sv + swz<D>(r, c));
-        uint32_t fq[4], fd[4];
-        if constexpr (KEEP) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            fq[e] = qa[kk][e];
-            fd[e] = da[kk][e];
-          }
-        } else {
-          qdo_frag(kk, fq, fd);
-        }
-        mma_bf16(x[0], fq, bk[0], bk[1]);
-        mma_bf16(x[1], fq, bk[2], bk[3]);
-        mma_bf16(dp[0], fd, bv[0], bv[1]);
-        mma_bf16(dp[1], fd, bv[2], bv[3]);
+        mma_bf16(x[0], qa[kk], bk[0], bk[1]);
+        mma_bf16(x[1], qa[kk], bk[2], bk[3]);
+        mma_bf16(dp[0], da[kk], bv[0], bv[1]);
+        mma_bf16(dp[1], da[kk], bv[2], bv[3]);
       }
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
@@ -1180,10 +1484,10 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 }
 
 // One 64-query iteration of a dK/dV warp over its 16 keys kw..kw+15: S^T =
-// K Q^T, P^T = exp2(S^T scale log2e - lse2), then with DV dV += P^T dO and
-// with DK dP^T = V dO^T, dS^T = P^T (dP^T - D) and dK += dS^T Q, in steps
-// of 16 queries.  f holds the iteration's lse2 and D rows.
-template <int D, bool DV, bool DK>
+// K Q^T, P^T = exp2(S^T scale log2e - lse2), dV += P^T dO, dP^T = V dO^T,
+// dS^T = P^T (dP^T - D) and dK += dS^T Q, in steps of 16 queries.  f holds
+// the iteration's lse2 and D rows.
+template <int D>
 __device__ __forceinline__ void dkdv_iter(float (&dva)[D / 8][4], float (&dka)[D / 8][4],
                                           uint32_t sk, uint32_t sv, uint32_t sq, uint32_t sdo,
                                           const float* f, int qlo, int q_end, int kw,
@@ -1210,12 +1514,10 @@ __device__ __forceinline__ void dkdv_iter(float (&dva)[D / 8][4], float (&dka)[D
       ldmatrix_x4(bq, sq + swz<D>(rb, cb));
       mma_bf16(x[0], a, bq[0], bq[1]);
       mma_bf16(x[1], a, bq[2], bq[3]);
-      if constexpr (DK) {
-        ldmatrix_x4(a, sv + swz<D>(ra, ca));
-        ldmatrix_x4(bq, sdo + swz<D>(rb, cb));
-        mma_bf16(dp[0], a, bq[0], bq[1]);
-        mma_bf16(dp[1], a, bq[2], bq[3]);
-      }
+      ldmatrix_x4(a, sv + swz<D>(ra, ca));
+      ldmatrix_x4(bq, sdo + swz<D>(rb, cb));
+      mma_bf16(dp[0], a, bq[0], bq[1]);
+      mma_bf16(dp[1], a, bq[2], bq[3]);
     }
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb)
@@ -1225,25 +1527,21 @@ __device__ __forceinline__ void dkdv_iter(float (&dva)[D / 8][4], float (&dka)[D
         const int i = qlo + xq, j = kw + g4 + 8 * (e >> 1);
         const float p = kept(i, j, s) ? exp2f(fmaf(x[nb][e], scale_log2, -f[xq])) : 0.f;
         x[nb][e] = p;
-        if constexpr (DK) dp[nb][e] = p * (dp[nb][e] - f[TILE + xq]);  // dS^T
+        dp[nb][e] = p * (dp[nb][e] - f[TILE + xq]);  // dS^T
       }
     uint32_t pa[4], dsa[4];
-    if constexpr (DV) to_a(pa, x);
-    if constexpr (DK) to_a(dsa, dp);
+    to_a(pa, x);
+    to_a(dsa, dp);
 #pragma unroll
     for (int jj = 0; jj < D / 16; ++jj) {
       uint32_t bt[4];
       const int r = step * STEP + (mi % 2) * 8 + mr, c = 2 * jj + mi / 2;
-      if constexpr (DV) {
-        ldmatrix_x4_trans(bt, sdo + swz<D>(r, c));
-        mma_bf16(dva[2 * jj], pa, bt[0], bt[1]);
-        mma_bf16(dva[2 * jj + 1], pa, bt[2], bt[3]);
-      }
-      if constexpr (DK) {
-        ldmatrix_x4_trans(bt, sq + swz<D>(r, c));
-        mma_bf16(dka[2 * jj], dsa, bt[0], bt[1]);
-        mma_bf16(dka[2 * jj + 1], dsa, bt[2], bt[3]);
-      }
+      ldmatrix_x4_trans(bt, sdo + swz<D>(r, c));
+      mma_bf16(dva[2 * jj], pa, bt[0], bt[1]);
+      mma_bf16(dva[2 * jj + 1], pa, bt[2], bt[3]);
+      ldmatrix_x4_trans(bt, sq + swz<D>(r, c));
+      mma_bf16(dka[2 * jj], dsa, bt[0], bt[1]);
+      mma_bf16(dka[2 * jj + 1], dsa, bt[2], bt[3]);
     }
   }
 }
@@ -1275,11 +1573,10 @@ __device__ __forceinline__ void store_keys(const float (&acc)[D / 8][4], float m
 // Block u (of U x B x KV): unit u / (B KV) of the schedule for batch and KV
 // head u % (B KV): dK and dV of the tile's 64 keys over the unit's
 // (query head, query tile) iterations, written as bf16 or, for a split
-// tile, as f32 partials.  Warp w % 4 takes keys 16 (w % 4)..+15; up to
-// D = 128 each warp sums both dK and dV, at D = 256 warps 0-3 sum dV and
-// warps 4-7 dK (Smem::SPLIT).
+// tile, as f32 partials.  Warp w takes keys 16 w..16 w + 15 and sums both
+// dK and dV of them.
 template <int D>
-__global__ void __launch_bounds__(Smem<D>::DKDV_THREADS)
+__global__ void __launch_bounds__(THREADS)
 bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse2p, const float* __restrict__ deltap,
@@ -1287,7 +1584,6 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              bf16* __restrict__ dk, bf16* __restrict__ dv, Shape s, int P, float scale,
              Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs) {
   using S = Smem<D>;
-  constexpr int NT = S::DKDV_THREADS;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t base = smem_u32(smem);
   const uint32_t sk = base, sv = base + S::TILE_BYTES;
@@ -1310,34 +1606,27 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int it = it0 + n;
     const int h = kvh * s.G + it / nq, qlo = (qt0 + it % nq) * TILE;
     const int off = stage_off(n % STAGES);
-    load_tile<D, NT>(base + off, q + b * qs.b + h * qs.h, qs.s, qlo, s.Sq);
-    load_tile<D, NT>(base + off + S::TILE_BYTES, dout + b * dos.b + h * dos.h, dos.s, qlo,
+    load_tile<D>(base + off, q + b * qs.b + h * qs.h, qs.s, qlo, s.Sq);
+    load_tile<D>(base + off + S::TILE_BYTES, dout + b * dos.b + h * dos.h, dos.s, qlo,
                      s.Sq);
     float* f = reinterpret_cast<float*>(smem + off + 2 * S::TILE_BYTES);
     const long long row0 = ((long long)b * s.H + h) * Sqp + qlo;
-    for (int x = threadIdx.x; x < 2 * TILE; x += NT)
+    for (int x = threadIdx.x; x < 2 * TILE; x += THREADS)
       f[x] = x < TILE ? lse2p[row0 + x] : deltap[row0 + x - TILE];
   };
 
-  load_tile<D, NT>(sk, k + b * ks.b + kvh * ks.h, ks.s, k_lo, s.Sk);
-  load_tile<D, NT>(sv, v + b * vs.b + kvh * vs.h, vs.s, k_lo, s.Sk);
+  load_tile<D>(sk, k + b * ks.b + kvh * ks.h, ks.s, k_lo, s.Sk);
+  load_tile<D>(sv, v + b * vs.b + kvh * vs.h, vs.s, k_lo, s.Sk);
   if (n_it > 0) load_it(0);
   cp_async_commit();
 
-  // dV then dK; at D = 256 a warp sums one of them, in the first array
-  float dva[D / 8][4], dka[S::SPLIT ? 1 : D / 8][4];
+  float dva[D / 8][4], dka[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dva[j][e] = 0.f;
-  if constexpr (!S::SPLIT) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dka[j][e] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) dva[j][e] = dka[j][e] = 0.f;
 
-  const int kr = (warp % 4) * 16, kw = k_lo + kr;  // this warp's 16 keys
+  const int kr = warp * 16, kw = k_lo + kr;  // this warp's 16 keys
   for (int n = 0; n < n_it; ++n) {
     if (n + 1 < n_it) load_it(n + 1);
     cp_async_commit();
@@ -1348,29 +1637,15 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int off = stage_off(n % STAGES);
     const uint32_t sq = base + off, sdo = sq + S::TILE_BYTES;
     const float* f = reinterpret_cast<const float*>(smem + off + 2 * S::TILE_BYTES);
-    if constexpr (!S::SPLIT)
-      dkdv_iter<D, true, true>(dva, dka, sk, sv, sq, sdo, f, qlo, q_end, kw, kr, s,
-                               scale_log2);
-    else if (warp < 4)
-      dkdv_iter<D, true, false>(dva, dva, sk, sv, sq, sdo, f, qlo, q_end, kw, kr, s,
-                                scale_log2);
-    else
-      dkdv_iter<D, false, true>(dva, dva, sk, sv, sq, sdo, f, qlo, q_end, kw, kr, s,
-                                scale_log2);
+    dkdv_iter<D>(dva, dka, sk, sv, sq, sdo, f, qlo, q_end, kw, kr, s, scale_log2);
     __syncthreads();  // the stage is reloaded by the next iteration
   }
   cp_async_wait<0>();
 
   float* pk = part + (long long)(bkv * P + imax(un.w, 0)) * 2 * TILE * D;
   float* pv = pk + TILE * D;
-  if constexpr (!S::SPLIT) {
-    store_keys<D>(dka, scale, un.w, pk, dk, dks, b, kvh, k_lo, kw, s);
-    store_keys<D>(dva, 1.f, un.w, pv, dv, dvs, b, kvh, k_lo, kw, s);
-  } else if (warp < 4) {
-    store_keys<D>(dva, 1.f, un.w, pv, dv, dvs, b, kvh, k_lo, kw, s);
-  } else {
-    store_keys<D>(dva, scale, un.w, pk, dk, dks, b, kvh, k_lo, kw, s);
-  }
+  store_keys<D>(dka, scale, un.w, pk, dk, dks, b, kvh, k_lo, kw, s);
+  store_keys<D>(dva, 1.f, un.w, pv, dv, dvs, b, kvh, k_lo, kw, s);
 }
 
 }  // namespace mma
@@ -1685,7 +1960,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
   plan_counts(s, U, P, M);
   const Work w = layout(work, s, U, P, M, D);
   if (work_bytes < w.bytes) return (int)cudaErrorInvalidValue;
-  constexpr bool TC = D == 64 || D == 128;
+  constexpr bool TC = D >= 64;  // D = 32: the mma.sync kernels
   static bool configured = false;
   if (!configured) {
     cudaError_t e;
@@ -1719,10 +1994,10 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
         !tc::encode(&tv, v, s.B, s.KV, s.Sk, D, vs) ||
         !tc::encode(&tdo, dout, s.B, s.H, s.Sq, D, dos))
       return (int)cudaErrorInvalidValue;
-    // one block per SM at most, each running two workers
-    const long long pairs = (units + (long long)s.NQ * s.B * s.H + 1) / 2;
+    // one block per SM at most, each running C::W workers
+    const long long per_block = (units + (long long)s.NQ * s.B * s.H + C::W - 1) / C::W;
     const int sms = device_sms();
-    const int blocks = pairs < sms ? (int)pairs : sms;
+    const int blocks = per_block < sms ? (int)per_block : sms;
     tc::bwd_dq_dkdv_tc<D><<<blocks, C::THREADS, C::SMEM, stream>>>(
         tq, tk, tv, tdo, w.lse2p, w.deltap, w.units, w.part, dq, dk, dv, s, U, P, scale, dqs,
         dks, dvs);
@@ -1731,7 +2006,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
         q, k, v, dout, w.lse2p, w.deltap, dq, s, scale, qs, ks, vs, dos, dqs);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    mma::bwd_dkdv_mma<D><<<(unsigned)units, mma::Smem<D>::DKDV_THREADS, mma::Smem<D>::DKDV,
+    mma::bwd_dkdv_mma<D><<<(unsigned)units, mma::THREADS, mma::Smem<D>::DKDV,
                            stream>>>(
         q, k, v, dout, w.lse2p, w.deltap, w.units, w.part, dk, dv, s, P, scale, qs, ks, vs,
         dos, dks, dvs);

@@ -49,9 +49,10 @@ BWD_NAME = "flash_attention_bwd"
 BWD_DTYPES = (torch.bfloat16, torch.float32)
 BWD_HEAD_DIMS = HEAD_DIMS
 # rows of the backward's query and key tiles, and the dK/dV units the
-# planner counts on at once per SM: the persistent kernel's two consumer
-# warpgroups (D = 64, 128) or two mma.sync blocks (D = 32); at D = 256 one
-# eight-warp mma.sync block of ~193 KB of shared memory fills an SM
+# planner counts on at once per SM: the persistent wgmma kernel's two
+# workers, one per consumer warpgroup (D = 64, 128), or two mma.sync blocks
+# (D = 32); at D = 256 the wgmma kernel's block is one worker, both
+# consumer warpgroups on its jobs (``bwd_slots_per_sm``)
 BWD_TILE = 64
 BWD_SLOTS_PER_SM = 2
 # shared memory of an SM that one block may take (the H100's 227 KB)
@@ -186,21 +187,43 @@ def _tile_walk(t: int, Sq: int, window: int, causal: bool) -> Tuple[int, int]:
     return qt0, ((q_end - 1) // BWD_TILE - qt0 + 1 if q_end > q_begin else 0)
 
 
-def bwd_mma_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of the ``mma.sync`` dK/dV block (the kernel's
-    ``mma::Smem<D>::DKDV``): K and V of 64 keys, then two stages of Q and
-    dO of 64 queries with their lse and D rows, all bf16 but the f32 rows."""
+def bwd_tc_stages(D: int, workers: int) -> int:
+    """Stages of the streamed tile pair that each of ``workers`` slots of
+    the persistent wgmma backward's block holds at head dim ``D`` (the
+    kernel's ``tc::Cfg<D>::STAGES``, at most four): what is left of the
+    SM's shared memory, less 1 KB of alignment slack, after the slot's
+    fixed tile pair (two buffers at D = 64), a one-worker slot's two
+    64 x 64 f32 exchange tiles and 1 KB for barriers, over a stage's
+    tile pair and 512 bytes of lse and D rows."""
     tile = BWD_TILE * D * 2
-    return 2 * tile + 2 * (2 * tile + 2 * BWD_TILE * 4)
+    fixed = (2 if D <= 64 else 1) * 2 * tile
+    xch = 2 * BWD_TILE * BWD_TILE * 4 if workers == 1 else 0
+    fit = ((SM_SMEM_BYTES - 1024) // workers - fixed - xch - 1024) // (2 * tile + 512)
+    return min(4, fit)
 
 
 def bwd_slots_per_sm(D: int) -> int:
     """The dK/dV workers the bf16 backward runs at once on an SM at head
-    dim ``D``: ``BWD_SLOTS_PER_SM``, or at D = 256, the ``mma.sync``
-    blocks whose shared memory (``bwd_mma_smem_bytes``) an SM holds: one."""
-    if D > 128:
-        return SM_SMEM_BYTES // bwd_mma_smem_bytes(D)
-    return BWD_SLOTS_PER_SM
+    dim ``D``: ``BWD_SLOTS_PER_SM`` at D = 32 (two ``mma.sync`` blocks)
+    and wherever two slots of two stages each fit (D = 64, 128), else one
+    (D = 256, ``bwd_tc_smem_bytes``)."""
+    if D == 32 or bwd_tc_stages(D, BWD_SLOTS_PER_SM) >= 2:
+        return BWD_SLOTS_PER_SM
+    return 1
+
+
+def bwd_tc_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of a block of the persistent wgmma backward at
+    head dim ``D`` (the kernel's ``tc::Cfg<D>::SMEM``): its
+    ``bwd_slots_per_sm`` slots, each the fixed pair, ``bwd_tc_stages``
+    stages, the exchange tiles of a one-worker slot and 8 bytes per
+    mbarrier, rounded up to 1 KB, then 1 KB of alignment slack."""
+    workers = bwd_slots_per_sm(D)
+    stages, tile = bwd_tc_stages(D, workers), BWD_TILE * D * 2
+    fb = 2 if D <= 64 else 1
+    xch, bars = (2 * BWD_TILE * BWD_TILE * 4, 4) if workers == 1 else (0, 0)
+    used = fb * 2 * tile + stages * (2 * tile + 512) + xch + 8 * (2 * (fb + stages) + bars)
+    return workers * (-(-used // 1024) * 1024) + 1024
 
 
 @functools.lru_cache(maxsize=256)

@@ -248,9 +248,10 @@ def test_all_reduce_count_per_layer_and_microbatch(fake_world, mesh_name, mb):
 @pytest.mark.parametrize("mesh_name", MESHES)
 def test_gemma_train_is_refused_as_on_the_card(tmp_path, mesh_name):
     """gemma-7b's train cell runs as the card now runs it: the flash
-    backward takes its head dim of 256 (the ``mma.sync`` path), so the
-    cell is ``ok`` and counts one backward call per layer and microbatch,
-    ``train_launches``' count, beside two forwards.  qwen2-7b's 28 heads
+    backward takes its head dim of 256 (the persistent ``wgmma`` kernel,
+    one worker a block), so the cell is ``ok`` and counts one backward
+    call per layer and microbatch, ``train_launches``' count, beside two
+    forwards.  qwen2-7b's 28 heads
     over 8 model ways (3.5 a rank) count: per layer one decode launch, the
     two Megatron all-reduces and the gather of q's columns, plus the
     embedding's all-reduce and the logits' all-gather."""

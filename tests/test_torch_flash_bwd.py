@@ -286,7 +286,7 @@ GPU_CASES = [
     (2, 137, 137, 12, 12, 32, 0, False),   # reranker-minilm
     (1, 77, 301, 32, 8, 128, 0, False),    # cross-attention, Sq != Sk
     (1, 1, 1, 4, 2, 64, 0, True),
-    (1, 300, 300, 16, 16, 256, 0, True),   # gemma-7b's heads: mma.sync
+    (1, 300, 300, 16, 16, 256, 0, True),   # gemma-7b's heads: one-worker wgmma
     (1, 200, 200, 4, 2, 256, 64, True),    # D = 256 under a window
 ]
 # the f32 kernels: (case, dtype)

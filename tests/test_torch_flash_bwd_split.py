@@ -163,19 +163,27 @@ def test_plan_at_the_train_shape():
 
 
 def test_plan_at_head_dim_256_counts_the_blocks_an_sm_holds():
-    """At D = 256 the dK/dV block is the eight-warp ``mma.sync`` one, whose
-    shared memory (K and V, two stages of Q, dO, lse and D rows: 197632
-    bytes) leaves no room on an SM for a second, so the plan is balanced
+    """At D = 256 the persistent wgmma kernel's block is one worker: its
+    slot (K and V, or Q and dO, of 64 rows: 64 KB; two stages of the
+    streamed pair with their lse and D rows: 2 x 64.5 KB; two 64 x 64 f32
+    exchange tiles for the two consumer warpgroups: 32 KB; ten mbarriers),
+    rounded to 1 KB, and 1 KB of alignment slack take the whole 227 KB,
+    and a block of two slots would hold no stage, so the plan is balanced
     over one worker an SM (two at the other head dims).  At gemma-7b's
     microbatch (B=2, S=2048, H = KV = 16, causal) the 32 (batch, KV head)
     pairs walk 528 iterations each over 132 workers: cap 128 (64 at two a
     SM), above every tile's walk (G = 1, at most 32 query tiles), so each
     tile is one unit and nothing splits."""
-    smem = flash_ops.bwd_mma_smem_bytes(256)
-    assert smem == 2 * 64 * 256 * 2 + 2 * (2 * 64 * 256 * 2 + 2 * 64 * 4) == 197632
-    assert 2 * smem > flash_ops.SM_SMEM_BYTES >= smem
+    tile, rows = 64 * 256 * 2, 2 * 64 * 4
+    slot = -(-(2 * tile + 2 * (2 * tile + rows) + 2 * 64 * 64 * 4 + 8 * 10) // 1024) * 1024
+    assert flash_ops.bwd_tc_smem_bytes(256) == slot + 1024 == 232448
+    assert flash_ops.bwd_tc_smem_bytes(256) <= flash_ops.SM_SMEM_BYTES < 2 * slot + 1024
+    assert flash_ops.bwd_tc_stages(256, 1) == 2 and flash_ops.bwd_tc_stages(256, 2) < 2
     assert flash_ops.bwd_slots_per_sm(256) == 1
     assert [flash_ops.bwd_slots_per_sm(D) for D in (32, 64, 128)] == [2, 2, 2]
+    # the two-worker blocks of D = 64 and 128 keep their layouts
+    assert [flash_ops.bwd_tc_stages(D, 2) for D in (64, 128)] == [4, 2]
+    assert [flash_ops.bwd_tc_smem_bytes(D) for D in (64, 128)] == [203776, 201728]
     case = (2, 2048, 2048, 16, 16, 256, 0, True)
     plan = _plan(case)
     assert sum(plan.work) == 32 * 33 // 2
@@ -185,6 +193,23 @@ def test_plan_at_head_dim_256_counts_the_blocks_an_sm_holds():
     assert plan != flash_ops.plan_bwd_units(2, 16, 1, 2048, 2048, 0, True, H100_SMS)
     # every key tile's walk (at most 32 query tiles, G = 1) fits the cap
     assert plan.partials == 0 and len(plan.units) == 32
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in CARD_CASES if c[5] == 256],
+    ids=[i for c, i in zip(CARD_CASES, CARD_IDS) if c[5] == 256])
+def test_plan_at_head_dim_256_is_the_one_worker_plan(case):
+    """Every D = 256 case of ``chip_smoke.FLASH_BWD_CASES`` (gemma-7b's
+    microbatch, a ragged S, grouped heads under a window, non-causal
+    cross-attention) is planned as the one-worker block runs it:
+    ``plan_bwd_units(..., slots=1)``, the cap the balanced share of 132
+    workers."""
+    B, Sq, Sk, H, KV, D, window, causal = case
+    plan = _plan(case)
+    one = flash_ops.plan_bwd_units(B, KV, H // KV, Sq, Sk, window, causal, H100_SMS,
+                                   slots=1)
+    assert plan == one
+    assert plan.cap == max(1, -(-B * KV * sum(plan.work) // H100_SMS))
 
 
 def test_plan_without_splits_needs_no_partials():

@@ -1,7 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` nor its root
-scripts ``chip_smoke.py``, ``kernel_ab.py``, ``wkv6_split_probe.py`` and
-``shard_probe.py``
-nor its example ``examples/train_model_torch.py`` nor the sharded tests'
+scripts ``chip_smoke.py``, ``kernel_ab.py``, ``wkv6_split_probe.py``,
+``shard_probe.py`` and ``flash_bwd_probe.py`` nor its example ``examples/train_model_torch.py`` nor the sharded tests'
 rank worker ``tests/torch_sharded_worker.py`` nor the sharded checkpoint's
 tests ``tests/test_torch_checkpoint_sharded.py`` imports JAX or anything of
 the JAX package, and its entry points run on the card unless the caller
@@ -24,7 +23,7 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "kernel_ab.py", REPO / "wkv6_split_probe.py",
-     REPO / "shard_probe.py",
+     REPO / "shard_probe.py", REPO / "flash_bwd_probe.py",
      REPO / "examples" / "train_model_torch.py",
      REPO / "tests" / "torch_sharded_worker.py",
      REPO / "tests" / "test_torch_checkpoint_sharded.py"]
@@ -64,7 +63,7 @@ def test_scan_finds_the_port():
             "reanalyze.py", "admission.py", "telemetry.py", "drift.py",
             "forecast.py", "replan.py", "accuracy.py", "metrics.py",
             "spans.py", "torch_sharded_worker.py", "shard_probe.py",
-            "test_torch_checkpoint_sharded.py"} <= names
+            "flash_bwd_probe.py", "test_torch_checkpoint_sharded.py"} <= names
 
 
 def test_scanner_sees_forbidden_imports(tmp_path):
