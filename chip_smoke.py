@@ -31,7 +31,10 @@ prints one JSON object per phase:
    versions on the card at the llama path's shapes, then the encoders'
    non-causal and head-dim-32 shapes (an f32 case also through the
    forward with its LSE, the training forward; within TOL, and each
-   output row within ROW_REL_TOL of its RMS), with times (CUDA
+   output row within ROW_REL_TOL of its RMS; the decode kernel also in
+   its LSE mode over the two halves of each cache, merged as the ranks
+   of a "seq" cache merge, against the whole call, the LSE within
+   LSE_TOL), with times (CUDA
    events, and device time through a CUDA graph), the bound of each call
    and one PyTorch library call as a yardstick, timed the same two ways;
 4. ``model_check``: full-width llama-3.1-8b (seeded random weights, in
@@ -583,19 +586,93 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
               + kc.element_size() * 2 * tokens * KV * D + 4 * B)
     b_ms, b_by = bound(4.0 * H * D * tokens, nbytes, dtype)
     kernel_graph_ms = graph_ms(torch, kernel)
+    lse = check_decode_lse(torch, ops_mod, q, kc, vc, lengths, out, ref, truth, tol)
     return {"kernel": "decode_attention", "dtype": dtype,
             "cache_dtype": cache_dtype,
             "shape": {"B": B, "H": H, "KV": KV, "D": D, "Smax": Smax, "lengths": lens},
             "max_abs_err": float(err.max()), "tol": tol,
             "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
             "ok_abs": ok_abs, "ok_rows": row_err <= ROW_REL_TOL,
-            "ok": ok_abs and row_err <= ROW_REL_TOL,
+            "ok": ok_abs and row_err <= ROW_REL_TOL and lse["ok"], "lse": lse,
             "kernel_ms": cuda_ms(torch, kernel), "kernel_graph_ms": kernel_graph_ms,
+            "lse_graph_ms": lse.pop("graph_ms"),
             "gbytes_per_s_graph": nbytes / kernel_graph_ms * 1e-6,
             "plain_ms": cuda_ms(torch, plain),
             "library_ms": cuda_ms(torch, library),
             "library_graph_ms": graph_ms(torch, library),
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+# the LSE's tolerance, in natural-log units: the kernel and the plain
+# version sum the same f32 exponentials in another order
+LSE_TOL = 1e-4
+
+
+def check_decode_lse(torch, ops_mod, q, kc, vc, lengths, out, ref, truth, tol):
+    """The decode kernel's partial-output mode, as the ranks of a "seq"
+    cache call it: the kernel with its LSE over the two halves of the
+    cache, each row at the length that falls in each half, merged as the
+    ranks merge (``sharding.merge_partials``).  The merged output is held
+    to the whole call ``out`` and to the plain version ``ref`` (TOL, and
+    ROW_REL_TOL against ``truth``), each half's LSE to the plain LSE
+    within LSE_TOL (-inf exactly where a row has no position there), the
+    whole call's LSE too, two calls bit-equal; and the graph ms of the
+    whole call in the LSE mode beside the plain mode's, timed in turns
+    (plain, LSE, LSE, plain), the mean of each mode's two."""
+    from repro_torch.distributed.sharding import merge_partials
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+
+    B, H, D = q.shape
+    KV, Smax = kc.shape[1], kc.shape[2]
+    qg, half = q.reshape(B, KV, H // KV, D), Smax // 2
+    parts = [(slice(0, half), lengths.clamp(0, half)),
+             (slice(half, Smax), (lengths - half).clamp(0, Smax - half)),
+             (slice(0, Smax), lengths)]  # the whole cache
+
+    def calls():
+        return [ops_mod.decode_attention_op(q, kc[:, :, s], vc[:, :, s], n,
+                                            return_lse=True) for s, n in parts]
+
+    got = calls()
+    again = calls()
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for x, y in zip(got, again) for a, b in zip(x, y))
+    lse_err, lse_inf_ok = 0.0, True
+    for (s, n), (_, lse) in zip(parts, got):
+        _, want = decode_attention_ref(qg, kc[:, :, s], vc[:, :, s], n, return_lse=True)
+        want = want.reshape(B, H)
+        lse_inf_ok &= bool(torch.equal(torch.isneginf(lse), torch.isneginf(want)))
+        finite = torch.isfinite(want)
+        if finite.any():
+            lse_err = max(lse_err, float((lse[finite] - want[finite]).abs().max()))
+    merged = merge_partials([got[0][0], got[1][0]], [got[0][1], got[1][1]])
+    errs = {name: (merged - other.float()).abs()
+            for name, other in (("whole", out), ("plain", ref))}
+    ok_abs = all(bool((e <= tol + tol * ref.float().abs()).all()) for e in errs.values())
+    row_err = row_rel_err(torch, merged, truth)
+    return {"halves": [half, Smax - half], "lse_max_abs_err": lse_err,
+            "lse_tol": LSE_TOL, "lse_neginf_where_empty": lse_inf_ok,
+            "merged_vs_whole_max_abs_err": float(errs["whole"].max()),
+            "merged_vs_plain_max_abs_err": float(errs["plain"].max()),
+            "merged_max_row_rel_err": row_err, "bit_equal": bit_equal,
+            "ok": (ok_abs and row_err <= ROW_REL_TOL and lse_err <= LSE_TOL
+                   and lse_inf_ok and bit_equal
+                   and bool(torch.isfinite(merged).all())),
+            **lse_mode_ms(torch, ops_mod, q, kc, vc, lengths)}
+
+
+def lse_mode_ms(torch, ops_mod, q, kc, vc, lengths) -> dict:
+    """Graph ms of one decode call in the LSE mode and in the plain mode,
+    timed in turns (plain, LSE, LSE, plain): each mode's mean, and the
+    four turns."""
+    def call(lse):
+        return lambda: ops_mod.decode_attention_op(q, kc, vc, lengths,
+                                                   return_lse=lse)
+
+    turns = [graph_ms(torch, call(lse)) for lse in (False, True, True, False)]
+    return {"graph_ms": (turns[1] + turns[2]) / 2,
+            "plain_graph_ms_in_turns": (turns[0] + turns[3]) / 2,
+            "graph_ms_turns": turns}
 
 
 # logw = -exp(N(mean, 0.5)) per decay: the model's mild decays (~-0.4 per
@@ -3337,6 +3414,10 @@ def run():
             "library_ms": row["library_ms"],
             "graph_ms": row["kernel_graph_ms"],
             "library_graph_ms": row.get("library_graph_ms"),
+            # the decode kernel's LSE mode beside its plain mode, in turns
+            **({"lse_graph_ms": row["lse_graph_ms"],
+                "lse_plain_graph_ms": row["lse"]["plain_graph_ms_in_turns"]}
+               if "lse_graph_ms" in row else {}),
             "shape": row["shape"], "dtype": row["dtype"]})
     # the attention kernels' launches on the MoE, hymba, cross-attention
     # and encoder paths (their rows' ``launches`` stay the llama engine's)

@@ -2,15 +2,17 @@
 """Serve a model sharded over several cards of one host and hold it to
 the same model served unsharded on one card.
 
-    python3 shard_probe.py [--ways 4]
+    python3 shard_probe.py [--ways 4] [--arch hymba-1.5b]
 
 Needs ``--ways`` CUDA cards, the CUDA toolkit's ``nvcc`` and this
 checkout's ``src/repro_torch``; builds the attention kernels into
 ``build/`` first.  One process per card joins an NCCL group over
 ``tcp://localhost`` and a (1, ways) mesh over (data, model).  In f32,
-then in bf16, hymba-1.5b is built at full width and depth with weights
-drawn from ``chip_smoke.SEED`` on every card alike
-(``chip_smoke.seeded_model``); rank 0 first serves
+then in bf16, ``--arch`` (hymba-1.5b by default; a dense decoder such as
+qwen2.5-3b, whose 2 KV heads do not divide into 4 ways, takes the "seq"
+cache layout: every KV head over a block of the positions) is built at
+full width and depth with weights drawn from ``chip_smoke.SEED`` on
+every card alike (``chip_smoke.seeded_model``); rank 0 first serves
 ``chip_smoke.SHARD_REQUESTS`` requests of its engine phase,
 ``chip_smoke.SHARD_NEW`` tokens each, unsharded
 (``chip_smoke._engine_serve``) and prefills the first request's prompt,
@@ -21,7 +23,9 @@ ranks agree, the prefill logits' largest error over their scale (and,
 after an f32 run, the unsharded run's against the f32 one's), each
 rank's kernel launches, wall seconds and decode step ms, and each rank's
 attention call (its KV heads, query heads with padding, and the query
-heads it owns, from ``sharding.attention_share``); then a line with the
+heads it owns, from ``sharding.attention_share``) and its cache layout
+(``sharding.kv_layout``: the KV heads and positions of its engine's
+cache); then a line with the
 seconds and ``ok``, and the card's ``nvidia-smi`` line.  It exits
 non-zero unless every rank launched the flash and decode kernels as
 often as the unsharded run, the ranks agree, and the f32 run's tokens
@@ -40,7 +44,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ARCH = "hymba-1.5b"
+ARCH = "hymba-1.5b"  # the default --arch
 # f32 first: its tokens are held; bf16's are reported (see above)
 DTYPES = ("float32", "bfloat16")
 
@@ -58,7 +62,7 @@ def _first_differences(tokens: dict, other: dict) -> dict:
                     None) for r in tokens}
 
 
-def rank_main(rank: int, ways: int, port: int, queue) -> None:
+def rank_main(rank: int, ways: int, port: int, arch: str, queue) -> None:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -79,7 +83,7 @@ def rank_main(rank: int, ways: int, port: int, queue) -> None:
                             world_size=ways, rank=rank, device_id=dev)
     try:
         mesh = make_mesh((1, ways), ("data", "model"))
-        cfg = get_config(ARCH)
+        cfg = get_config(arch)
         runs = []
         for dtype in DTYPES:
             model = cs.seeded_model(torch, np, cfg, dev, build_model,
@@ -96,12 +100,22 @@ def rank_main(rank: int, ways: int, port: int, queue) -> None:
             share = attention_share(attn["wq"], attn["wk"], cfg)
             logits = model.prefill(torch.as_tensor(prompt[None]))[0].float()
             tokens, wall, launches, steps, step_ms = serve()
+            # the engine's KV cache for one slot (none in a recurrent state)
+            cache = model.init_cache(1, 4096)
+            leaf = cache.get("k_full") if isinstance(cache, dict) else cache[0]
             run = {"dtype": dtype, "tokens": tokens, "wall_s": wall,
                    "launches": launches, "decode_steps": steps, "step_ms": step_ms,
                    "call": {"kv_heads": share.kv_heads,
                             "query_heads": share.kv_heads * share.group,
                             "own_query_heads": cfg.num_heads / ways,
-                            "runs": [n for _, n in share.runs] or None}}
+                            "runs": [n for _, n in share.runs] or None,
+                            # a dense decoder's (``DenseLM.kv_layout``); the
+                            # other families keep "heads"
+                            "kv_layout": (model.kv_layout() if hasattr(model, "kv_layout")
+                                          else "heads"),
+                            "cache_kv_heads": None if leaf is None else leaf.shape[2],
+                            "cache_positions": None if leaf is None else leaf.shape[3]}}
+            del cache, leaf
             if plain is not None:
                 (tokens_p, wall_p, launches_p, steps_p, step_ms_p), logits_p = plain
                 run["plain"] = {"tokens": tokens_p, "wall_s": wall_p,
@@ -129,6 +143,7 @@ def rank_main(rank: int, ways: int, port: int, queue) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ways", type=int, default=4, help="the cards to use")
+    ap.add_argument("--arch", default=ARCH, help="the model to serve")
     args = ap.parse_args(argv)
     import multiprocessing
 
@@ -143,7 +158,7 @@ def main(argv=None) -> int:
     queue = ctx.Queue()
     port = _free_port()
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=rank_main, args=(r, args.ways, port, queue))
+    procs = [ctx.Process(target=rank_main, args=(r, args.ways, port, args.arch, queue))
              for r in range(args.ways)]
     for p in procs:
         p.start()
@@ -173,7 +188,7 @@ def main(argv=None) -> int:
         zero = got[0][i]
         plain = zero["plain"]
         result = {
-            "probe": "shard", "arch": ARCH, "mesh": [1, args.ways],
+            "probe": "shard", "arch": args.arch, "mesh": [1, args.ways],
             "dtype": dtype, "requests": len(plain["tokens"]),
             "new_tokens": cs.SHARD_NEW,
             "tokens_equal": all(got[r][i]["tokens"] == plain["tokens"] for r in got),

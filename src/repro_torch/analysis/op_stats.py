@@ -147,8 +147,11 @@ def kernel_work(name: str, shape: dict) -> Tuple[float, float]:
         B, H, KV, D, Smax = (s[k] for k in ("B", "H", "KV", "D", "Smax"))
         # the lengths are not known on the meta device: every row its cache
         tokens = B * Smax
-        nbytes = (_itemsize(s["dtype"]) * 2 * B * H * D
-                  + _itemsize(s["cache_dtype"]) * 2 * tokens * KV * D + 4 * B)
+        e = _itemsize(s["dtype"])
+        nbytes = (e * B * H * D + _itemsize(s["cache_dtype"]) * 2 * tokens * KV * D
+                  + 4 * B)
+        # the output in q's type, or in f32 beside the f32 LSE
+        nbytes += (4 * B * H * (D + 1)) if s.get("lse") else e * B * H * D
         return 4.0 * H * D * tokens, nbytes
     B, H, S, D = (s[k] for k in ("B", "H", "S", "D"))
     if name == "wkv6_bwd":

@@ -27,10 +27,18 @@
 // whose range starts at or past len_b has no partial to write and returns.
 // A row of length 0 returns zeros.
 //
+// A sharded decode whose ranks each hold a block of a row's positions
+// merges their outputs by log-sum-exp over the model ranks, so each call
+// may also return every query's LSE: with a non-null lse pointer the merge
+// writes O in f32 (not rounded to bf16) and (M + log2 L) ln 2 from the
+// registers that hold M and L already, in the same launch (-inf for a row
+// of length 0, whose O is zeros).
+//
 // f32 q (the f32 model checks, over an f32 or bf16 cache) and bf16 q over
 // an f32 cache keep the first design (f32::), on the CUDA cores: one block
 // per (kv head, sequence), tiles widened to f32 in shared memory, all G
 // query heads sharing every tile; TF32 would miss the f32 checks' 2e-5.
+// With an lse pointer it writes O in f32 and m + ln l.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,13 +109,15 @@ struct Tile {
       3 * MAX_G;
 };
 
-// TQ: the type of q and out; TC: the type of the caches (the engine keeps
-// its cache in bf16 whatever the weights' type).
-template <typename TQ, typename TC, int D>
+// TQ: the type of q; TC: the type of the caches (the engine keeps its
+// cache in bf16 whatever the weights' type); TO: the type of out, q's, or
+// f32 where lse is given (then lse[b, kv head, g] = m + ln l, natural-log
+// units, -inf for a row of length 0).
+template <typename TQ, typename TC, typename TO, int D>
 __global__ void __launch_bounds__(NT)
 decode_fwd(const TQ* __restrict__ q, const TC* __restrict__ kc,
            const TC* __restrict__ vc, const int* __restrict__ lengths,
-           TQ* __restrict__ o, int KV, int G, int Smax, long long ksb,
+           TO* __restrict__ o, float* __restrict__ lse, int KV, int G, int Smax, long long ksb,
            long long ksh, long long kss, long long vsb, long long vsh,
            long long vss, float scale) {
   using TL = Tile<D>;
@@ -229,22 +239,26 @@ decode_fwd(const TQ* __restrict__ q, const TC* __restrict__ kc,
     if (g < G) {
       const float l = lrow[g];
       const float inv = l > 0.f ? 1.f / l : 0.f;
-      TQ* orow = o + (((long long)b * KV + kvh) * G + g) * D;
+      TO* orow = o + (((long long)b * KV + kvh) * G + g) * D;
       store_elem(orow + d0, acc[i][0] * inv);
       store_elem(orow + d0 + 1, acc[i][1] * inv);
     }
   }
+  if (lse != nullptr && tid < G) {
+    const float l = lrow[tid];
+    lse[((long long)b * KV + kvh) * G + tid] = l > 0.f ? mrow[tid] + logf(l) : -INFINITY;
+  }
 }
 
-template <typename TQ, typename TC, int D>
+template <typename TQ, typename TC, typename TO, int D>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths,
-           void* o, int B, int KV, int G, int Smax, long long ksb, long long ksh,
-           long long kss, long long vsb, long long vsh, long long vss,
-           cudaStream_t stream) {
+           void* o, float* lse, int B, int KV, int G, int Smax, long long ksb,
+           long long ksh, long long kss, long long vsb, long long vsh,
+           long long vss, cudaStream_t stream) {
   constexpr size_t smem = Tile<D>::smem_floats * sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(decode_fwd<TQ, TC, D>,
+    cudaError_t e = cudaFuncSetAttribute(decode_fwd<TQ, TC, TO, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -252,24 +266,24 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths,
   }
   const dim3 grid(KV, B);
   const float scale = 1.f / sqrtf((float)D);
-  decode_fwd<TQ, TC, D><<<grid, NT, smem, stream>>>(
+  decode_fwd<TQ, TC, TO, D><<<grid, NT, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(kc), static_cast<const TC*>(vc),
-      lengths, static_cast<TQ*>(o), KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, scale);
+      lengths, static_cast<TO*>(o), lse, KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, typename TO>
 int dispatch(const void* q, const void* kc, const void* vc, const int* lengths,
-             void* o, int B, int KV, int G, int Smax, int D, long long ksb,
+             void* o, float* lse, int B, int KV, int G, int Smax, int D, long long ksb,
              long long ksh, long long kss, long long vsb, long long vsh,
              long long vss, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<TQ, TC, 64>(q, kc, vc, lengths, o, B, KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, stream);
+      return launch<TQ, TC, TO, 64>(q, kc, vc, lengths, o, lse, B, KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, stream);
     case 128:
-      return launch<TQ, TC, 128>(q, kc, vc, lengths, o, B, KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, stream);
+      return launch<TQ, TC, TO, 128>(q, kc, vc, lengths, o, lse, B, KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, stream);
     case 256:
-      return launch<TQ, TC, 256>(q, kc, vc, lengths, o, B, KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, stream);
+      return launch<TQ, TC, TO, 256>(q, kc, vc, lengths, o, lse, B, KV, G, Smax, ksb, ksh, kss, vsb, vsh, vss, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -543,14 +557,18 @@ decode_split(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 }
 
 // Block (query head g, kv head, sequence): the log-sum-exp merge of the
-// ceil(len/chunk) partials the row has, written as D values in bf16; a row
-// of length 0 is zeros.  Warp 0 turns the partials' (m, l) into weights
-// 2^(m_p - M) / L in shared memory; then each thread sums its columns over
-// the partials, several loads in flight at a time.
+// ceil(len/chunk) partials the row has, written as D values in TO (bf16,
+// or f32 where lse is given); a row of length 0 is zeros.  Warp 0 turns
+// the partials' (m, l) into weights 2^(m_p - M) / L in shared memory, and
+// where lse is given writes (M + log2 L) ln 2 (-inf for a row of length
+// 0); then each thread sums its columns over the partials, several loads
+// in flight at a time.
+template <typename TO>
 __global__ void __launch_bounds__(THREADS)
 decode_merge(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-             const int* __restrict__ lengths, bf16* __restrict__ o, int KV, int G,
-             int D, int Smax, int chunk, int splits) {
+             const int* __restrict__ lengths, TO* __restrict__ o,
+             float* __restrict__ lse, int KV, int G, int D, int Smax, int chunk,
+             int splits) {
   extern __shared__ float wn[];  // (n,)
   const int g = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int len = min(max(lengths[b], 0), Smax);
@@ -574,21 +592,24 @@ decode_merge(const float* __restrict__ part_o, const float* __restrict__ part_ml
     for (int off = 16; off > 0; off >>= 1) ll += __shfl_xor_sync(0xffffffffu, ll, off);
     const float inv = ll > 0.f ? 1.f / ll : 0.f;
     for (int p = lane; p < n; p += 32) wn[p] *= inv;
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * KV + kvh) * G + g] =
+          ll > 0.f ? (mm + log2f(ll)) * 0.6931471805599453f : -INFINITY;
   }
   __syncthreads();
-  bf16* ob = o + (((long long)b * KV + kvh) * G + g) * D;
+  TO* ob = o + (((long long)b * KV + kvh) * G + g) * D;
   const float* po = part_o + (part0 * G + g) * D;  // partial p at po[G * D * p]
   for (int d = threadIdx.x; d < D; d += THREADS) {
     float oo = 0.f;
 #pragma unroll 8
     for (int p = 0; p < n; ++p) oo = fmaf(wn[p], po[(long long)G * D * p + d], oo);
-    ob[d] = __float2bfloat16(oo);
+    f32::store_elem(ob + d, oo);
   }
 }
 
 template <int D>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths, void* o,
-           void* scratch, int B, int KV, int G, int Smax, int chunk, int splits,
+           float* lse, void* scratch, int B, int KV, int G, int Smax, int chunk, int splits,
            long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
            long long vss, cudaStream_t stream) {
   static bool configured = false;
@@ -608,25 +629,30 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths, vo
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // one weight per split: within the default 48 KB up to 12288 splits
-  decode_merge<<<dim3(G, KV, B), THREADS, splits * sizeof(float), stream>>>(part_o, part_ml, lengths,
-                                                   static_cast<bf16*>(o), KV, G, D, Smax,
-                                                   chunk, splits);
+  const dim3 grid(G, KV, B);
+  const size_t smem = splits * sizeof(float);
+  if (lse != nullptr)
+    decode_merge<float><<<grid, THREADS, smem, stream>>>(
+        part_o, part_ml, lengths, static_cast<float*>(o), lse, KV, G, D, Smax, chunk, splits);
+  else
+    decode_merge<bf16><<<grid, THREADS, smem, stream>>>(
+        part_o, part_ml, lengths, static_cast<bf16*>(o), nullptr, KV, G, D, Smax, chunk, splits);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* kc, const void* vc, const int* lengths, void* o,
-             void* scratch, int B, int KV, int G, int Smax, int D, int chunk, int splits,
+             float* lse, void* scratch, int B, int KV, int G, int Smax, int D, int chunk, int splits,
              long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
              long long vss, cudaStream_t st) {
   if (chunk < TILE || chunk % TILE || splits < 1 || (long long)chunk * splits < Smax)
     return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch<64>(q, kc, vc, lengths, o, scratch, B, KV, G, Smax, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
+      return launch<64>(q, kc, vc, lengths, o, lse, scratch, B, KV, G, Smax, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
     case 128:
-      return launch<128>(q, kc, vc, lengths, o, scratch, B, KV, G, Smax, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
+      return launch<128>(q, kc, vc, lengths, o, lse, scratch, B, KV, G, Smax, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
     case 256:
-      return launch<256>(q, kc, vc, lengths, o, scratch, B, KV, G, Smax, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
+      return launch<256>(q, kc, vc, lengths, o, lse, scratch, B, KV, G, Smax, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -641,12 +667,13 @@ extern "C" {
 // q: contiguous (B, KV, G, D); caches: (B, KV, Smax, D) addressed through
 // element strides (batch, head, position) with a contiguous last dim;
 // lengths: (B,) int32 on the device; out: contiguous (B, KV, G, D) in q's
-// type.  q_dtype / cache_dtype: 0 = float32, 1 = bfloat16.  With both
-// bf16 the split-K kernels run: chunk and splits come from ops.py ::
-// plan_splits, and scratch holds B*KV*splits*G*(D+2) floats.
-// Returns cudaGetLastError().
+// type, or in f32 where lse is not null: then lse, contiguous (B, KV, G)
+// f32, gets each query's log-sum-exp.  q_dtype / cache_dtype: 0 = float32,
+// 1 = bfloat16.  With both bf16 the split-K kernels run: chunk and splits
+// come from ops.py :: plan_splits, and scratch holds B*KV*splits*G*(D+2)
+// floats.  Returns cudaGetLastError().
 int decode_attention_fwd(const void* q, const void* kc, const void* vc,
-                         const void* lengths, void* o, void* scratch, int B,
+                         const void* lengths, void* o, void* lse_out, void* scratch, int B,
                          int KV, int G, int Smax, int D, int q_dtype,
                          int cache_dtype, int chunk, int splits,
                          long long ksb, long long ksh, long long kss,
@@ -655,17 +682,20 @@ int decode_attention_fwd(const void* q, const void* kc, const void* vc,
   if (G < 1 || G > f32::MAX_G) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
+  float* lse = static_cast<float*>(lse_out);
   using bf16 = __nv_bfloat16;
   const int pick = q_dtype * 2 + cache_dtype;
   switch (pick) {
     case 0:
-      return f32::dispatch<float, float>(q, kc, vc, lens, o, B, KV, G, Smax, D, ksb, ksh, kss, vsb, vsh, vss, st);
+      return f32::dispatch<float, float, float>(q, kc, vc, lens, o, lse, B, KV, G, Smax, D, ksb, ksh, kss, vsb, vsh, vss, st);
     case 1:
-      return f32::dispatch<float, bf16>(q, kc, vc, lens, o, B, KV, G, Smax, D, ksb, ksh, kss, vsb, vsh, vss, st);
+      return f32::dispatch<float, bf16, float>(q, kc, vc, lens, o, lse, B, KV, G, Smax, D, ksb, ksh, kss, vsb, vsh, vss, st);
     case 2:
-      return f32::dispatch<bf16, float>(q, kc, vc, lens, o, B, KV, G, Smax, D, ksb, ksh, kss, vsb, vsh, vss, st);
+      if (lse != nullptr)
+        return f32::dispatch<bf16, float, float>(q, kc, vc, lens, o, lse, B, KV, G, Smax, D, ksb, ksh, kss, vsb, vsh, vss, st);
+      return f32::dispatch<bf16, float, bf16>(q, kc, vc, lens, o, lse, B, KV, G, Smax, D, ksb, ksh, kss, vsb, vsh, vss, st);
     case 3:
-      return tc::dispatch(q, kc, vc, lens, o, scratch, B, KV, G, Smax, D, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
+      return tc::dispatch(q, kc, vc, lens, o, lse, scratch, B, KV, G, Smax, D, chunk, splits, ksb, ksh, kss, vsb, vsh, vss, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,6 +26,11 @@ families:
 * ``attention_share``: the heads a rank's attention runs where its block
   of ``wq``'s columns cuts a head or straddles KV groups (the reference's
   even split of the query columns);
+* ``kv_layout``: the reference's rule for a decode cache over ``model``,
+  "heads" (each rank the KV heads of its call) or "seq" (every KV head
+  over a block of the positions: ``seq_shard``, ``KVCache``), and
+  ``merge_over_model``, which merges the ranks' partial attention
+  outputs of a "seq" cache by their log-sum-exp;
 * the Megatron collectives the layers call (``copy_to_model``,
   ``reduce_from_model``, ``gather_from_model``, each autograd-aware), the
   query columns' gather (``gather_heads``, whose gradient is
@@ -568,6 +573,102 @@ def gather_heads(q: torch.Tensor, tp: ModelShard) -> torch.Tensor:
     """Every rank's query columns (..., qd / W) gathered over ``model``
     into (..., qd), in rank order."""
     return _GatherHeads.apply(q, tp.group, tp.ways)
+
+
+# ---------------------------------------------------------------------------
+# The KV cache's layout over ``model``
+# ---------------------------------------------------------------------------
+
+def kv_layout(cfg, mesh) -> str:
+    """The layout of a decode cache over ``model``, by the rule of the
+    reference's dry-run (``repro.launch.dryrun``, its decode cell):
+    "heads" where the model ways divide ``num_kv_heads`` and the config
+    attends with no window (and is not attention-free), else "seq".
+    Unsharded (``mesh`` None) or over one model way, "heads": the two
+    are then the same cache.  ``mesh`` may be a mapping of axis sizes."""
+    ways = 1 if mesh is None else axis_sizes(mesh).get(MODEL, 1)
+    if ways == 1 or (cfg.num_kv_heads % ways == 0 and not cfg.attn_free
+                     and not cfg.sliding_window):
+        return "heads"
+    return "seq"
+
+
+class SeqShard(NamedTuple):
+    """A rank's block of a cache's positions under the "seq" layout: every
+    KV head at positions [rank * chunk, (rank + 1) * chunk), in rank order
+    over ``model`` (the contiguous blocks GSPMD gives a dim sharded over
+    the axis)."""
+    group: object  # the ``model`` axis's process group
+    ways: int
+    rank: int
+    chunk: int
+
+    @property
+    def start(self) -> int:
+        return self.rank * self.chunk
+
+
+def seq_shard(wq, length: int) -> Optional[SeqShard]:
+    """The block of a "seq" cache of ``length`` positions that this rank
+    holds, for a model whose query projection ``wq`` is sharded over
+    ``model``; None where ``wq`` is not, or where ``length`` does not
+    split into the model ways: the reference's ``fit_spec`` then drops
+    ``model`` from the positions, and every rank holds the whole cache."""
+    tp = model_shard(wq)
+    if tp is None or length % tp.ways:
+        return None
+    return SeqShard(tp.group, tp.ways, tp.rank, length // tp.ways)
+
+
+class KVCache(tuple):
+    """A dense decoder's cache: the pair (k, v), each (L, B, KV, positions,
+    D), which unpacks and indexes as the pair does, with ``seq``, the
+    rank's block of positions under the "seq" layout (``SeqShard``), or
+    None where the cache holds every position.  The local tensors alone
+    cannot tell a block of a longer cache from a whole short one."""
+
+    seq: Optional[SeqShard]
+
+    def __new__(cls, k: torch.Tensor, v: torch.Tensor,
+                seq: Optional[SeqShard] = None):
+        self = super().__new__(cls, (k, v))
+        self.seq = seq
+        return self
+
+    def rows(self, rows: slice) -> "KVCache":
+        """A view of rows ``rows`` of the batch (dim 1), with its ``seq``."""
+        k, v = self
+        return KVCache(k[:, rows], v[:, rows], self.seq)
+
+
+def merge_partials(outs, lses) -> torch.Tensor:
+    """The attention output over a whole cache from partial outputs over
+    disjoint blocks of it, in the order given: ``outs[i]`` (..., D) f32
+    and ``lses[i]`` (...), the log-sum-exp of each query's scaled scores
+    over block i (-inf where it has no position), merged as
+    sum_i e^(lse_i - M) out_i / sum_i e^(lse_i - M), M = max_i lse_i.  A
+    query with no position in any block gives zeros."""
+    top = torch.stack(list(lses)).amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    num, den = torch.zeros_like(outs[0]), torch.zeros_like(lses[0])
+    for out, lse in zip(outs, lses):
+        w = torch.exp(lse - top)
+        num = num + w[..., None] * out
+        den = den + w
+    return num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+
+
+def merge_over_model(out: torch.Tensor, lse: torch.Tensor,
+                     seq: SeqShard) -> torch.Tensor:
+    """``merge_partials`` of every rank's ``out`` (..., D) f32 and ``lse``
+    (...) over its block of a "seq" cache, gathered over ``model`` (one
+    all-gather of the two packed together) and merged in rank order, so
+    that every rank computes the same bits.  No gradient: the decode
+    step's alone."""
+    packed = torch.cat([out, lse[..., None]], dim=-1).contiguous()
+    parts = [torch.empty_like(packed) for _ in range(seq.ways)]
+    dist.all_gather(parts, packed, group=seq.group)
+    return merge_partials([p[..., :-1] for p in parts], [p[..., -1] for p in parts])
 
 
 # ---------------------------------------------------------------------------

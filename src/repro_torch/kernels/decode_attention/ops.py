@@ -8,6 +8,10 @@ tensor (the dry-run) takes the card's checks and allocations, with
 ``hw.H100``'s SM count for the plan, launches nothing and reports the call
 to the op counters; its lengths are not known there, so every row counts
 its whole cache of ``Smax`` positions.
+
+``return_lse`` adds each query's log-sum-exp to the result, in the same
+launches, for a caller that merges partial outputs (a sharded decode
+whose ranks hold blocks of a row's positions): the output is then f32.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ SPLIT_TILE = 64
 BLOCKS_PER_SM = 4
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 6 + [_I] * 9 + [_L] * 6 + [_P]
+_ARGTYPES = [_P] * 7 + [_I] * 9 + [_L] * 6 + [_P]
 
 
 def plan_splits(batch_heads: int, smax: int, sms: int) -> Tuple[int, int]:
@@ -45,16 +49,20 @@ def plan_splits(batch_heads: int, smax: int, sms: int) -> Tuple[int, int]:
 
 
 def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
-                        v_cache: torch.Tensor, lengths) -> torch.Tensor:
+                        v_cache: torch.Tensor, lengths, *,
+                        return_lse: bool = False):
     """One query token per sequence over its cache.
 
     q: (B, H, D); caches: (B, KV, Smax, D); lengths: an int or a scalar or
     (B,) integer tensor, the number of valid cache positions of each row
     (clamped to [0, Smax] by the kernel).  The caches may be of another
     float type than q (the engine's cache is bf16 whatever the weights').
-    Returns (B, H, D) in q's dtype; a row of length 0 is zeros.  On the
-    card it raises where an input requires grad (the kernel has no
-    backward); on the CPU the plain version is an autograd op.
+    Returns (B, H, D) in q's dtype; a row of length 0 is zeros.  With
+    ``return_lse`` returns (out (B, H, D) f32, lse (B, H) f32): lse is the
+    log-sum-exp of each query's scaled scores over its valid positions, in
+    natural-log units, -inf for a row of length 0.  On the card it raises
+    where an input requires grad (the kernel has no backward); on the CPU
+    the plain version is an autograd op.
     """
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
@@ -66,8 +74,11 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
                          f"cache{tuple(k_cache.shape)}")
     G = H // KV
     if q.device.type == "cpu":
-        return decode_attention_ref(q.reshape(B, KV, G, D), k_cache, v_cache,
-                                    lengths).reshape(B, H, D)
+        got = decode_attention_ref(q.reshape(B, KV, G, D), k_cache, v_cache,
+                                   lengths, return_lse=return_lse)
+        if return_lse:
+            return got[0].reshape(B, H, D), got[1].reshape(B, H)
+        return got.reshape(B, H, D)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     with common.card_checks(q):
@@ -89,9 +100,12 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"{NAME}: lengths must be an integer scalar or (B,)")
     lens = lens.to(device=q.device, dtype=torch.int32).reshape(-1)
     lens = lens.expand(B).contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    result = (out, lse) if return_lse else out
     if out.numel() == 0:
-        return out
+        return result
     chunk = splits = 0
     scratch = None
     if q.dtype == k_cache.dtype == torch.bfloat16:
@@ -104,16 +118,18 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "meta":
         common.count_meta_call(NAME, B=B, H=H, KV=KV, D=D, Smax=Smax,
                                dtype=str(q.dtype),
-                               cache_dtype=str(k_cache.dtype))
-        return out
+                               cache_dtype=str(k_cache.dtype),
+                               **({"lse": True} if return_lse else {}))
+        return result
     fn = common.load_function(NAME, "decode_attention_fwd", _ARGTYPES)
     strides = [t.stride(i) for t in (k_cache, v_cache) for i in (0, 1, 2)]
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             scratch.data_ptr() if scratch is not None else None, B, KV, G,
             Smax, D, common.DTYPE_CODES[q.dtype],
             common.DTYPE_CODES[k_cache.dtype], chunk, splits, *strides,
             common.current_stream(q.device))
     common.check(NAME, rc)
     common.count_launch(NAME)
-    return out
+    return result

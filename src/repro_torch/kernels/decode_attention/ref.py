@@ -7,11 +7,15 @@ import torch
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, lengths) -> torch.Tensor:
+                         v_cache: torch.Tensor, lengths, *,
+                         return_lse: bool = False):
     """q: (B, KV, G, D); caches: (B, KV, Smax, D); lengths: scalar or (B,).
 
     Position s of row b is valid when s < lengths[b].  A row with no valid
     position returns zeros.  Computed in f32; the output is in q's dtype.
+    With ``return_lse`` it returns (out in f32, lse (B, KV, G) f32): the
+    log-sum-exp of each query's scaled scores over its valid positions,
+    in natural-log units, -inf for a row with none.
     """
     B, KV, G, D = q.shape
     Smax = k_cache.shape[2]
@@ -27,12 +31,14 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     out = out / torch.where(l == 0, torch.ones_like(l), l)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
     return out.to(q.dtype)
 
 
 def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                v_cache: torch.Tensor, lengths,
-                               chunk: int) -> torch.Tensor:
+                               chunk: int, *, return_lse: bool = False):
     """The split-K kernel pair's arithmetic, step by step in f32.
 
     Same arguments and result as ``decode_attention_ref``.  Positions
@@ -40,7 +46,9 @@ def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
     (in log2 units), sum l and unnormalised output O.  The merge takes the
     ceil(len/chunk) partials of the row and returns
     sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s, M = max_s m_s; a row
-    with no partial returns zeros.  Only tests use it.
+    with no partial returns zeros.  With ``return_lse`` the merge also
+    gives (M + log2 L) ln 2, L = sum_s 2^(m_s - M) l_s, as the kernel's
+    merge writes it.  Only tests use it.
     """
     B, KV, G, D = q.shape
     Smax = k_cache.shape[2]
@@ -70,4 +78,6 @@ def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
     num = (w[..., None] * o).sum(dim=-2)
     den = (w * l).sum(dim=-1, keepdim=True)
     out = num / torch.where(den > 0, den, torch.ones_like(den))
+    if return_lse:
+        return out, ((mx + torch.log2(den)) * math.log(2.0))[..., 0]
     return out.to(q.dtype)

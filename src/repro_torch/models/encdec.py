@@ -31,6 +31,11 @@ the flash kernel (non-causal for the encoder and the cross-attention,
 Sq != Sk there); decode attends over the self cache's prefix and over all
 ``num_audio_frames`` cross entries through the decode kernel, and updates
 ``k``/``v`` in place.
+
+Sharded, every leaf keeps the "heads" layout (KV the KV heads of the
+rank's call), also where the reference lays the caches' positions over
+``model`` (its "seq" layout, which ``sharding.kv_layout`` gives
+``DenseLM``); the self and cross caches under "seq" are later work.
 """
 from __future__ import annotations
 

@@ -51,9 +51,11 @@ Deliberate divergences from the reference:
   no value, and a layer kept whole would hold its Mamba scan's f32
   intermediates through the whole backward;
 * sharded, ``w_in`` is split per half where the reference's ``fit_spec``
-  splits its 2h columns (the same bytes a rank), and the KV cache holds
-  the rank's touched KV heads where the reference may lay the sequence
-  over ``model`` (its ``"seq"`` layout).
+  splits its 2h columns (the same bytes a rank), and the KV cache keeps
+  the "heads" layout, the rank's touched KV heads, where the reference
+  lays the sequence over ``model`` (its ``"seq"`` layout, which
+  ``sharding.kv_layout`` gives ``DenseLM``; the window rings and the
+  Mamba states under "seq" are later work).
 """
 from __future__ import annotations
 

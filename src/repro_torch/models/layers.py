@@ -33,8 +33,13 @@ touches, the columns gathered over ``model`` before RoPE), ``wo`` and
 vocab-sharded
 ``embed_lookup`` zeroes the tokens outside its rows and sums, and
 ``lm_head_logits`` gathers the logits' vocabulary.  A plain weight takes
-none of these steps.  ``ATTENTION_SPECS``, ``MLP_SPECS``, ``NORM_SPEC`` and
-``VOCAB_SPEC`` are the reference's placements of these weights.
+none of these steps.  Where a dense decoder's cache lays its positions
+over ``model`` (the "seq" layout of ``sharding.kv_layout``), prefill
+keeps every KV head (``attention_block_prefill(all_kv=True)``) and
+``attention_block_decode_seq`` runs every query head over the rank's
+block of positions and merges the ranks' outputs by their log-sum-exp.
+``ATTENTION_SPECS``, ``MLP_SPECS``, ``NORM_SPEC`` and ``VOCAB_SPEC`` are
+the reference's placements of these weights.
 """
 from __future__ import annotations
 
@@ -44,11 +49,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (MODEL, HeadShare,
+from repro_torch.distributed.sharding import (MODEL, HeadShare, SeqShard,
                                              attention_share, copy_to_model,
                                              gather_from_model, gather_heads,
-                                             local, model_shard,
-                                             reduce_from_model)
+                                             local, merge_over_model,
+                                             model_shard, reduce_from_model)
 from repro_torch.kernels.decode_attention import (decode_attention_op,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_op,
@@ -270,18 +275,24 @@ def bidirectional_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
-                     plain: bool = False) -> torch.Tensor:
+                     plain: bool = False, return_lse: bool = False):
     """Single-token decode attention over a cache.
 
     q: (B, H, D); k_cache/v_cache: (B, KV, Smax, D); cache_len: scalar or
     (B,) number of valid entries.  A row with cache_len 0 returns zeros.
+    With ``return_lse``: (out (B, H, D) f32, lse (B, H) f32), the
+    kernel's partial-output mode.
     """
     if plain:
         B, H, D = q.shape
         KV = k_cache.shape[1]
-        return decode_attention_ref(q.reshape(B, KV, H // KV, D), k_cache,
-                                    v_cache, cache_len).reshape(B, H, D)
-    return decode_attention_op(q, k_cache, v_cache, cache_len)
+        got = decode_attention_ref(q.reshape(B, KV, H // KV, D), k_cache,
+                                   v_cache, cache_len, return_lse=return_lse)
+        if return_lse:
+            return got[0].reshape(B, H, D), got[1].reshape(B, H)
+        return got.reshape(B, H, D)
+    return decode_attention_op(q, k_cache, v_cache, cache_len,
+                               return_lse=return_lse)
 
 
 def full_lengths(cache: torch.Tensor) -> torch.Tensor:
@@ -380,19 +391,31 @@ def cross_kv(src: torch.Tensor, wq, wk, wv, cfg
 
 
 def attention_block_prefill(p, x: torch.Tensor, cfg, *, window: int = 0,
-                            plain: bool = False):
+                            plain: bool = False, all_kv: bool = False):
     """Returns (output (B,S,d), (k, v) for the cache, layout (B,KV,S,D)).
 
-    The block's own attention uses the unrounded k/v; the caller rounds
-    them when it stores them in the cache.
+    KV is the KV heads of the rank's call, or with ``all_kv`` every KV
+    head (the "seq" layout's cache; the KV projections are then whole on
+    every rank, and the call takes its heads of them).  The block's own
+    attention uses the unrounded k/v; the caller rounds them when it
+    stores them in the cache.
     """
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     share = attention_share(p["wq"], p["wk"], cfg)
-    q, k, v = attention_qkv(p, x, positions, cfg, share)
+    if not all_kv:
+        q, k, v = attention_qkv(p, x, positions, cfg, share)
+        kc, vc = k, v
+    else:
+        q, kc, vc = attention_qkv(p, x, positions, cfg, share._replace(
+            kv_heads=cfg.num_kv_heads, kv_cols=slice(None)))
+        D, cols = cfg.head_dim, share.kv_cols
+        heads = (slice(None) if cols.start is None
+                 else slice(cols.start // D, cols.stop // D))
+        k, v = kc[:, :, heads], vc[:, :, heads]
     out = causal_flash_attention(q, k, v, window=window, plain=plain)
     return (row_parallel(own_columns(out, share), p["wo"]),
-            (k.transpose(1, 2), v.transpose(1, 2)))
+            (kc.transpose(1, 2), vc.transpose(1, 2)))
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
@@ -437,6 +460,47 @@ def attention_block_decode(p, x: torch.Tensor, kv_cache, pos, cfg, *,
     cache_len = torch.where(active, (pos + 1).clamp(max=Smax), 0)
     out = decode_attention(q[:, 0], k_cache, v_cache, cache_len, plain=plain)
     return row_parallel(own_columns(out, share), p["wo"]), (k_cache, v_cache)
+
+
+def attention_block_decode_seq(p, x: torch.Tensor, kv_cache, pos, cfg,
+                               seq: Optional[SeqShard], *,
+                               plain: bool = False):
+    """``attention_block_decode`` over a cache of the "seq" layout
+    (``sharding.kv_layout``): every KV head, at the rank's block ``seq``
+    of the positions, or at all of them where ``seq`` is None (the cache's
+    length does not split into the model ways).
+
+    q is gathered over ``model``, so that the rank runs every query head,
+    and k, v are computed for every KV head (the KV projections are whole
+    on every rank).  Only the rank whose block holds ``pos`` writes them,
+    at ``pos - seq.start``; a row with ``pos < 0`` is idle and writes
+    nothing anywhere.  The kernel attends over the rank's block, row b
+    over ``clamp(pos_b + 1 - seq.start, 0, seq.chunk)`` entries, and
+    returns its f32 output with the LSE, which ``merge_over_model``
+    merges over ``model``; over a whole cache the call is the output.
+    The rank's own query columns then enter ``wo``'s rows."""
+    B = x.shape[0]
+    k_cache, v_cache = kv_cache
+    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = model_shard(p["wq"])
+    block = H * D // tp.ways
+    every = HeadShare(KV, slice(None), True, H // KV, tp,
+                      cols=slice(tp.rank * block, (tp.rank + 1) * block))
+    q, k, v = attention_qkv(p, x[:, None, :], pos[:, None], cfg, every)
+    start, held = (0, k_cache.shape[2]) if seq is None else (seq.start, seq.chunk)
+    at = pos - start
+    mine = (pos >= 0) & (at >= 0) & (at < held)
+    write_kv(k_cache, k.transpose(1, 2), torch.where(mine, at, -1))
+    write_kv(v_cache, v.transpose(1, 2), torch.where(mine, at, -1))
+    cache_len = torch.where(pos >= 0, (at + 1).clamp(0, held), 0)
+    if seq is None:
+        out = decode_attention(q[:, 0], k_cache, v_cache, cache_len, plain=plain)
+    else:
+        out, lse = decode_attention(q[:, 0], k_cache, v_cache, cache_len,
+                                    plain=plain, return_lse=True)
+        out = merge_over_model(out, lse, seq).to(x.dtype)
+    return row_parallel(own_columns(out, every), p["wo"]), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,19 @@ in the same ``(d_in, d_out)`` layout, one :class:`DecoderLayer` per layer
 granite-moe) gives each layer the routed experts of ``models/moe.py`` in
 place of the dense MLP.  It serves:
 
-    prefill(tokens[, lengths])         -> (last logits, (k, v))
+    prefill(tokens[, lengths][, max_len]) -> (last logits, (k, v))
     decode_step(cache, tokens, pos)    -> (logits, cache)
     init_cache(batch, max_len)         -> (k, v), each (L, B, KV, Smax, D) bf16
 
 The KV cache is bf16 whatever the weights' dtype, as in the reference.
-``decode_step`` updates the cache in place and returns it.  It trains
+``decode_step`` updates the cache in place and returns it.  Sharded, the
+cache takes the reference's layout over ``model``
+(``sharding.kv_layout``): "heads", KV the KV heads of the rank's
+attention call, or "seq" where the KV heads do not divide into the model
+ways (qwen2.5-3b, qwen2-7b and glm4-9b at 8): every KV head over the
+rank's block of Smax / W positions (``sharding.KVCache``, ``seq_shard``;
+all Smax where W does not divide it), decoded by
+``layers.attention_block_decode_seq``.  It trains
 through
 
     forward_loss(tokens, labels)       -> mean cross entropy (f32)
@@ -44,9 +51,11 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import model_device
-from repro_torch.distributed.sharding import attention_share
+from repro_torch.distributed.sharding import (KVCache, attention_share,
+                                             kv_layout, model_mesh, seq_shard)
 from repro_torch.models.layers import (ATTENTION_SPECS, MLP_SPECS, NORM_SPEC,
                                        VOCAB_SPEC, attention_block_decode,
+                                       attention_block_decode_seq,
                                        attention_block_prefill, attention_qkv,
                                        bidirectional_attention, embed_lookup,
                                        mlp_block, model_logits, model_loss,
@@ -172,16 +181,25 @@ class DecoderLayer(_Block):
         which ``nn.Module`` keeps for the train/eval switch.)"""
         return self.prefill(x, cfg, plain)[0]
 
-    def prefill(self, x, cfg, plain):
+    def prefill(self, x, cfg, plain, all_kv=False):
         h, kv = attention_block_prefill(
-            self.attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg, plain=plain)
+            self.attn, rms_norm(x, self.ln1, cfg.norm_eps), cfg, plain=plain,
+            all_kv=all_kv)
         x = x + h
         return x + self._ffn(x, cfg), kv
 
-    def decode(self, x, kv, pos, cfg, plain):
-        h, kv = attention_block_decode(
-            self.attn, rms_norm(x, self.ln1, cfg.norm_eps), kv, pos, cfg,
-            plain=plain)
+    def decode(self, x, kv, pos, cfg, plain, layout="heads", seq=None):
+        """One token per row over the layer's cache ``kv`` of ``layout``;
+        under "seq", at the rank's block ``seq`` (a ``SeqShard``) of the
+        positions, or all of them (None)."""
+        if layout == "heads":
+            h, kv = attention_block_decode(
+                self.attn, rms_norm(x, self.ln1, cfg.norm_eps), kv, pos, cfg,
+                plain=plain)
+        else:
+            h, kv = attention_block_decode_seq(
+                self.attn, rms_norm(x, self.ln1, cfg.norm_eps), kv, pos, cfg,
+                seq, plain=plain)
         x = x + h
         return x + self._ffn(x, cfg), kv
 
@@ -233,16 +251,34 @@ class DenseLM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def kv_layout(self) -> str:
+        """The cache's layout over ``model``: ``sharding.kv_layout`` of the
+        config at the mesh the weights are sharded on ("heads" unsharded)."""
+        return kv_layout(self.cfg, model_mesh(self))
+
     @torch.no_grad()
-    def prefill(self, tokens, lengths: Optional[torch.Tensor] = None):
+    def prefill(self, tokens, lengths: Optional[torch.Tensor] = None, *,
+                max_len: Optional[int] = None):
         """tokens: (B, S).  Returns the logits (B, vocab) of the last token
         (of token ``lengths[b]-1`` when given) and the prompt's KV, each
-        (L, B, KV, S, D) in the weights' dtype."""
+        (L, B, KV, S, D) in the weights' dtype.  Under the "seq" layout KV
+        is every KV head, and with ``max_len`` (the positions of the cache
+        it goes to) each rank returns its block of them that the prompt
+        fills: positions [r c, (r + 1) c) of S, c = max_len / W (all S
+        where W does not divide max_len), an empty block past the
+        prompt."""
         tokens = self._tokens(tokens)
         x = self._embed_in(tokens)
+        seq_layout = self.kv_layout() == "seq"
+        seq = (seq_shard(self.layers[0].attn["wq"], max_len)
+               if seq_layout and max_len is not None else None)
         ks, vs = [], []
         for layer in self.layers:
-            x, (k, v) = layer.prefill(x, self.cfg, self.plain_kernels)
+            x, (k, v) = layer.prefill(x, self.cfg, self.plain_kernels,
+                                      all_kv=seq_layout)
+            if seq is not None:  # a copy: the whole prompt's KV goes now
+                k = k[:, :, seq.start:seq.start + seq.chunk].contiguous()
+                v = v[:, :, seq.start:seq.start + seq.chunk].contiguous()
             ks.append(k)
             vs.append(v)
         if lengths is None:
@@ -254,16 +290,23 @@ class DenseLM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
-        """One token per row.  cache: (k, v), each (L, B, KV, Smax, D);
-        tokens: (B,); pos: scalar or (B,) positions, negative for an idle
-        row (no KV write, output discarded).  Updates ``cache`` in place and
-        returns (logits (B, vocab) f32, cache)."""
+        """One token per row.  cache: (k, v), each (L, B, KV, Smax, D), or
+        under the "seq" layout the ``KVCache`` of ``init_cache`` (or a view
+        of its rows); tokens: (B,); pos: scalar or (B,) positions, negative
+        for an idle row (no KV write, output discarded).  Updates ``cache``
+        in place and returns (logits (B, vocab) f32, cache)."""
         x = self._embed_in(self._tokens(tokens))
         pos = torch.as_tensor(pos, device=self.device)
+        layout = self.kv_layout()
+        if layout == "seq" and not isinstance(cache, KVCache):
+            raise ValueError(f"{self.cfg.name}: a cache of the \"seq\" layout "
+                             "is the KVCache of init_cache, which says the "
+                             "rank's block of positions")
+        seq = cache.seq if layout == "seq" else None
         k_all, v_all = cache
         for i, layer in enumerate(self.layers):
             x, _ = layer.decode(x, (k_all[i], v_all[i]), pos, self.cfg,
-                                self.plain_kernels)
+                                self.plain_kernels, layout, seq)
         return model_logits(self, x), cache
 
     def forward_loss(self, tokens, labels) -> torch.Tensor:
@@ -278,16 +321,26 @@ class DenseLM(nn.Module):
             x = remat(layer, x, self.cfg, self.plain_kernels)
         return model_loss(self, x, self._tokens(labels))
 
-    def init_cache(self, batch: int, max_len: int):
-        """(k, v), each (L, batch, KV, max_len, D) bf16 zeros; KV is the KV
-        heads of this rank's attention call in a sharded model
-        (``attention_share``; the reference's "heads" layout)."""
+    def init_cache(self, batch: int, max_len: int) -> KVCache:
+        """(k, v), each (L, batch, KV, positions, D) bf16 zeros, as a
+        ``KVCache``.  Under the "heads" layout (unsharded included) KV is
+        the KV heads of this rank's attention call (``attention_share``)
+        and positions max_len; under "seq" KV is every KV head and
+        positions the rank's block of max_len / W (``seq``), or all
+        max_len where the model ways W do not divide it."""
         cfg = self.cfg
         attn = self.layers[0].attn
-        kv_heads = attention_share(attn["wq"], attn["wk"], cfg).kv_heads
-        shape = (cfg.num_layers, batch, kv_heads, max_len, cfg.head_dim)
-        return (torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
-                torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE))
+        seq = None
+        if self.kv_layout() == "heads":
+            kv_heads = attention_share(attn["wq"], attn["wk"], cfg).kv_heads
+        else:
+            kv_heads = cfg.num_kv_heads
+            seq = seq_shard(attn["wq"], max_len)
+        positions = max_len if seq is None else seq.chunk
+        shape = (cfg.num_layers, batch, kv_heads, positions, cfg.head_dim)
+        return KVCache(torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
+                       torch.zeros(shape, device=self.device, dtype=CACHE_DTYPE),
+                       seq)
 
 
 class EncoderLayer(_Block):

@@ -30,6 +30,11 @@ rope; prefill attends over them through the flash kernel's non-causal mode
 (Sq != Sk) and decode through the decode kernel over all
 ``num_image_tokens`` entries.  ``decode_step`` updates ``k``/``v`` in
 place.
+
+Sharded, every leaf keeps the "heads" layout (KV the KV heads of the
+rank's call), also where the reference lays the self cache's positions
+over ``model`` (its "seq" layout, which ``sharding.kv_layout`` gives
+``DenseLM``); the self and cross caches under "seq" are later work.
 """
 from __future__ import annotations
 

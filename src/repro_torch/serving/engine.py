@@ -19,12 +19,18 @@ inputs, which the reference's engine does not pass either):
     continuous batching);
   * greedy sampling; requests complete when their token budget is spent.
 
-The cache tensors are updated in place.  One deliberate divergence from
-the reference: the reference decodes idle slots too, as token 0 at
-position 0, and so overwrites position 0 of every idle slot's KV, which
-the prefix cache may still point at for a finished sequence.  Here an
-idle slot decodes at position -1, which writes no KV and attends over
-nothing; its logits are thrown away as in the reference.  An idle slot
+The cache tensors are updated in place.  A sharded dense decoder whose
+cache lays its positions over ``model`` (the "seq" layout) writes only
+this rank's block of the slot's positions (``SlotKVCache.write_prefill``
+of the prompt's KV), copies only the block's part of a cached prefix,
+and decodes through the model's ``KVCache``, which carries the block.
+
+One deliberate divergence from the reference: the reference decodes
+idle slots too, as token 0 at position 0, and so overwrites position 0
+of every idle slot's KV, which the prefix cache may still point at for a
+finished sequence.  Here an idle slot decodes at position -1, which
+writes no KV and attends over nothing; its logits are thrown away as in
+the reference.  An idle slot
 of a recurrent state is decoded as in the reference (token 0; the model
 ignores positions), which changes that slot's state, but admission
 overwrites all of it.  The same holds for hymba's Mamba states: an idle
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import KVCache
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import EncoderLM
 from repro_torch.models.vision import VisionLM
@@ -84,7 +91,8 @@ class ServingEngine:
         # state or hymba's cache (a dict of (L, slots, ...) leaves) has no
         # prefix to copy
         if isinstance(cache, tuple):
-            self.kv = SlotKVCache(k=cache[0], v=cache[1], lengths=self.lengths)
+            self.kv = SlotKVCache(k=cache[0], v=cache[1], lengths=self.lengths,
+                                  seq=getattr(cache, "seq", None))
             self.state = None
         else:
             self.kv, self.state = None, cache
@@ -102,9 +110,10 @@ class ServingEngine:
 
     @property
     def cache(self):
-        """(k, v), each (L, slots, KV, max_len, D), or the dict of
-        (L, slots, ...) leaves of a recurrent state or hymba's cache."""
-        return (self.kv.k, self.kv.v) if self.state is None else self.state
+        """The ``KVCache`` (k, v), each (L, slots, KV, positions, D), or the
+        dict of (L, slots, ...) leaves of a recurrent state or hymba's
+        cache."""
+        return self.kv.cache if self.state is None else self.state
 
     def submit(self, req: ServeRequest) -> None:
         self.waiting.append(req)
@@ -154,8 +163,11 @@ class ServingEngine:
                 prompt = torch.as_tensor(np.asarray(req.prompt),
                                          device=self.device)[None]
                 logits, cache = self.model.prefill(prompt)
+                if self.kv is not None:
+                    self.kv.write_prefill(slot, cache[0][:, 0], cache[1][:, 0], plen)
+                else:
+                    _merge_slot(self.state, cache, slot)
                 self.stats["prefill_tokens"] += plen
-                _merge_slot(self.cache, cache, slot)
                 first_tok = int(torch.argmax(logits[0]))
             self.lengths[slot] = plen
             if self.prefix_cache is not None:
@@ -173,7 +185,7 @@ class ServingEngine:
         suffix's KV straight into the slot (the reference copies the slot
         out and back)."""
         self.kv.copy_prefix(src, slot, matched)
-        view = (self.kv.k[:, slot:slot + 1], self.kv.v[:, slot:slot + 1])
+        view = self.kv.cache.rows(slice(slot, slot + 1))
         logits = None
         for pos in range(matched, len(tokens)):
             logits, _ = self.model.decode_step(view, [tokens[pos]], [pos])
@@ -222,9 +234,14 @@ def _merge_slot(cache, prefill_cache, slot: int) -> None:
     its window ring once the prompt fills it (the prefill placed position
     p at p % W).  A shorter leaf is a KV of (L, 1, KV, S, D): it fills
     positions 0..S-1 (ring indices, for a ring of S < W) and the rest of
-    the slot is zeroed, as the reference's padded update leaves it."""
+    the slot is zeroed, as the reference's padded update leaves it.  Into
+    a ``KVCache`` that holds a block of the positions (the "seq" layout),
+    the prompt's KV of every position gives the block's part."""
     if isinstance(cache, dict):
         pairs = [(big, prefill_cache[name]) for name, big in cache.items()]
+    elif isinstance(cache, KVCache) and cache.seq is not None:
+        block = slice(cache.seq.start, cache.seq.start + cache.seq.chunk)
+        pairs = [(big, small[:, :, :, block]) for big, small in zip(cache, prefill_cache)]
     else:
         pairs = zip(cache, prefill_cache)
     for big, small in pairs:

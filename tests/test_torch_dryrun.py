@@ -252,9 +252,11 @@ def test_gemma_train_is_refused_as_on_the_card(tmp_path, mesh_name):
     one worker a block), so the cell is ``ok`` and counts one backward
     call per layer and microbatch, ``train_launches``' count, beside two
     forwards.  qwen2-7b's 28 heads
-    over 8 model ways (3.5 a rank) count: per layer one decode launch, the
-    two Megatron all-reduces and the gather of q's columns, plus the
-    embedding's all-reduce and the logits' all-gather."""
+    over 8 model ways (3.5 a rank), whose 4 KV heads lay the decode cache's
+    positions over ``model`` (the "seq" layout), count: per layer one
+    decode launch, the two Megatron all-reduces, the gather of q's columns
+    and the all-gather of the ranks' partial outputs, plus the embedding's
+    all-reduce and the logits' all-gather."""
     rec = dryrun.run_cell("gemma-7b", "train_4k", mesh_name, tmp_path)
     assert rec["status"] == "ok", rec.get("reason") or rec.get("error")
     want = train_launches(get_config("gemma-7b"), rec["microbatches"])
@@ -265,7 +267,7 @@ def test_gemma_train_is_refused_as_on_the_card(tmp_path, mesh_name):
     assert rec["status"] == "ok", rec.get("error")
     L = get_config("qwen2-7b").num_layers
     coll = rec["op_stats"]["collectives"]
-    assert coll["all-gather"]["count"] == L + 1
+    assert coll["all-gather"]["count"] == 2 * L + 1
     assert coll["all-reduce"]["count"] == 2 * L + 1
     assert "reduce-scatter" not in coll
     assert rec["op_stats"]["kernels"]["decode_attention"]["calls"] == L

@@ -392,8 +392,14 @@ def test_sharded_prefill_and_decode_match_unsharded(runs, key):
     cfg, (_, ways) = case["cfg"], case["mesh"]
     for r in ranks:
         _close(r["serve_logits"], plain["serve_logits"], SERVE_TOL, "logits")
-        kv = cfg.num_kv_heads // ways if cfg.num_kv_heads % ways == 0 else 1
-        assert r["cache_heads"] == kv
+        if sharding.kv_layout(cfg, {"model": ways}) == "seq":
+            # every KV head over the rank's block of the positions
+            want = list(plain["cache_shapes"]["k"])
+            want[3] //= ways
+            assert r["cache_shapes"]["k"] == tuple(want)
+        else:
+            kv = cfg.num_kv_heads // ways if cfg.num_kv_heads % ways == 0 else 1
+            assert r["cache_heads"] == kv
         assert r["kernel_input_types"] == ["Tensor"]
 
 

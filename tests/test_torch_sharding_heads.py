@@ -227,10 +227,13 @@ def _call_kv_heads(cfg, ways, rank):
 def test_sharded_prefill_and_decode_match_unsharded(runs, key):
     """Prefill logits within SERVE_TOL of their scale and decode steps'
     within TOL (the bf16 cache may round an entry the other way); each
-    rank's cache holds the KV heads of its call and, in hymba, its h / W
+    rank's cache holds the KV heads of its call (the dense config at
+    (1, 4), whose 2 KV heads do not divide into 4 ways, every KV head over
+    its block of the positions: the "seq" layout) and, in hymba, its h / W
     Mamba channels; only plain tensors reach the kernel wrappers."""
     ranks, plain, case = runs[key]
     cfg, (_, ways) = case["cfg"], case["mesh"]
+    seq = cfg.family == "dense" and sharding.kv_layout(cfg, {"model": ways}) == "seq"
     for rank, r in enumerate(ranks):
         _close(r["serve_logits"][0], plain["serve_logits"][0], SERVE_TOL, "prefill")
         _close(r["serve_logits"][1:], plain["serve_logits"][1:], TOL, "decode")
@@ -240,6 +243,8 @@ def test_sharded_prefill_and_decode_match_unsharded(runs, key):
             want = list(shape)
             if name in ("conv", "ssm"):
                 want[2] = shape[2] // ways
+            elif seq:
+                want[3] = shape[3] // ways
             else:
                 want[2] = heads
             assert r["cache_shapes"][name] == tuple(want), (rank, name)

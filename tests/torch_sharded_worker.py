@@ -20,7 +20,8 @@ results for an unsharded model when it is given no mesh.  A weight comes
 back at its unsharded shape (a paired-halves weight's (d, 2, h) view as
 its (d, 2h)).  A case with ``ckpt`` runs ``checkpoint_case`` instead:
 train steps that save a checkpoint, a resume from it and a restore of
-another run's.
+another run's; a case with ``serve`` runs ``serve_case``: the serving
+half alone, at the case's own cache and engine lengths.
 """
 from __future__ import annotations
 
@@ -159,6 +160,40 @@ def run_case(case, mesh=None) -> dict:
     return out
 
 
+def serve_case(case, mesh=None) -> dict:
+    """A prefill of the prompts, decode steps over a cache of
+    ``serve["cache_len"]`` positions (``decode_pos``: each step's position
+    per row, negative for an idle row), the cache's shapes and its block
+    of positions, and the engine's tokens and cached prefix lengths over
+    ``serve["slots"]`` slots of ``serve["max_len"]`` positions, on
+    ``mesh`` or unsharded."""
+    from repro_torch.serving.engine import ServeRequest, ServingEngine, _merge_slot
+
+    serve = case["serve"]
+    model = _model(case, mesh)
+    prompts = torch.as_tensor(case["prompts"])
+    logits, small = model.prefill(prompts)
+    cache = model.init_cache(prompts.shape[0], serve["cache_len"])
+    for b in range(prompts.shape[0]):
+        _merge_slot(cache, _rows(small, b), b)
+    seq = [logits]
+    for tokens, pos in zip(case["decode"], serve["decode_pos"]):
+        logits, cache = model.decode_step(cache, tokens, pos)
+        seq.append(logits)
+    block = getattr(cache, "seq", None)
+    out = {"serve_logits": torch.stack(seq).float().numpy(),
+           "cache_shapes": {name: tuple(leaf.shape) for name, leaf in _leaves(cache)},
+           "block": None if block is None else (block.start, block.chunk)}
+    engine = ServingEngine(model, device="cpu", slots=serve["slots"],
+                           max_len=serve["max_len"])
+    for i, prompt in enumerate(case["requests"]):
+        engine.submit(ServeRequest(i, prompt, max_new_tokens=MAX_NEW))
+    done = engine.run_to_completion()
+    out["tokens"] = {r.req_id: list(r.generated) for r in done}
+    out["cached_tokens"] = {r.req_id: r.cached_tokens for r in done}
+    return out
+
+
 CKPT_AT = 2  # the step after which a checkpoint case saves
 
 
@@ -287,6 +322,10 @@ def rank_main(rank: int, world: int, store_path: str, cases, queue) -> None:
             mesh = make_mesh(case["mesh"], axes, device_type="cpu")
             if "ckpt" in case:
                 results[case["key"]] = checkpoint_case(case, mesh)
+                continue
+            if "serve" in case:
+                results[case["key"]] = serve_case(case, mesh)
+                results[case["key"]]["kernel_input_types"] = sorted(seen)
                 continue
             results[case["key"]] = run_case(case, mesh)
             results[case["key"]]["kernel_input_types"] = sorted(seen)
