@@ -66,7 +66,10 @@ prints one JSON object per phase:
 8. with the MoE models freed, ``kernel_checks`` of the attention kernels at
    hymba-1.5b's heads (H = 25, KV = 5, D = 64: flash at window 1024 over
    S = 2048 and S = 1500, at window 0, and in f32; decode over a
-   1024-entry ring and a 4096-entry cache), then ``model_check`` for
+   1024-entry ring and a 4096-entry cache, and the ring's 8 blocks of 128
+   indices, as 8 model ways hold it under the "seq" layout, each called in
+   the LSE mode at its part of every row's valid prefix and merged
+   against the whole call), then ``model_check`` for
    hymba-1.5b at full width and depth over a 1500-token prompt (past the
    window and not a multiple of it, so the decode steps write into a
    wrapped ring) and its ``engine`` run: the rwkv traffic, no prefix reuse,
@@ -539,7 +542,10 @@ def check_flash(torch, F, ops_mod, dev, gen, B, S, H, KV, D, window, dtype,
 
 
 def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
-                 cache_dtype=None):
+                 cache_dtype=None, blocks=None):
+    """The decode kernel against its plain version at one shape, and its
+    LSE mode (``check_decode_lse``) over the cache's halves and, with
+    ``blocks``, over that many equal blocks of it."""
     from repro_torch.kernels.decode_attention import decode_attention_ref
 
     cache_dtype = cache_dtype or dtype
@@ -586,7 +592,8 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
               + kc.element_size() * 2 * tokens * KV * D + 4 * B)
     b_ms, b_by = bound(4.0 * H * D * tokens, nbytes, dtype)
     kernel_graph_ms = graph_ms(torch, kernel)
-    lse = check_decode_lse(torch, ops_mod, q, kc, vc, lengths, out, ref, truth, tol)
+    lse = check_decode_lse(torch, ops_mod, q, kc, vc, lengths, out, ref, truth, tol,
+                           splits=(2,) if blocks is None else (2, blocks))
     return {"kernel": "decode_attention", "dtype": dtype,
             "cache_dtype": cache_dtype,
             "shape": {"B": B, "H": H, "KV": KV, "D": D, "Smax": Smax, "lengths": lens},
@@ -608,33 +615,40 @@ def check_decode(torch, F, ops_mod, dev, gen, H, KV, D, Smax, lens, dtype,
 LSE_TOL = 1e-4
 
 
-def check_decode_lse(torch, ops_mod, q, kc, vc, lengths, out, ref, truth, tol):
+def check_decode_lse(torch, ops_mod, q, kc, vc, lengths, out, ref, truth, tol,
+                     splits=(2,)):
     """The decode kernel's partial-output mode, as the ranks of a "seq"
-    cache call it: the kernel with its LSE over the two halves of the
-    cache, each row at the length that falls in each half, merged as the
-    ranks merge (``sharding.merge_partials``).  The merged output is held
-    to the whole call ``out`` and to the plain version ``ref`` (TOL, and
-    ROW_REL_TOL against ``truth``), each half's LSE to the plain LSE
+    cache call it: for each n of ``splits``, the kernel with its LSE over
+    n equal blocks of the cache (the halves; 8 blocks of hymba's
+    1024-entry ring, as 8 model ways hold its indices), each row at the
+    part of its valid prefix that falls in each block, merged as the ranks
+    merge (``sharding.merge_partials``, in block order).  Each merge is
+    held to the whole call ``out`` and to the plain version ``ref`` (TOL,
+    and ROW_REL_TOL against ``truth``), each block's LSE to the plain LSE
     within LSE_TOL (-inf exactly where a row has no position there), the
     whole call's LSE too, two calls bit-equal; and the graph ms of the
     whole call in the LSE mode beside the plain mode's, timed in turns
-    (plain, LSE, LSE, plain), the mean of each mode's two."""
+    (plain, LSE, LSE, plain), the mean of each mode's two; past the
+    halves, the graph ms of one block's call (a rank's) and of the
+    merge."""
     from repro_torch.distributed.sharding import merge_partials
     from repro_torch.kernels.decode_attention import decode_attention_ref
 
     B, H, D = q.shape
     KV, Smax = kc.shape[1], kc.shape[2]
-    qg, half = q.reshape(B, KV, H // KV, D), Smax // 2
-    parts = [(slice(0, half), lengths.clamp(0, half)),
-             (slice(half, Smax), (lengths - half).clamp(0, Smax - half)),
-             (slice(0, Smax), lengths)]  # the whole cache
+    qg = q.reshape(B, KV, H // KV, D)
+    cuts = {n: [Smax * i // n for i in range(n + 1)] for n in splits}
+    parts = [(slice(0, Smax), lengths)]  # the whole cache
+    for bounds in cuts.values():
+        parts += [(slice(a, b), (lengths - a).clamp(0, b - a))
+                  for a, b in zip(bounds[:-1], bounds[1:])]
 
-    def calls():
-        return [ops_mod.decode_attention_op(q, kc[:, :, s], vc[:, :, s], n,
-                                            return_lse=True) for s, n in parts]
+    def call(s, n):
+        return ops_mod.decode_attention_op(q, kc[:, :, s], vc[:, :, s], n,
+                                           return_lse=True)
 
-    got = calls()
-    again = calls()
+    got = [call(s, n) for s, n in parts]
+    again = [call(s, n) for s, n in parts]
     torch.cuda.synchronize()
     bit_equal = all(torch.equal(a, b) for x, y in zip(got, again) for a, b in zip(x, y))
     lse_err, lse_inf_ok = 0.0, True
@@ -645,19 +659,34 @@ def check_decode_lse(torch, ops_mod, q, kc, vc, lengths, out, ref, truth, tol):
         finite = torch.isfinite(want)
         if finite.any():
             lse_err = max(lse_err, float((lse[finite] - want[finite]).abs().max()))
-    merged = merge_partials([got[0][0], got[1][0]], [got[0][1], got[1][1]])
-    errs = {name: (merged - other.float()).abs()
-            for name, other in (("whole", out), ("plain", ref))}
-    ok_abs = all(bool((e <= tol + tol * ref.float().abs()).all()) for e in errs.values())
-    row_err = row_rel_err(torch, merged, truth)
-    return {"halves": [half, Smax - half], "lse_max_abs_err": lse_err,
-            "lse_tol": LSE_TOL, "lse_neginf_where_empty": lse_inf_ok,
-            "merged_vs_whole_max_abs_err": float(errs["whole"].max()),
-            "merged_vs_plain_max_abs_err": float(errs["plain"].max()),
-            "merged_max_row_rel_err": row_err, "bit_equal": bit_equal,
-            "ok": (ok_abs and row_err <= ROW_REL_TOL and lse_err <= LSE_TOL
-                   and lse_inf_ok and bit_equal
-                   and bool(torch.isfinite(merged).all())),
+    merges, at, ok = {}, 1, True
+    for n, bounds in cuts.items():
+        mine = got[at:at + n]
+        at += n
+        merged = merge_partials([o for o, _ in mine], [lse for _, lse in mine])
+        errs = {name: (merged - other.float()).abs()
+                for name, other in (("whole", out), ("plain", ref))}
+        ok_abs = all(bool((e <= tol + tol * ref.float().abs()).all())
+                     for e in errs.values())
+        row_err = row_rel_err(torch, merged, truth)
+        ok &= ok_abs and row_err <= ROW_REL_TOL and bool(torch.isfinite(merged).all())
+        merges[n] = {"bounds": bounds,
+                     "merged_vs_whole_max_abs_err": float(errs["whole"].max()),
+                     "merged_vs_plain_max_abs_err": float(errs["plain"].max()),
+                     "merged_max_row_rel_err": row_err}
+        if n > 2:
+            s, lens = parts[at - n]  # block 0's
+            merges[n]["block_graph_ms"] = graph_ms(torch, lambda: call(s, lens))
+            merges[n]["merge_graph_ms"] = graph_ms(torch, lambda: merge_partials(
+                [o for o, _ in mine], [lse for _, lse in mine]))
+    halves = merges.pop(2)
+    return {"halves": [b - a for a, b in zip(halves["bounds"], halves["bounds"][1:])],
+            "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+            "lse_neginf_where_empty": lse_inf_ok,
+            **{k: v for k, v in halves.items() if k != "bounds"},
+            "blocks": {str(n): m for n, m in merges.items()},
+            "bit_equal": bit_equal,
+            "ok": ok and lse_err <= LSE_TOL and lse_inf_ok and bit_equal,
             **lse_mode_ms(torch, ops_mod, q, kc, vc, lengths)}
 
 
@@ -1079,8 +1108,14 @@ HYMBA_FLASH_CASES = [(1, 2048, 25, 5, 64, 1024, "bfloat16"),
                      (1, 2048, 25, 5, 64, 0, "bfloat16"),
                      (1, 1500, 25, 5, 64, 1024, "float32")]
 RING_LENS = [0, 1, 77, 1000, 1024, 1024, 1024, 1024]
+# the ring as 8 model ways hold it under the "seq" layout, 8 blocks of 128
+# indices: the valid prefixes min(pos + 1, W) of an idle row, rows at
+# positions 100, 300, 450, 700 and 1023 (ends in blocks 0, 2, 3, 5, 7) and
+# two that wrapped (positions 1500 and 3000)
+RING_BLOCK_LENS = [0, 101, 301, 451, 701, 1024, 1024, 1024]
 HYMBA_DECODE_CASES = [(25, 5, 64, 1024, RING_LENS, "bfloat16"),
-                      (25, 5, 64, 4096, DECODE_LENS, "bfloat16")]
+                      (25, 5, 64, 4096, DECODE_LENS, "bfloat16"),
+                      (25, 5, 64, 1024, RING_BLOCK_LENS, "bfloat16", None, 8)]
 # the cross-attention decoders: llama-3.2-vision-11b's cross prefill of the
 # generate batch over 1601 image entries (H = 32, KV = 8, D = 128), and in
 # f32 at the model check's 1000 tokens; seamless-m4t-large-v2 (H = KV = 16,

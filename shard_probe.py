@@ -8,9 +8,11 @@ Needs ``--ways`` CUDA cards, the CUDA toolkit's ``nvcc`` and this
 checkout's ``src/repro_torch``; builds the attention kernels into
 ``build/`` first.  One process per card joins an NCCL group over
 ``tcp://localhost`` and a (1, ways) mesh over (data, model).  In f32,
-then in bf16, ``--arch`` (hymba-1.5b by default; a dense decoder such as
-qwen2.5-3b, whose 2 KV heads do not divide into 4 ways, takes the "seq"
-cache layout: every KV head over a block of the positions) is built at
+then in bf16, ``--arch`` (hymba-1.5b by default, whose window, and 5 KV
+heads over 4 ways, take the "seq" cache layout: every KV head over a
+block of the full layers' positions and of the window rings' indices; a
+dense decoder such as qwen2.5-3b, whose 2 KV heads do not divide into 4
+ways, takes it too, over a block of the positions) is built at
 full width and depth with weights drawn from ``chip_smoke.SEED`` on
 every card alike (``chip_smoke.seeded_model``); rank 0 first serves
 ``chip_smoke.SHARD_REQUESTS`` requests of its engine phase,
@@ -24,8 +26,8 @@ after an f32 run, the unsharded run's against the f32 one's), each
 rank's kernel launches, wall seconds and decode step ms, and each rank's
 attention call (its KV heads, query heads with padding, and the query
 heads it owns, from ``sharding.attention_share``) and its cache layout
-(``sharding.kv_layout``: the KV heads and positions of its engine's
-cache); then a line with the
+(the model's ``kv_layout``: the KV heads and positions of its engine's
+cache, and of hymba's rings their indices); then a line with the
 seconds and ``ok``, and the card's ``nvidia-smi`` line.  It exits
 non-zero unless every rank launched the flash and decode kernels as
 often as the unsharded run, the ranks agree, and the f32 run's tokens
@@ -103,19 +105,21 @@ def rank_main(rank: int, ways: int, port: int, arch: str, queue) -> None:
             # the engine's KV cache for one slot (none in a recurrent state)
             cache = model.init_cache(1, 4096)
             leaf = cache.get("k_full") if isinstance(cache, dict) else cache[0]
+            ring = cache.get("k_swa") if isinstance(cache, dict) else None
             run = {"dtype": dtype, "tokens": tokens, "wall_s": wall,
                    "launches": launches, "decode_steps": steps, "step_ms": step_ms,
                    "call": {"kv_heads": share.kv_heads,
                             "query_heads": share.kv_heads * share.group,
                             "own_query_heads": cfg.num_heads / ways,
                             "runs": [n for _, n in share.runs] or None,
-                            # a dense decoder's (``DenseLM.kv_layout``); the
-                            # other families keep "heads"
+                            # a dense decoder's or hymba's; the other
+                            # families keep "heads"
                             "kv_layout": (model.kv_layout() if hasattr(model, "kv_layout")
                                           else "heads"),
                             "cache_kv_heads": None if leaf is None else leaf.shape[2],
-                            "cache_positions": None if leaf is None else leaf.shape[3]}}
-            del cache, leaf
+                            "cache_positions": None if leaf is None else leaf.shape[3],
+                            "ring_indices": None if ring is None else ring.shape[3]}}
+            del cache, leaf, ring
             if plain is not None:
                 (tokens_p, wall_p, launches_p, steps_p, step_ms_p), logits_p = plain
                 run["plain"] = {"tokens": tokens_p, "wall_s": wall_p,

@@ -19,10 +19,12 @@ tensor of the step lands on a real device.  The meshes are
 in 32 NVLink hosts of 8; ``gpu2x32x8`` is (2, 32, 8) over (pod, data,
 model), 512.
 
-A dense decoder's prefill and decode caches take the layout of
-``sharding.kv_layout``: where its KV heads do not divide into the model
-ways, every KV head over a block of the positions, decoded with the q
-gather and an all-gather of the ranks' partial outputs.
+A dense decoder's and hymba's prefill and decode caches take the layout
+of ``sharding.kv_layout``: where the KV heads do not divide into the
+model ways (and, for hymba's window, at every model ways), every KV head
+over a block of the positions (of hymba's rings, a block of the ring
+indices), decoded with the q gather and an all-gather of the ranks'
+partial outputs.
 
 Statuses: ``skipped`` (the reference's skip list: ``shapes_for``),
 ``refused`` (``sharding.check_shardable`` or a kernel's operand checks
@@ -61,6 +63,7 @@ from repro_torch.distributed.sharding import (DATA_AXES, axis_sizes,
                                               shard_model)
 from repro_torch.kernels.common import REPO_ROOT, Refused
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.hymba import HymbaLM
 from repro_torch.models.transformer import DenseLM
 from repro_torch.models.zoo import build_model
 from repro_torch.training.optimizer import init_state
@@ -136,10 +139,10 @@ def count_step(cfg: ArchConfig, shape: InputShape, mesh,
         tokens = data_rows(_meta(B, S), mesh)
         inputs = {name: data_rows(t, mesh) for name, t in extra.items()}
         args, rows = [*params.values(), tokens, *inputs.values()], tokens.shape[0]
-        # a dense decoder's output cache of the prompt's S positions in the
-        # layout of its decode cache (``kv_layout``: under "seq" each rank
-        # keeps its block of them)
-        cache_len = {"max_len": S} if isinstance(model, DenseLM) else {}
+        # a dense decoder's or hymba's output cache of the prompt's S
+        # positions in the layout of its decode cache (``kv_layout``: under
+        # "seq" each rank keeps its block of them, and of hymba's rings)
+        cache_len = {"max_len": S} if isinstance(model, (DenseLM, HymbaLM)) else {}
 
         def run():
             return model.prefill(tokens, **inputs, **cache_len)

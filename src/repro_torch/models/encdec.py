@@ -33,9 +33,12 @@ Sq != Sk there); decode attends over the self cache's prefix and over all
 ``k``/``v`` in place.
 
 Sharded, every leaf keeps the "heads" layout (KV the KV heads of the
-rank's call), also where the reference lays the caches' positions over
-``model`` (its "seq" layout, which ``sharding.kv_layout`` gives
-``DenseLM``); the self and cross caches under "seq" are later work.
+rank's call), a lasting divergence: the reference lays the self and
+frame caches' positions over ``model``.  The 16 KV heads divide every
+model ways the config is meshed at, so ``sharding.kv_layout`` gives
+"heads", as the reference's dry-run rule does, and both caches are the
+bytes a GPU that "seq" would hold, without its q gather, merge and K/V
+gather (``wk``/``wv`` are split over ``model`` here).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ kernels; the Mamba heads are plain PyTorch, as the reference's are jnp
 :class:`HymbaLM` holds one :class:`HymbaLayer` per layer in a flat list
 (the reference groups them only for ``lax.scan``) and serves:
 
-    prefill(tokens)                   -> (last logits, prefill cache)
+    prefill(tokens[, max_len])        -> (last logits, prefill cache)
     decode_step(cache, tokens, pos)   -> (logits, cache)
     init_cache(batch, max_len)        -> cache
 
@@ -20,7 +20,7 @@ and trains through ``forward_loss(tokens, labels)``, the reference's: the
 prefill's function with fresh Mamba states and no cache, each layer
 rematerialised (``layers.remat``).
 
-The cache is a dict of stacked leaves:
+The cache is a :class:`HymbaCache`, a dict of stacked leaves:
 
     k_full, v_full  (F, B, KV, max_len, D)       bf16, the F full layers
     k_swa, v_swa    (W_n, B, KV, min(W, max_len), D)  bf16, ring of the
@@ -28,16 +28,26 @@ The cache is a dict of stacked leaves:
     conv            (L, B, h, CONV_K - 1)        the weights' dtype
     ssm             (L, B, h, ssm_state)         f32
 
-A prefill cache has the same keys, with S positions in ``k_full`` and
-min(S, W) in ``k_swa``.  ``decode_step`` updates the cache in place.
+A prefill cache is a plain dict of the same keys, with S positions in
+``k_full`` and min(S, W) in ``k_swa``.  ``decode_step`` updates the cache
+in place.
 
-Sharded (``distributed.sharding.shard_model``), KV is the KV heads of the
-rank's attention call (``sharding.attention_share``: every head its block
-of the query columns touches) and h its h / W Mamba channels.  The
-Mamba weights follow the reference's specs over the channels, but for
-``w_in``: its [x | z] halves are split per half (``PAIRED_HALVES``), so
-that a rank holds both halves of its channels; ``w_xdbc``'s rows give
-partial sums of the low rank, B and C, summed over ``model``.
+Sharded (``distributed.sharding.shard_model``), h is the rank's h / W
+Mamba channels and the KV cache takes the reference's layout over
+``model`` (``kv_layout``).  hymba attends with a window, so wherever its
+KV heads do not divide the model ways (5 over 2, 4 or 8) it is "seq":
+every KV head, over the rank's block of the full layers' max_len
+positions and of the rings' min(W, max_len) indices (``seq_shard``:
+all of them where the ways do not divide the length), the blocks in
+``HymbaCache.blocks``; decode runs ``layers.attention_block_decode_seq``
+with the layer's window (q gathered, the decode kernel's LSE mode over
+the block, ``merge_over_model``).  Elsewhere KV is the KV heads of the
+rank's attention call (``sharding.attention_share``: every head its
+block of the query columns touches).  The Mamba weights follow the
+reference's specs over the channels, but for ``w_in``: its [x | z]
+halves are split per half (``PAIRED_HALVES``), so that a rank holds
+both halves of its channels; ``w_xdbc``'s rows give partial sums of the
+low rank, B and C, summed over ``model``.
 
 Deliberate divergences from the reference:
 
@@ -51,15 +61,16 @@ Deliberate divergences from the reference:
   no value, and a layer kept whole would hold its Mamba scan's f32
   intermediates through the whole backward;
 * sharded, ``w_in`` is split per half where the reference's ``fit_spec``
-  splits its 2h columns (the same bytes a rank), and the KV cache keeps
-  the "heads" layout, the rank's touched KV heads, where the reference
-  lays the sequence over ``model`` (its ``"seq"`` layout, which
-  ``sharding.kv_layout`` gives ``DenseLM``; the window rings and the
-  Mamba states under "seq" are later work).
+  splits its 2h columns (the same bytes a rank); and where the KV heads
+  divide the model ways (no production mesh) the KV projections are
+  split over ``model`` and the cache keeps the "heads" layout, the
+  rank's own KV heads over every position: the bytes of "seq", without
+  its q gather and merge, the reference's dry-run's own rule for such
+  heads but for the window.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,10 +78,13 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import model_device
-from repro_torch.distributed.sharding import (MODEL, attention_share,
-                                             copy_to_model, local, model_ways)
+from repro_torch.distributed.sharding import (MODEL, SeqShard,
+                                             attention_share, copy_to_model,
+                                             kv_layout, local, model_mesh,
+                                             model_shard, model_ways, seq_shard)
 from repro_torch.models.layers import (ACC_DTYPE, ATTENTION_SPECS, MLP_SPECS,
                                        NORM_SPEC, attention_block_decode,
+                                       attention_block_decode_seq,
                                        attention_block_prefill, embed_lookup,
                                        matmul, mlp_block, model_logits,
                                        model_loss, remat, rms_norm,
@@ -316,25 +330,33 @@ class HymbaLayer(nn.Module):
                           dtype=ACC_DTYPE)
         return self.prefill(x, cfg, plain, conv, ssm)[0]
 
-    def prefill(self, x, cfg, plain, conv_state, ssm_state):
-        """x: (B, S, d).  Returns (x, (k, v) (B, KV, S, D), conv, ssm)."""
+    def prefill(self, x, cfg, plain, conv_state, ssm_state, all_kv=False):
+        """x: (B, S, d).  Returns (x, (k, v) (B, KV, S, D), conv, ssm); KV
+        every KV head with ``all_kv`` (the "seq" layout's)."""
         h_in = rms_norm(x, self.ln1, cfg.norm_eps)
         # each branch takes the normed input through a node of its own, so
         # that its gradient is summed within the branch first, as a sharded
         # layer's ``copy_to_model`` sums it (the same bits, sharded or not)
         attn_out, kv = attention_block_prefill(self.attn, h_in.view_as(h_in), cfg,
-                                               window=self.window, plain=plain)
+                                               window=self.window, plain=plain,
+                                               all_kv=all_kv)
         ssm_out, conv_state, ssm_state = mamba_prefill(
             self.mamba, h_in.view_as(h_in), conv_state, ssm_state)
         return self._fuse_and_mlp(x, attn_out, ssm_out, cfg), kv, conv_state, \
             ssm_state
 
-    def decode(self, x, kv, pos, cfg, plain, conv_state, ssm_state):
+    def decode(self, x, kv, pos, cfg, plain, conv_state, ssm_state,
+               layout="heads", seq=None):
         """x: (B, d).  Writes K/V into ``kv`` in place (at ``pos``, or at
-        ``pos % W`` on a ring); returns (x, conv, ssm)."""
+        ``pos % W`` on a ring; under the "seq" ``layout`` where the rank's
+        block ``seq`` holds it) and returns (x, conv, ssm)."""
         h_in = rms_norm(x, self.ln1, cfg.norm_eps)
-        attn_out, _ = attention_block_decode(self.attn, h_in, kv, pos, cfg,
-                                             window=self.window, plain=plain)
+        if layout == "heads":
+            attn_out, _ = attention_block_decode(self.attn, h_in, kv, pos, cfg,
+                                                 window=self.window, plain=plain)
+        else:
+            attn_out, _ = attention_block_decode_seq(
+                self.attn, h_in, kv, pos, cfg, seq, window=self.window, plain=plain)
         ssm_out, conv_state, ssm_state = mamba_decode(self.mamba, h_in,
                                                       conv_state, ssm_state)
         return self._fuse_and_mlp(x, attn_out, ssm_out, cfg), conv_state, \
@@ -348,6 +370,33 @@ def _ring(kv: torch.Tensor, window: int) -> torch.Tensor:
     if S <= window:
         return kv
     return torch.roll(kv[:, :, S - window:], shifts=S % window, dims=2)
+
+
+class HymbaCache(dict):
+    """hymba's decode cache, the dict of its leaves, with ``blocks``: per
+    KV kind ("full", "swa") the rank's block of the full layers' positions
+    or of the rings' indices under the "seq" layout (``SeqShard``), or
+    None where the leaves hold all of them.  As for ``sharding.KVCache``,
+    the leaves alone cannot tell a block of a longer cache from a whole
+    short one."""
+
+    def __init__(self, leaves: dict, blocks: Dict[str, Optional[SeqShard]]):
+        super().__init__(leaves)
+        self.blocks = blocks
+
+    def block(self, name: str) -> Optional[SeqShard]:
+        """The block of leaf ``name`` ("k_full" ... "v_swa"); None for the
+        Mamba states."""
+        return self.blocks.get(name.partition("_")[2])
+
+
+def _held(length: int, seq: Optional[SeqShard]) -> int:
+    """How many of a cache's first ``length`` positions (or ring indices)
+    lie in the block ``seq`` (all where None)."""
+    return length if seq is None else min(max(length - seq.start, 0), seq.chunk)
+
+
+WHOLE = {"full": None, "swa": None}
 
 
 class HymbaLM(nn.Module):
@@ -406,26 +455,47 @@ class HymbaLM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _cache(self, batch: int, length: int, kv_dtype: torch.dtype):
-        """Zero cache leaves for ``batch`` sequences of ``length`` positions:
-        full-layer KV of ``length``, ring KV of min(W, length); in a
-        sharded model the KV heads of the rank's attention call
-        (``attention_share``) and its Mamba channels."""
+    def kv_layout(self) -> str:
+        """The cache's layout over ``model``: ``sharding.kv_layout`` of the
+        config at the weights' mesh ("heads" unsharded), but "heads" where
+        the KV projections are split over ``model`` (the KV heads divide the
+        model ways; see the module's divergences)."""
+        layout = kv_layout(self.cfg, model_mesh(self))
+        if layout == "seq" and model_shard(self.layers[0].attn["wk"]) is not None:
+            return "heads"
+        return layout
+
+    def _blocks(self, max_len: int) -> Dict[str, Optional[SeqShard]]:
+        """Under the "seq" layout the rank's blocks (``seq_shard``) of a
+        cache of ``max_len`` positions: of the full layers' max_len and of
+        the rings' min(W, max_len) indices; else ``WHOLE``."""
+        if self.kv_layout() == "heads":
+            return WHOLE
+        wq = self.layers[0].attn["wq"]
+        return {"full": seq_shard(wq, max_len),
+                "swa": seq_shard(wq, min(self.cfg.sliding_window, max_len))}
+
+    def _cache(self, batch: int, full: int, ring: int,
+               kv_dtype: torch.dtype) -> dict:
+        """Zero cache leaves for ``batch`` sequences: full-layer KV of
+        ``full`` positions, ring KV of ``ring`` indices, every KV head
+        under the "seq" layout, else the KV heads of the rank's attention
+        call (``attention_share``); its Mamba channels."""
         cfg = self.cfg
         n_full = sum(kind == "full" for kind, _ in self._kv_slot)
         layer = self.layers[0]
         L, n = cfg.num_layers, cfg.ssm_state
         h = mamba_channels(layer.mamba, cfg)
-        heads = attention_share(layer.attn["wq"], layer.attn["wk"], cfg).kv_heads
+        heads = (cfg.num_kv_heads if self.kv_layout() == "seq" else
+                 attention_share(layer.attn["wq"], layer.attn["wk"], cfg).kv_heads)
 
         def kv(layers, positions):
             return torch.zeros((layers, batch, heads, positions,
                                 cfg.head_dim), device=self.device,
                                dtype=kv_dtype)
 
-        ring = min(cfg.sliding_window, length)
         return {
-            "k_full": kv(n_full, length), "v_full": kv(n_full, length),
+            "k_full": kv(n_full, full), "v_full": kv(n_full, full),
             "k_swa": kv(L - n_full, ring), "v_swa": kv(L - n_full, ring),
             "conv": torch.zeros((L, batch, h, CONV_K - 1), device=self.device,
                                 dtype=self.dtype),
@@ -434,20 +504,33 @@ class HymbaLM(nn.Module):
         }
 
     @torch.no_grad()
-    def prefill(self, tokens):
+    def prefill(self, tokens, *, max_len: Optional[int] = None):
         """tokens: (B, S), any S >= 1.  Returns the logits (B, vocab) of the
-        last token and the prefill cache: the prompt's KV in the weights'
-        dtype (S positions in a full layer, the ring of min(S, W) positions
-        at p % W in a window layer) and the Mamba states after it."""
+        last token and the prefill cache, a dict: the prompt's KV in the
+        weights' dtype (S positions in a full layer, the ring of min(S, W)
+        positions at p % W in a window layer) and the Mamba states after
+        it.  Under the "seq" layout KV is every KV head, and with
+        ``max_len`` (the positions of the cache it goes to) each rank keeps
+        its blocks (``_blocks(max_len)``) of the prompt's positions and
+        ring indices: a shorter or empty block where the prompt ends
+        before it."""
         tokens = self._tokens(tokens)
+        B, S = tokens.shape
         x = embed_lookup(self.embed, tokens)
-        cache = self._cache(tokens.shape[0], tokens.shape[1], self.dtype)
+        seq_layout = self.kv_layout() == "seq"
+        blocks = self._blocks(max_len) if max_len is not None else WHOLE
+        cache = self._cache(B, _held(S, blocks["full"]),
+                            _held(min(self.cfg.sliding_window, S), blocks["swa"]),
+                            self.dtype)
         for i, (layer, (kind, j)) in enumerate(zip(self.layers, self._kv_slot)):
             x, (k, v), conv, ssm = layer.prefill(
                 x, self.cfg, self.plain_kernels, cache["conv"][i],
-                cache["ssm"][i])
+                cache["ssm"][i], all_kv=seq_layout)
             if kind == "swa":
                 k, v = _ring(k, layer.window), _ring(v, layer.window)
+            seq = blocks[kind]
+            if seq is not None:  # copied below: the whole prompt's KV goes now
+                k, v = (t[:, :, seq.start:seq.start + seq.chunk] for t in (k, v))
             cache[f"k_{kind}"][j] = k
             cache[f"v_{kind}"][j] = v
             cache["conv"][i] = conv
@@ -456,17 +539,25 @@ class HymbaLM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
-        """One token per row.  cache: the dict of ``init_cache``; tokens:
+        """One token per row.  cache: the ``HymbaCache`` of ``init_cache``
+        (under the "heads" layout a dict of its leaves will do); tokens:
         (B,); pos: scalar or (B,) positions, negative for an idle row (no
         KV write, output discarded; its Mamba state still steps).  Updates
         ``cache`` in place and returns (logits (B, vocab) f32, cache)."""
+        layout = self.kv_layout()
+        if layout == "seq" and not isinstance(cache, HymbaCache):
+            raise ValueError(f"{self.cfg.name}: a cache of the \"seq\" layout "
+                             "is the HymbaCache of init_cache, which says the "
+                             "rank's blocks of positions")
         x = embed_lookup(self.embed, self._tokens(tokens))
         pos = torch.as_tensor(pos, device=self.device)
         for i, (layer, (kind, j)) in enumerate(zip(self.layers, self._kv_slot)):
             kv = (cache[f"k_{kind}"][j], cache[f"v_{kind}"][j])
+            seq = cache.blocks[kind] if layout == "seq" else None
             x, conv, ssm = layer.decode(x, kv, pos, self.cfg,
                                         self.plain_kernels,
-                                        cache["conv"][i], cache["ssm"][i])
+                                        cache["conv"][i], cache["ssm"][i],
+                                        layout, seq)
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
         return model_logits(self, x), cache
@@ -480,5 +571,13 @@ class HymbaLM(nn.Module):
             x = remat(layer, x, self.cfg, self.plain_kernels)
         return model_loss(self, x, self._tokens(labels))
 
-    def init_cache(self, batch: int, max_len: int):
-        return self._cache(batch, max_len, CACHE_DTYPE)
+    def init_cache(self, batch: int, max_len: int) -> HymbaCache:
+        """Zero leaves for ``batch`` sequences of ``max_len`` positions, the
+        KV bf16: under the "seq" layout each KV leaf the rank's block
+        (``_blocks``), or all of its positions where the model ways do not
+        divide them."""
+        blocks = self._blocks(max_len)
+        ring = min(self.cfg.sliding_window, max_len)
+        return HymbaCache(self._cache(batch, _held(max_len, blocks["full"]),
+                                      _held(ring, blocks["swa"]), CACHE_DTYPE),
+                          blocks)

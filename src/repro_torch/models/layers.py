@@ -463,20 +463,25 @@ def attention_block_decode(p, x: torch.Tensor, kv_cache, pos, cfg, *,
 
 
 def attention_block_decode_seq(p, x: torch.Tensor, kv_cache, pos, cfg,
-                               seq: Optional[SeqShard], *,
+                               seq: Optional[SeqShard], *, window: int = 0,
                                plain: bool = False):
     """``attention_block_decode`` over a cache of the "seq" layout
     (``sharding.kv_layout``): every KV head, at the rank's block ``seq``
     of the positions, or at all of them where ``seq`` is None (the cache's
-    length does not split into the model ways).
+    length does not split into the model ways).  With ``window`` the
+    cache is a ring of R entries (the whole ring's, ``seq.chunk`` times
+    the ways) and position p sits at ring index p % R, so the blocks are
+    of ring indices.
 
     q is gathered over ``model``, so that the rank runs every query head,
     and k, v are computed for every KV head (the KV projections are whole
-    on every rank).  Only the rank whose block holds ``pos`` writes them,
-    at ``pos - seq.start``; a row with ``pos < 0`` is idle and writes
-    nothing anywhere.  The kernel attends over the rank's block, row b
-    over ``clamp(pos_b + 1 - seq.start, 0, seq.chunk)`` entries, and
-    returns its f32 output with the LSE, which ``merge_over_model``
+    on every rank).  Only the rank whose block holds ``pos`` (on a ring,
+    ``pos % R``) writes them, there less ``seq.start``; a row with
+    ``pos < 0`` is idle and writes nothing anywhere.  The valid entries
+    are a prefix of the cache, ``pos + 1`` of them (on a ring
+    ``min(pos + 1, R)``), so the kernel attends over the rank's block
+    with row b over ``clamp(valid_b - seq.start, 0, seq.chunk)`` entries,
+    and returns its f32 output with the LSE, which ``merge_over_model``
     merges over ``model``; over a whole cache the call is the output.
     The rank's own query columns then enter ``wo``'s rows."""
     B = x.shape[0]
@@ -489,11 +494,16 @@ def attention_block_decode_seq(p, x: torch.Tensor, kv_cache, pos, cfg,
                       cols=slice(tp.rank * block, (tp.rank + 1) * block))
     q, k, v = attention_qkv(p, x[:, None, :], pos[:, None], cfg, every)
     start, held = (0, k_cache.shape[2]) if seq is None else (seq.start, seq.chunk)
-    at = pos - start
+    # a ring of R entries holds position p at index p % R
+    ring = (held if seq is None else held * seq.ways) if window > 0 else None
+    at = pos - start if ring is None else pos % ring - start
     mine = (pos >= 0) & (at >= 0) & (at < held)
     write_kv(k_cache, k.transpose(1, 2), torch.where(mine, at, -1))
     write_kv(v_cache, v.transpose(1, 2), torch.where(mine, at, -1))
-    cache_len = torch.where(pos >= 0, (at + 1).clamp(0, held), 0)
+    # the block's part of the valid prefix (on a ring min(pos + 1, R),
+    # which the clamp to the block gives)
+    end = at + 1 if ring is None else pos + 1 - start
+    cache_len = torch.where(pos >= 0, end.clamp(0, held), 0)
     if seq is None:
         out = decode_attention(q[:, 0], k_cache, v_cache, cache_len, plain=plain)
     else:

@@ -32,9 +32,13 @@ rope; prefill attends over them through the flash kernel's non-causal mode
 place.
 
 Sharded, every leaf keeps the "heads" layout (KV the KV heads of the
-rank's call), also where the reference lays the self cache's positions
-over ``model`` (its "seq" layout, which ``sharding.kv_layout`` gives
-``DenseLM``); the self and cross caches under "seq" are later work.
+rank's call), a lasting divergence: the reference lays the self cache's
+positions over ``model`` and replicates the image cache over it.  The 8
+KV heads divide every model ways the config is meshed at, so
+``sharding.kv_layout`` gives "heads", as the reference's dry-run rule
+does; the self cache is then the bytes a GPU that "seq" would hold,
+without its q gather, merge and K/V gather (``wk``/``wv`` are split over
+``model`` here), and the image cache a W-th of the reference's.
 """
 from __future__ import annotations
 

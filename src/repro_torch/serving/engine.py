@@ -23,7 +23,10 @@ The cache tensors are updated in place.  A sharded dense decoder whose
 cache lays its positions over ``model`` (the "seq" layout) writes only
 this rank's block of the slot's positions (``SlotKVCache.write_prefill``
 of the prompt's KV), copies only the block's part of a cached prefix,
-and decodes through the model's ``KVCache``, which carries the block.
+and decodes through the model's ``KVCache``, which carries the block; a
+sharded hymba's ``HymbaCache`` carries its blocks of the full layers'
+positions and of the rings' indices, and admission writes those blocks
+of the prompt's KV (``_merge_slot``).
 
 One deliberate divergence from the reference: the reference decodes
 idle slots too, as token 0 at position 0, and so overwrites position 0
@@ -47,6 +50,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import KVCache
 from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hymba import HymbaCache
 from repro_torch.models.transformer import EncoderLM
 from repro_torch.models.vision import VisionLM
 from repro_torch.serving.kv_cache import SlotKVCache
@@ -235,13 +239,16 @@ def _merge_slot(cache, prefill_cache, slot: int) -> None:
     p at p % W).  A shorter leaf is a KV of (L, 1, KV, S, D): it fills
     positions 0..S-1 (ring indices, for a ring of S < W) and the rest of
     the slot is zeroed, as the reference's padded update leaves it.  Into
-    a ``KVCache`` that holds a block of the positions (the "seq" layout),
-    the prompt's KV of every position gives the block's part."""
-    if isinstance(cache, dict):
+    a ``KVCache`` or a ``HymbaCache`` whose KV leaves hold a block of the
+    positions or ring indices (the "seq" layout), the prompt's KV of every
+    position or index gives the block's part."""
+    if isinstance(cache, HymbaCache):
+        pairs = [(big, _block(prefill_cache[name], cache.block(name)))
+                 for name, big in cache.items()]
+    elif isinstance(cache, dict):
         pairs = [(big, prefill_cache[name]) for name, big in cache.items()]
-    elif isinstance(cache, KVCache) and cache.seq is not None:
-        block = slice(cache.seq.start, cache.seq.start + cache.seq.chunk)
-        pairs = [(big, small[:, :, :, block]) for big, small in zip(cache, prefill_cache)]
+    elif isinstance(cache, KVCache):
+        pairs = [(big, _block(small, cache.seq)) for big, small in zip(cache, prefill_cache)]
     else:
         pairs = zip(cache, prefill_cache)
     for big, small in pairs:
@@ -252,3 +259,9 @@ def _merge_slot(cache, prefill_cache, slot: int) -> None:
         S = small.shape[2]
         dst[:, :, :S] = small
         dst[:, :, S:] = 0
+
+
+def _block(kv: torch.Tensor, seq) -> torch.Tensor:
+    """The part of a prompt's (L, 1, KV, S, D) KV that falls in the block
+    ``seq`` of the positions (all of it where None)."""
+    return kv if seq is None else kv[:, :, :, seq.start:seq.start + seq.chunk]

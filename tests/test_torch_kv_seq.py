@@ -27,8 +27,13 @@ port.
   under the same calls.
 * The dry-run counts qwen2.5-3b's decode_32k at ``gpu32x8`` over the
   "seq" cache.
+* The lasting divergence: the VLM and the enc-dec keep "heads", where
+  their KV heads divide the model ways, at the bytes a GPU that the
+  reference's "seq" spec would hold.
 """
 import dataclasses
+import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +46,7 @@ from repro.configs.registry import get_config as jax_get_config
 from repro.configs.registry import reduced_config as jax_reduced_config
 from repro.models import build_model as jax_build_model
 from repro.serving import kv_cache as jax_kv_cache
+from repro_torch.configs.base import SHAPES_BY_NAME
 from repro_torch.configs.registry import ASSIGNED, get_config, reduced_config
 from repro_torch.distributed import sharding
 from repro_torch.kernels import common
@@ -48,6 +54,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       decode_attention_split_ref)
 from repro_torch.launch import dryrun
+from repro_torch.models import build_model
 from repro_torch.serving.kv_cache import PagedKVCache, SlotKVCache
 
 import torch_sharded_worker as worker
@@ -493,3 +500,48 @@ def test_dryrun_counts_the_seq_cache(tmp_path):
     coll = rec["collectives"]
     assert coll["all-gather"]["count"] == 2 * L + 1
     assert coll["all-reduce"]["count"] == 2 * L + 1
+
+
+@pytest.mark.parametrize("mesh", list(PROD_MESHES))
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "seamless-m4t-large-v2"])
+def test_vlm_and_encdec_keep_heads_at_the_seq_bytes(arch, mesh):
+    """A lasting divergence.  The reference lays the VLM's and the
+    enc-dec's self caches' positions over ``model`` (their
+    ``cache_spec_fn`` takes no layout), the enc-dec's frame cache too, and
+    replicates the VLM's image cache.  Their KV heads divide the model ways
+    (8 and 16 over 8), so ``kv_layout`` gives "heads", as the reference's
+    dry-run rule does, and the port keeps each rank's KV heads over every
+    position.  A GPU's cache in the port's decode_32k record is the bytes
+    of the reference's shapes with ``model`` on the KV heads: the self
+    cache's bytes under the reference's spec, seamless's frame cache's
+    too, and the VLM's image cache a W-th of the reference's."""
+    sizes, ways = PROD_MESHES[mesh], PROD_MESHES[mesh]["model"]
+    cfg, jcfg = get_config(arch), JAX_ASSIGNED[arch]
+    assert sharding.kv_layout(cfg, sizes) == "heads" == _reference_rule(jcfg, ways)
+    shape = SHAPES_BY_NAME["decode_32k"]
+    bundle = jax_build_model(jcfg)
+    leaves = bundle.cache_shape_fn(shape.global_batch, shape.seq_len)
+    ref_specs = bundle.cache_spec_fn()
+
+    def gpu_bytes(leaf, spec):
+        fitted = sharding.fit_spec(tuple(spec), leaf.shape, sizes)
+        return math.prod(sharding.local_shape(leaf.shape, fitted, sizes)) * leaf.dtype.itemsize
+
+    def heads_spec(spec):  # "model" on the KV heads, not on the positions
+        entries = list(spec)
+        entries[-3], entries[-2] = "model", None
+        return tuple(entries)
+
+    ref = {part: sum(gpu_bytes(leaf, spec) for leaf, spec in zip(leaves[part], ref_specs[part]))
+           for part in ("self", "cross")}
+    ours = {part: sum(gpu_bytes(leaf, heads_spec(spec))
+                      for leaf, spec in zip(leaves[part], ref_specs[part]))
+            for part in ("self", "cross")}
+    assert ours["self"] == ref["self"]
+    assert ours["cross"] * (ways if cfg.family == "vlm" else 1) == ref["cross"]
+    rec = json.loads((dryrun.RESULTS_DIR / f"{arch}__decode_32k__{mesh}.json").read_text())
+    assert rec["status"] == "ok"
+    weights = sharding.per_gpu_bytes(build_model(cfg, device="meta"), sizes)["weights"]
+    # the arguments: the local weights, the cache and the tokens' storage
+    held = rec["memory"]["argument_bytes"] - weights - 4 * shape.global_batch
+    assert held == ours["self"] + ours["cross"]

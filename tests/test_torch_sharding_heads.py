@@ -227,13 +227,15 @@ def _call_kv_heads(cfg, ways, rank):
 def test_sharded_prefill_and_decode_match_unsharded(runs, key):
     """Prefill logits within SERVE_TOL of their scale and decode steps'
     within TOL (the bf16 cache may round an entry the other way); each
-    rank's cache holds the KV heads of its call (the dense config at
-    (1, 4), whose 2 KV heads do not divide into 4 ways, every KV head over
-    its block of the positions: the "seq" layout) and, in hymba, its h / W
-    Mamba channels; only plain tensors reach the kernel wrappers."""
+    rank's cache holds the KV heads of its call, or under the "seq" layout
+    (the dense config at (1, 4), whose 2 KV heads do not divide into 4
+    ways; hymba, whose window takes it at every sharded mesh) every KV
+    head over its block of the positions and of the ring's indices, and,
+    in hymba, its h / W Mamba channels; only plain tensors reach the
+    kernel wrappers."""
     ranks, plain, case = runs[key]
     cfg, (_, ways) = case["cfg"], case["mesh"]
-    seq = cfg.family == "dense" and sharding.kv_layout(cfg, {"model": ways}) == "seq"
+    seq = sharding.kv_layout(cfg, {"model": ways}) == "seq"
     for rank, r in enumerate(ranks):
         _close(r["serve_logits"][0], plain["serve_logits"][0], SERVE_TOL, "prefill")
         _close(r["serve_logits"][1:], plain["serve_logits"][1:], TOL, "decode")
@@ -244,7 +246,7 @@ def test_sharded_prefill_and_decode_match_unsharded(runs, key):
             if name in ("conv", "ssm"):
                 want[2] = shape[2] // ways
             elif seq:
-                want[3] = shape[3] // ways
+                want[3] = shape[3] // ways if shape[3] % ways == 0 else shape[3]
             else:
                 want[2] = heads
             assert r["cache_shapes"][name] == tuple(want), (rank, name)

@@ -166,7 +166,9 @@ def serve_case(case, mesh=None) -> dict:
     per row, negative for an idle row), the cache's shapes and its block
     of positions, and the engine's tokens and cached prefix lengths over
     ``serve["slots"]`` slots of ``serve["max_len"]`` positions, on
-    ``mesh`` or unsharded."""
+    ``mesh`` or unsharded.  Of a hymba cache also its blocks of the full
+    layers' positions and of the rings' indices (``HymbaCache.blocks``),
+    and of every cache its leaves after the last step."""
     from repro_torch.serving.engine import ServeRequest, ServingEngine, _merge_slot
 
     serve = case["serve"]
@@ -180,10 +182,14 @@ def serve_case(case, mesh=None) -> dict:
     for tokens, pos in zip(case["decode"], serve["decode_pos"]):
         logits, cache = model.decode_step(cache, tokens, pos)
         seq.append(logits)
-    block = getattr(cache, "seq", None)
+    def span(block):
+        return None if block is None else (block.start, block.chunk)
+
     out = {"serve_logits": torch.stack(seq).float().numpy(),
            "cache_shapes": {name: tuple(leaf.shape) for name, leaf in _leaves(cache)},
-           "block": None if block is None else (block.start, block.chunk)}
+           "block": span(getattr(cache, "seq", None)),
+           "blocks": {kind: span(b) for kind, b in getattr(cache, "blocks", {}).items()},
+           "leaves": {name: leaf.float().numpy().copy() for name, leaf in _leaves(cache)}}
     engine = ServingEngine(model, device="cpu", slots=serve["slots"],
                            max_len=serve["max_len"])
     for i, prompt in enumerate(case["requests"]):
