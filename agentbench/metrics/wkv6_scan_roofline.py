@@ -1,0 +1,7 @@
+"""Percent of wkv6_scan's roofline over the profiled stretch: its calls'
+bounds (``agentbench/counts/wkv6_scan.py``) over its entries' device time."""
+from agentbench.metrics import roofline
+
+
+def read(record):
+    return roofline(record, "wkv6_scan")
